@@ -1,4 +1,5 @@
-// K1: the whole CIN tower forward (eval mode) in one launch.
+// K1: the whole CIN tower forward in one launch, with or without saving
+// the fmaps for the backward.
 //
 // Replaces the TPU kernel recman_tpu/ops/cin_chain.py:_chain_fwd_kernel
 // (launched from _chain_fwd_pallas). Bound to PyTorch through a plain C
@@ -11,13 +12,19 @@
 //   fmap         = act(pre), act in {identity, relu, leaky_relu 0.2}
 // The first O_i/2 rows of a non-final fmap are the next layer's xk; the
 // other rows (all rows of the last fmap) are sum-pooled over the D
-// positions of each batch row into out_i (B, F_i) f32. Only the pooled
-// outputs are written: the fmaps never leave the block.
+// positions of each batch row into out_i (B, F_i) f32. Without `fmap`
+// (serving) only the pooled outputs are written and the fmaps never
+// leave the block. With it (the reference's CHAIN_SAVE_FMAPS, training)
+// every layer's whole fmap, activated and not rounded, is also written
+// to fmap_i (O_i, B*D) f32 for the backward (K2, csrc/cin_chain_bwd.cu);
+// the feed rows still stay in shared memory for the next layer.
 //
 // Bound on an H100 SXM: operations. At the serving geometry (H0 = 26,
 // units (100, 100), D = 16, B = 8192) the two contractions are 51.8 GFLOP
 // of bf16 products, 52 us at the 989 TFLOP/s bf16 tensor-core peak; the
-// bytes (13.6 MB of x0c in, 4.9 MB pooled out) take 5.5 us at 3.35 TB/s.
+// bytes (13.6 MB of x0c in, 4.9 MB pooled out) take 5.5 us at 3.35 TB/s;
+// saving the fmaps adds 104.9 MB (2 x 100 x 131,072 x 4 B), 31 us, so
+// operations bound the save variant too.
 // This simple design runs on the CUDA cores: 1.56 ms at that geometry on
 // an H100 80GB HBM3 at a 700 W power limit (chip_smoke.py), about 30x the
 // bound. Tensor cores (mma.sync / wgmma, bf16 in, f32 sums) keep the same
@@ -59,6 +66,7 @@ struct ChainArgs {
   const __nv_bfloat16* w[kMaxLayers]; // (h0*hk, o_pad) bf16, row h*hk+m
   const float* b[kMaxLayers];         // (o,) f32
   float* out[kMaxLayers];             // (bd/d, o - feed) f32
+  float* fmap[kMaxLayers];            // (o, bd) f32, or null: not saved
 };
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -158,6 +166,9 @@ cin_chain_fwd_kernel(const ChainArgs a) {
         float v[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) v[c] = activate(acc[j][c] + bias, a.act);
+        if (a.fmap[l] != nullptr)
+          *reinterpret_cast<float4*>(a.fmap[l] + (size_t)om * a.bd + col0 + n0) =
+              make_float4(v[0], v[1], v[2], v[3]);
         if (om < nfeed) {
           // only bf16(xk) enters the next layer's z
           *reinterpret_cast<float4*>(feed + om * kTileN + n0) = make_float4(
@@ -204,13 +215,14 @@ extern "C" int cin_chain_fwd_smem_bytes(int h0, int n_layers, const int* units) 
 
 // Launches K1 on `stream`. x0c (h0, bd) f32; w[l] (h0*hk_l, o_pad_l) bf16
 // with o_pad_l = roundup(units[l], 8) and padding columns zero; b[l]
-// (units[l],) f32; out[l] (bd/d, F_l) f32. act: 0 identity, 1 relu,
-// 2 leaky_relu. Returns cudaGetLastError() after the launch (or
-// cudaErrorInvalidValue for a geometry outside the kernel's range).
+// (units[l],) f32; out[l] (bd/d, F_l) f32; fmap null (no fmaps saved) or
+// fmap[l] (units[l], bd) f32. act: 0 identity, 1 relu, 2 leaky_relu.
+// Returns cudaGetLastError() after the launch (or cudaErrorInvalidValue
+// for a geometry outside the kernel's range).
 extern "C" int cin_chain_fwd(const void* x0c, int h0, int bd, int d, int n_layers,
                              const int* units, const void* const* w,
-                             const void* const* b, void* const* out, int act,
-                             void* stream) {
+                             const void* const* b, void* const* out,
+                             void* const* fmap, int act, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || h0 < 1 || h0 > 128 || d < 1 ||
       kTileN % d != 0 || bd % kTileN != 0 || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
@@ -237,6 +249,7 @@ extern "C" int cin_chain_fwd(const void* x0c, int h0, int bd, int d, int n_layer
     a.w[l] = static_cast<const __nv_bfloat16*>(w[l]);
     a.b[l] = static_cast<const float*>(b[l]);
     a.out[l] = static_cast<float*>(out[l]);
+    a.fmap[l] = fmap != nullptr ? static_cast<float*>(fmap[l]) : nullptr;
     hk = o / 2;
   }
   const int smem = cin_chain_fwd_smem_bytes(h0, n_layers, units);

@@ -1,5 +1,5 @@
 from .cin import CIN
-from .common import ACTIVATIONS, leaky_relu, resolve_activation
+from .common import ACTIVATIONS, dropout, leaky_relu, resolve_activation
 from .dnn import DNN, dnn_combine
 from .embedding import EmbeddingLayer, sqrtn_combine
 from .linear import LinearLayer
@@ -15,6 +15,7 @@ __all__ = [
     "PackedEmbeddingLinear",
     "PredictionLayer",
     "dnn_combine",
+    "dropout",
     "leaky_relu",
     "resolve_activation",
     "sqrtn_combine",

@@ -1,16 +1,17 @@
 """MLP tower + input combiner (reference recman/tf/core/layers.py:484-628).
 
-Counterpart of ``recman_tpu/layers/dnn.py`` in eval mode (dropout is the
-identity). The matmuls are ``torch.matmul`` in f32, as the reference
-leaves them to XLA; Dice is not ported yet.
+Counterpart of ``recman_tpu/layers/dnn.py``: keep-probability dropout on
+the input (keep[0]) and after every activation (keep[i+1]) in training.
+The matmuls are ``torch.matmul`` in f32, as the reference leaves them to
+XLA; Dice is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils import glorot_normal
-from .common import resolve_activation
+from ..utils import glorot_normal, l2_loss
+from .common import dropout, resolve_activation
 
 
 def dnn_combine(inputs: list) -> torch.Tensor:
@@ -57,12 +58,22 @@ class DNN:
         params[f"{self.prefix}dnn_w0"] = torch.zeros((1,), dtype=torch.float32, device=device)
         return params
 
-    def apply(self, params, inputs):
+    def apply(self, params, inputs, training=False, generator=None):
         assert inputs.dim() == 2
-        y = inputs
+        y = dropout(generator, inputs, self.dropout_keep[0], training)
         for i in range(len(self.hidden_units)):
             y = self.activation(
                 y @ params[f"{self.prefix}dnn_layer_{i}_weights"]
                 + params[f"{self.prefix}dnn_layer_{i}_bias"]
             )
+            y = dropout(generator, y, self.dropout_keep[i + 1], training)
         return y @ params[f"{self.prefix}dnn_w"] + params[f"{self.prefix}dnn_w0"]
+
+    def l2(self, params):
+        """Layer weights + head, no biases (reference layers.py:611-628)."""
+        total = self.l2_reg * l2_loss(params[f"{self.prefix}dnn_w"])
+        for i in range(len(self.hidden_units)):
+            total = total + self.l2_reg * l2_loss(
+                params[f"{self.prefix}dnn_layer_{i}_weights"]
+            )
+        return total

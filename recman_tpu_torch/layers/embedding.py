@@ -23,8 +23,8 @@ from ..features import (
     SparseFeat,
     SparseValueFeat,
 )
-from ..ops.embedding import embedding_lookup
-from ..utils import glorot_normal
+from ..ops.embedding import _stacked_ctx, embedding_lookup
+from ..utils import glorot_normal, l2_loss
 
 
 def sqrtn_combine(table, ids):
@@ -113,3 +113,35 @@ class EmbeddingLayer:
         embeds = one(table)
         bias = one(bias_table) if bias_table is not None else None
         return embeds, bias
+
+    def l2(self, params):
+        """Summed per-table L2 (reference layers.py:188-193, 263-267).
+
+        Under stacked table storage (``ops.embedding.stacked_tables``) the
+        stack's L2 replaces the per-table terms only when the context's
+        names are exactly this layer's owned feats in the context, in
+        order — the reference's gate (recman_tpu/layers/embedding.py:
+        221-267), kept as it is."""
+        sc = _stacked_ctx()
+        stacked_names = ()
+        if sc is not None:
+            in_ctx = set(sc[0])
+            own = tuple(
+                f.name for f in self.feats if self._owns_table(f) and f.name in in_ctx
+            )
+            if own == sc[0]:
+                stacked_names = in_ctx
+        total = 0.0
+        stacked_hit = False
+        for feat in self.feats:
+            if not self._owns_table(feat):
+                continue
+            if feat.name in stacked_names:
+                stacked_hit = True
+                continue
+            total = total + self.l2_reg * l2_loss(
+                params[f"{self.prefix}{feat.name}_feat_embed"]
+            )
+        if stacked_hit:
+            total = total + self.l2_reg * l2_loss(sc[1])
+        return total

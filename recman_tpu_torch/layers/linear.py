@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import l2_loss
+
 
 class LinearLayer:
     """Params ``{prefix}linear_w`` (total_size,) and ``{prefix}linear_w0``
@@ -63,3 +65,7 @@ class LinearLayer:
                 [override, override.new_zeros(w.shape[0] - override.shape[0])]
             )
         return w + override
+
+    def l2(self, params):
+        """Reference layers.py:349-354 / 441-446."""
+        return self.l2_reg * l2_loss(params[f"{self.prefix}linear_w"])

@@ -1,20 +1,26 @@
 """Packed embedding + linear lookup: one gather per feature.
 
-Counterpart of ``recman_tpu/layers/packed.py`` — the concat-then-gather
-branch (:183-216) and the per-type postprocessing (:218-288). Each
+Counterpart of ``recman_tpu/layers/packed.py`` — the stacked-storage
+branch (:128-164, in its ``STACKED_SPLIT_CONCAT = True`` form), the
+concat-then-gather branch (:183-216) and the per-type postprocessing
+(:218-288). Each
 feature that both towers use gets a packed [table | bias | w_slice]
 matrix (V, k [+1] +1), so one row gather serves both. Semantics are those
 of the separate towers:
 
 - the embedding combine masks ids >= 0 (sqrtn), the linear term ids > 0
 - SparseValueFeat scales both parts by the value
-- the inference-time linear override applies to the w column only
+- the inference-time linear override applies to the w column only, and
+  never in training
 - dense features only contribute to the linear logit
 
-Rows stay float32. The reference's bf16 packed rows (its
+Under ``ops.embedding.stacked_tables`` (the stacked train step) the
+packable tables come from one (T, V, k) leaf and their rows from
+``packed_lookup_stacked_split``, whose backward is one K3 launch over all
+tables. Rows stay float32. The reference's bf16 packed rows (its
 ``PACKED_FWD_BF16`` gate) are on only on its TPU path; the port keeps f32
-until that choice is measured on the GPU. The stacked (T, V, k) storage,
-split lookups and the dedup exchange are not ported yet.
+until that choice is measured on the GPU. Split lookups and the dedup
+exchange are not ported.
 """
 
 from __future__ import annotations
@@ -29,11 +35,16 @@ from ..features import (
     SparseFeat,
     SparseValueFeat,
 )
-from ..ops.embedding import embedding_lookup, embedding_lookup_grouped
+from ..ops.embedding import (
+    _stacked_ctx,
+    embedding_lookup,
+    embedding_lookup_grouped,
+    packed_lookup_stacked_split,
+)
 
 
 class PackedEmbeddingLinear:
-    """Fused eval-mode apply over an EmbeddingLayer and a LinearLayer."""
+    """Fused apply over an EmbeddingLayer and a LinearLayer."""
 
     def __init__(self, embeddings, linear):
         self.embeddings = embeddings
@@ -46,38 +57,67 @@ class PackedEmbeddingLinear:
         ]
         self._packable_names = {f.name for f in self.packable}
 
-    def apply(self, params, batch, override=None):
+    def stackable(self):
+        """Ordered name tuple of the packable feats eligible for stacked
+        (T, V, k) table storage, or None (reference :66-81): every
+        packable feat takes 1-D ids (no multi-val), all share one
+        feat_size, and the embedding tower has no bias."""
+        if self.embeddings.use_bias or not self.packable:
+            return None
+        if len({f.feat_size for f in self.packable}) != 1:
+            return None
+        if any(isinstance(f, (MultiValCsvFeat, MultiValSparseFeat)) for f in self.packable):
+            return None
+        return tuple(f.name for f in self.packable)
+
+    def apply(self, params, batch, training=False, override=None):
         """Returns (feat_embeds (B, F, k), feat_bias (B, F, 1) | None,
-        linear_logit (B, 1))."""
+        linear_logit (B, 1)). The override is ignored in training."""
         emb = self.embeddings
         lin = self.linear
         k = emb.embedding_size
         use_bias = emb.use_bias
-        w = lin.weights(params, override)
+        w = lin.weights(params, None if training else override)
 
         embeds_by_name, bias_by_name = {}, {}
         linear_logit = params[f"{lin.prefix}linear_w0"]
 
-        # phase 1: each feature's packed [table | bias | w] matrix
-        packed_mats, ids_mats = [], []
+        ids_mats = []
         for feat in self.packable:
-            # tables may carry tail padding; slice to the logical vocab
-            table = params[f"{emb.prefix}{feat.name}_feat_embed"]
-            cols = [table[: feat.feat_size]]
-            if use_bias:
-                cols.append(
-                    params[f"{emb.prefix}{feat.name}_feat_bias"][: feat.feat_size, None]
-                )
-            off = lin.offsets[feat.name]
-            cols.append(w[off: off + feat.feat_size][:, None])
-            packed_mats.append(torch.cat(cols, dim=1))  # (V, k [+1] +1)
             ids = batch[feat.name]
             if isinstance(feat, (MultiValCsvFeat, MultiValSparseFeat)):
                 ids = ids.clamp_min(0)
             ids_mats.append(ids)
 
-        # phase 2: one gather per feature
-        rows_list = embedding_lookup_grouped(packed_mats, ids_mats)
+        sc = _stacked_ctx()
+        if (
+            sc is not None
+            and not use_bias
+            and tuple(f.name for f in self.packable) == sc[0]
+        ):
+            # stacked (T, V, k) storage: per-table [stack[i] | w] rows, one
+            # batched sort / permute / K3 backward into the stacked leaf
+            v = self.packable[0].feat_size
+            w_cols = torch.stack([
+                w[lin.offsets[f.name]: lin.offsets[f.name] + v] for f in self.packable
+            ])  # (T, V)
+            rows_list = packed_lookup_stacked_split(sc[1][:, :v], w_cols, ids_mats)
+        else:
+            # phase 1: each feature's packed [table | bias | w] matrix
+            packed_mats = []
+            for feat in self.packable:
+                # tables may carry tail padding; slice to the logical vocab
+                table = params[f"{emb.prefix}{feat.name}_feat_embed"]
+                cols = [table[: feat.feat_size]]
+                if use_bias:
+                    cols.append(
+                        params[f"{emb.prefix}{feat.name}_feat_bias"][: feat.feat_size, None]
+                    )
+                off = lin.offsets[feat.name]
+                cols.append(w[off: off + feat.feat_size][:, None])
+                packed_mats.append(torch.cat(cols, dim=1))  # (V, k [+1] +1)
+            # phase 2: one gather per feature
+            rows_list = embedding_lookup_grouped(packed_mats, ids_mats)
 
         # phase 3: per-type postprocessing
         for feat, rows in zip(self.packable, rows_list):

@@ -1,18 +1,21 @@
-"""Model base: the init/apply contract of ``recman_tpu/models/base.py``.
+"""Model base: the init/apply/loss contract of ``recman_tpu/models/base.py``.
 
 A model owns static structure (feature schema + hparams) and exposes
 
-    init_params(generator, device=None)          -> flat {name: tensor}
-    apply(params, batch, training=False, ...)    -> (B,) predictions
+    init_params(generator, device=None)                  -> flat {name: tensor}
+    apply(params, batch, training=False, generator=None, ...) -> (B,) predictions
+    loss(params, batch, training=True, generator=None, weights=None) -> scalar
 
 Parameter names and shapes are the reference's, so a JAX param dict
-carried over by ``convert.params_from_jax`` loads as it is. Only eval
-mode is ported: ``training=True`` raises.
+carried over by ``convert.params_from_jax`` loads as it is. ``generator``
+draws the dropout masks in training; it cannot reproduce the reference's
+``jax.random`` bits.
 """
 
 from __future__ import annotations
 
 from ..features import FeatureSet
+from ..utils import binary_cross_entropy, mean_squared_error
 
 
 class Model:
@@ -28,13 +31,22 @@ class Model:
     def init_params(self, generator, device=None) -> dict:
         raise NotImplementedError
 
-    def apply(self, params, batch, training=False, linear_override=None):
+    def apply(self, params, batch, training=False, generator=None, linear_override=None):
         raise NotImplementedError
 
-    @staticmethod
-    def _check_eval(training):
-        if training:
-            raise NotImplementedError("training slice not ported yet")
+    def l2(self, params):
+        raise NotImplementedError
+
+    def data_loss(self, y_true, y_pred, weights=None):
+        """BCE on probabilities / MSE by task (reference utils.py:192-198)."""
+        if self.task == "classification":
+            return binary_cross_entropy(y_true, y_pred, weights)
+        return mean_squared_error(y_true, y_pred, weights)
+
+    def loss(self, params, batch, training=True, generator=None, weights=None):
+        """Data loss + sum of the layer L2s (reference base.py:52-61)."""
+        preds = self.apply(params, batch, training=training, generator=generator)
+        return self.data_loss(batch["y"], preds, weights) + self.l2(params)
 
     def dense_columns(self, batch) -> list:
         """Dense inputs in schema order as (B, 1) columns."""

@@ -1,8 +1,8 @@
-"""xDeepFM (arXiv:1803.05170), eval mode.
+"""xDeepFM (arXiv:1803.05170).
 
 Counterpart of ``recman_tpu/models/xdeepfm.py``: shared embeddings (no
 bias) feeding linear + CIN + DNN towers; ``final_logit = linear + cin +
-dnn`` -> sigmoid head.
+dnn`` -> sigmoid head. Loss = BCE + the sum of the tower L2s.
 """
 
 from __future__ import annotations
@@ -71,12 +71,20 @@ class XDeepFM(Model):
         params.update(self.head.init(device))
         return params
 
-    def apply(self, params, batch, training=False, linear_override=None):
-        self._check_eval(training)
+    def apply(self, params, batch, training=False, generator=None, linear_override=None):
         feat_embeds, _, linear_logit = self.packed.apply(
-            params, batch, override=linear_override
+            params, batch, training=training, override=linear_override
         )
-        cin_logit = self.cin.apply(params, feat_embeds)
+        cin_logit = self.cin.apply(params, feat_embeds, training=training, generator=generator)
         dnn_input = dnn_combine([feat_embeds] + self.dense_columns(batch))
-        dnn_logit = self.dnn.apply(params, dnn_input)
+        dnn_logit = self.dnn.apply(params, dnn_input, training=training, generator=generator)
         return self.head.apply(params, linear_logit + cin_logit + dnn_logit)
+
+    def l2(self, params):
+        """Sum of the tower L2s (reference xdeepfm.py:92-99)."""
+        return (
+            self.embeddings.l2(params)
+            + self.linear.l2(params)
+            + self.dnn.l2(params)
+            + self.cin.l2(params)
+        )

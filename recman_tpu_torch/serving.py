@@ -4,7 +4,7 @@ Counterpart of ``Predictor`` in ``recman_tpu/serving.py`` (:41-117):
 ``predict`` encodes a dataframe (or takes encoded arrays), pads the rows
 into ``n // batch_size + 1`` batches of row indices (-1 marks padding,
 reference ``training/trainer.py:44-57``), gathers each batch on the
-device with the padding clamped to row 0 (``training/train_step.py:80-89``),
+device with the padding clamped to row 0 (``training.gather_batch``),
 runs the eval forward and returns the first ``n`` predictions. The
 inference-time linear overrides (``feat.set_weights``) apply unless
 ``apply_overrides=False``.
@@ -19,24 +19,23 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .training import gather_batch
 
 
-def batch_indices(n: int, batch_size: int) -> np.ndarray:
-    """(num_batches, batch_size) int32 row indices, -1-padded at the tail.
+def batch_indices(n: int, batch_size: int, shuffle_seed=None) -> np.ndarray:
+    """(num_batches, batch_size) int32 row indices, -1-padded at the tail,
+    in the order ``np.random.RandomState(shuffle_seed).permutation(n)``
+    when a seed is given.
 
     num_batches is the reference's ``n // batch_size + 1``: a full final
     slice yields one extra all-padding batch."""
+    order = np.arange(n)
+    if shuffle_seed is not None:
+        order = np.random.RandomState(shuffle_seed).permutation(n)
     num_batches = n // batch_size + 1
     padded = np.full((num_batches * batch_size,), -1, dtype=np.int32)
-    padded[:n] = np.arange(n)
+    padded[:n] = order
     return padded.reshape(num_batches, batch_size)
-
-
-def gather_batch(data: dict, idx: torch.Tensor) -> dict:
-    """Rows ``idx`` of every tensor in ``data``; padding rows (idx < 0)
-    read row 0."""
-    safe = idx.clamp_min(0)
-    return {k: v.index_select(0, safe) for k, v in data.items()}
 
 
 class Predictor:
@@ -65,7 +64,7 @@ class Predictor:
         with torch.inference_mode():
             outs = [
                 self.model.apply(
-                    self.params, gather_batch(data, idx[i]), training=False,
+                    self.params, gather_batch(data, idx[i])[0], training=False,
                     linear_override=override,
                 )
                 for i in range(idx.shape[0])

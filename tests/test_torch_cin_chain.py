@@ -1,17 +1,22 @@
 """The port's whole-chain CIN (recman_tpu_torch/ops/cin_chain.py) against
-the JAX package's ``cin_chain_fm``, which runs its Pallas kernel in
-interpret mode on the CPU (as tests/test_cin_chain.py runs it).
+the JAX package's ``cin_chain_fm``, which runs its Pallas kernels in
+interpret mode on the CPU (as tests/test_cin_chain.py runs them).
 
 Tolerances: both sides round x0, xk, z and W to bf16 at the same places
 and accumulate in f32, so only the order of the f32 sums differs — and,
 rarely, an xk value of a later layer that lands on the other side of a
-bf16 rounding boundary. 1e-4 of the largest pooled value covers both.
+bf16 rounding boundary. 1e-4 of the largest pooled value covers both in
+the forward. The backward (K2's twin against ``jax.vjp``) is held to
+1e-3 of the largest element of dx0, each dW_i and each db_i: gpre is
+rounded to bf16 after f32 sums whose order differs, so an element can
+land one bf16 step (2^-8 relative) away and carry that into the sums.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from recman_tpu.ops import cin_chain as jax_chain
@@ -137,3 +142,130 @@ def test_cpu_path_does_not_count_launches():
     before = torch_chain.LAUNCHES
     _run_both(F, (6, 4), B, D, "relu")
     assert torch_chain.LAUNCHES == before
+
+
+BWD_CASES = [(F, units, B, D, act) for units in [(6, 4), (8, 8, 6), (4,)] for act in ACTS] + [
+    (6, (8, 6), 16, 16, "leaky_relu"),
+]
+
+
+@pytest.fixture(scope="module")
+def jax_bwd():
+    """JAX's interpreted chain with saved fmaps and ``jax.vjp`` of
+    ``cin_chain_fm`` (CHAIN_SAVE_FMAPS, the default) for every case, once."""
+    assert jax_chain.CHAIN_SAVE_FMAPS
+    out = {}
+    for case in BWD_CASES:
+        h0, units, b, d, act = case
+        x0c, ws, bs = _inputs(h0, units, b, d, seed=len(units) + d)
+        gs = _cotangents(h0, units, b, seed=7)
+        jx, jw, jb = jnp.asarray(x0c), [jnp.asarray(w) for w in ws], [jnp.asarray(v) for v in bs]
+        fwd = jax_chain._chain_fwd_pallas(jx, jw, jb, units, d, act, interpret=True, save=True)
+        _, vjp = jax.vjp(lambda x, w, v: jax_chain.cin_chain_fm(x, w, v, units, d, act), jx, jw, jb)
+        dx0, dws, dbs = vjp(tuple(jnp.asarray(g) for g in gs))
+        out[case] = {
+            "inputs": (x0c, ws, bs, gs),
+            "fmaps": [np.asarray(f) for f in fwd[len(units):]],
+            "grads": (np.asarray(dx0), [np.asarray(w) for w in dws], [np.asarray(v) for v in dbs]),
+        }
+    return out
+
+
+def _cotangents(h0, units, b, seed):
+    rs = np.random.RandomState(seed)
+    cfgs = torch_chain._layer_cfgs(h0, units)
+    return [rs.randn(b, c.o - c.feed).astype(np.float32) for c in cfgs]
+
+
+def _rel_err(ref, got):
+    return np.abs(np.asarray(ref) - np.asarray(got)).max() / np.abs(np.asarray(ref)).max()
+
+
+def _case_id(case):
+    h0, units, b, d, act = case
+    return f"{act}-{'x'.join(map(str, units))}-d{d}"
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=_case_id)
+def test_plain_save_fmaps_match_jax_interpret(jax_bwd, case):
+    h0, units, b, d, act = case
+    x0c, ws, bs, _ = jax_bwd[case]["inputs"]
+    T = torch.from_numpy
+    out = torch_chain.cin_chain_fm_reference(T(x0c), [T(w) for w in ws], [T(v) for v in bs],
+                                             units, d, act, save=True)
+    assert len(out) == 2 * len(units)
+    for ref, got in zip(jax_bwd[case]["fmaps"], out[len(units):]):
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        assert _rel_err(ref, got.numpy()) <= 1e-4
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=_case_id)
+def test_plain_chain_bwd_matches_jax_vjp(jax_bwd, case):
+    h0, units, b, d, act = case
+    x0c, ws, bs, gs = jax_bwd[case]["inputs"]
+    T = torch.from_numpy
+    fmaps = [T(f) for f in jax_bwd[case]["fmaps"]]
+    dx0, dws, dbs = torch_chain.cin_chain_bwd(T(x0c), [T(w) for w in ws], [T(v) for v in bs],
+                                              [T(g) for g in gs], fmaps, units, d, act)
+    rdx0, rdws, rdbs = jax_bwd[case]["grads"]
+    assert _rel_err(rdx0, dx0) <= 1e-3
+    for ref, got in zip(rdws + rdbs, list(dws) + list(dbs)):
+        assert got.shape == ref.shape
+        assert _rel_err(ref, got) <= 1e-3
+
+
+@pytest.mark.parametrize("case", BWD_CASES[:3], ids=_case_id)
+def test_autograd_chain_matches_jax_vjp(jax_bwd, case):
+    """cin_chain_fm's autograd Function (save forward + backward twin)."""
+    h0, units, b, d, act = case
+    x0c, ws, bs, gs = jax_bwd[case]["inputs"]
+    x = torch.from_numpy(x0c).requires_grad_()
+    w = [torch.from_numpy(v).requires_grad_() for v in ws]
+    bb = [torch.from_numpy(v).requires_grad_() for v in bs]
+    pooled = torch_chain.cin_chain_fm(x, w, bb, units, d, act)
+    torch.autograd.backward(pooled, [torch.from_numpy(g) for g in gs])
+    rdx0, rdws, rdbs = jax_bwd[case]["grads"]
+    assert _rel_err(rdx0, x.grad) <= 1e-3
+    for ref, got in zip(rdws + rdbs, w + bb):
+        assert _rel_err(ref, got.grad) <= 1e-3
+
+
+def test_no_grad_forward_saves_nothing():
+    x0c, ws, bs = _inputs(F, (6, 4), B, D, seed=1)
+    T = torch.from_numpy
+    with torch.no_grad():
+        out = torch_chain.cin_chain_fm(T(x0c).requires_grad_(), [T(w) for w in ws],
+                                       [T(v) for v in bs], (6, 4), D, "relu")
+    assert len(out) == 2 and all(o.grad_fn is None for o in out)
+
+
+@pytest.mark.parametrize(
+    "h0,units,d,bd,match",
+    [
+        (5, (6, 4), 256, 256, "D dividing"),
+        (5, (300,), 4, 256, "O_i <= 256"),
+        (128, (256, 256), 4, 256, "shared memory"),
+    ],
+)
+def test_k2_wrapper_rejects_geometry_outside_its_range(h0, units, d, bd, match):
+    x0c, ws, bs = _inputs(h0, units, bd // d, d, seed=0)
+    T = torch.from_numpy
+    with pytest.raises(ValueError, match=match):
+        torch_chain._cin_chain_bwd_cuda(T(x0c), [T(w) for w in ws], [], [], units, d, "relu")
+
+
+def test_k2_wrapper_rejects_wrong_cotangent_shape():
+    x0c, ws, bs = _inputs(F, (6, 4), B, D, seed=0)
+    T = torch.from_numpy
+    fmaps = [torch.zeros((o, B * D)) for o in (6, 4)]
+    gs = [torch.zeros((B, 3)), torch.zeros((B, 5))]
+    with pytest.raises(ValueError, match="pooled cotangent"):
+        torch_chain._cin_chain_bwd_cuda(T(x0c), [T(w) for w in ws], gs, fmaps, (6, 4), D, "relu")
+
+
+def test_bench_geometry_is_in_k2_range():
+    assert torch_chain.k2_unsupported_reason(26, (100, 100), 16, 8192 * 16) is None
+
+
+def test_widest_k1_geometry_is_in_k2_range():
+    assert torch_chain.k2_unsupported_reason(39, (256, 128), 8, 1024) is None

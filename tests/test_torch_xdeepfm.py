@@ -241,11 +241,29 @@ class TestScope:
             params_from_jax({"x": np.zeros(2, np.float32)})
 
     def test_training_raises(self, synthetic_df):
-        tm = XDeepFM(_schema(recman_tpu_torch, synthetic_df))
+        """Training is ported; what it does not take yet raises: an
+        optimizer other than Adam."""
+        from recman_tpu_torch.training import create_optimizer
+
+        for name in ("adagrad", "lamb", "rowwise_adam"):
+            with pytest.raises(NotImplementedError, match="not ported yet"):
+                create_optimizer(name, 1e-3)
+
+    def test_training_mode_with_unit_keeps_matches_eval(self, synthetic_df):
+        """With every keep at 1, training=True gives the predictions of
+        training=False (the reference's
+        test_training_mode_with_unit_keeps_matches_eval_routing); the
+        override is ignored in training, so none is passed."""
+        tm = XDeepFM(_schema(recman_tpu_torch, synthetic_df),
+                     {"deep_dropout": (1.0, 1.0, 1.0)})
         params = tm.init_params(torch.Generator().manual_seed(0), device="cpu")
         batch = {k: torch.as_tensor(v) for k, v in tm.feat_dict.transform(synthetic_df).items()}
-        with pytest.raises(NotImplementedError, match="training slice not ported yet"):
-            tm.apply(params, batch, training=True)
+        gen = torch.Generator().manual_seed(1)
+        train = tm.apply(params, batch, training=True, generator=gen)
+        with torch.inference_mode():
+            served = tm.apply(params, batch, training=False)
+        assert train.shape == (16,)
+        torch.testing.assert_close(train.detach(), served, rtol=0, atol=0)
 
     def test_unported_options_raise(self, synthetic_df):
         fs = recman_tpu_torch.FeatureSet()
