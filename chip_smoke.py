@@ -34,6 +34,21 @@ Phases, each failing the script (non-zero exit) when it fails:
    port's plain path); then 32 timed steps on the card must launch K1,
    K2 and K3 once each per step with finite losses; then a profile of 3
    steps.
+5. the Trainer slice end to end: xDeepFM on MovieLens-100K at the
+   example's configuration (k 8, CIN (100, 100, 100), DNN (32, 32),
+   batch 128). (a) 8 ``fit_on_batch`` steps from one seed's params, every
+   keep 1, under ``grad_kernel("segmat")``, on the card and on the CPU
+   (the kernels' twins): the loss trace and the valid predictions after
+   them. (b) The anchor, ``examples.xdeepfm_ml.main(frac=0.5, epoch=1)``
+   on the card under "segmat" with numpy's global generator seeded 2019:
+   TEST logloss and AUC inside ``bench.py:251``'s bands, and the launch
+   counts (K6 six times, K1 with saved fmaps and K2 once, per train step;
+   K1 once per eval batch). (c) One epoch's steps timed under "segmat" and
+   under "scatter", in the order segmat, scatter, scatter, segmat, each
+   with a 3-step profile.
+
+The kernels phase also holds K6 (segment_matmul.cu's row-major form)
+against its twin at ML-100K's genres geometry and at one Criteo table.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU it exits
@@ -74,6 +89,20 @@ GRAD_TOL = 1e-3  # of max|ref| per param: step 1's gradient, GPU against CPU (K2
 TRACE_ABS, TRACE_REL = 6e-3, 0.01  # loss trace, GPU against CPU (bench.py:215's bounds)
 CPU_STEPS = 4     # steps compared with the CPU
 TIMED_STEPS = 32  # steps timed on the card
+K6_TOL = 1e-5     # of max|ref|: f32 sums of the same rows in another order
+# the Trainer slice (ML-100K at the example's configuration)
+ML_SEED = 2019
+ML_LR = 0.01          # the first of the example's lr grid
+PARITY_STEPS = 8
+# valid predictions after PARITY_STEPS steps, GPU against CPU: the two run
+# the same formulas, summed in other orders. Adam's first steps move a
+# param by about lr whatever its gradient's size, so a gradient near 0
+# can move it the other way. Measured on the CPU between the JAX Pallas
+# kernels interpreted and the port's twins (same formulas, other orders):
+# 4.8e-4 after these 8 steps; the bound is 10x that.
+PARITY_PRED_ABS = 5e-3
+ANCHOR_LOGLOSS = (0.575, 0.615)  # bench.py:251
+ANCHOR_AUC = (0.718, 0.748)
 
 
 def log(msg):
@@ -271,7 +300,50 @@ def phase_kernels(device):
     log(f"K3 full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, library (scatter_add_) "
         f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}; {moved / 1e6:.2f} MB), "
         f"{moved / ms / 1e6:.1f} GB/s achieved")
+
+    # K6: ML-100K's genres ids of the first train batch (the longest run
+    # of the anchor's step), then one Criteo table of the same 8192 rows
+    genres = ml_genres_ids()
+    for label, ids, v, c in (("genres", genres, 20, 9),
+                             ("criteo", full_ids[0], vocab_full, HPARAMS["embedding_size"] + 1)):
+        sids = torch.from_numpy(np.sort(ids).astype(np.int32)).to(device)
+        sg = torch.randn((len(ids), c), generator=torch.Generator().manual_seed(13)).to(device)
+        got = segment_matmul.segment_matmul_from_sorted(sids, sg, v)
+        again = segment_matmul.segment_matmul_from_sorted(sids, sg, v)
+        torch.cuda.synchronize()
+        ref = segment_matmul.segment_matmul_rows_reference(sids, sg, v)
+        e6 = max_rel_err([ref], [got], K6_TOL, f"K6 {label}")
+        check(torch.equal(got == 0, ref == 0), f"K6 {label}: zeros differ from the plain version")
+        check(torch.equal(got, again), f"K6 {label}: two calls differ")
+        longest = int(torch.unique_consecutive(sids, return_counts=True)[1].max())
+        ms = cuda_time_ms(lambda: segment_matmul.segment_matmul_from_sorted(sids, sg, v))
+        plain_ms = cuda_time_ms(lambda: segment_matmul.segment_matmul_rows_reference(sids, sg, v),
+                                reps=20)
+        lib_ms = cuda_time_ms(lambda: torch.zeros((v, c), device=device).index_add_(0, sids, sg))
+        bnd, by, flops, moved = segmat_bound_ms(sids, sg, got)
+        log(f"K6 vs plain [{label} N={len(ids)} V={v} C={c}, longest run {longest}]: max|d| "
+            f"{e6:.3e}, max|ref| {ref.abs().max().item():.4g}, empty rows exact, two calls "
+            f"bit-equal; {ms:.4f} ms, plain {plain_ms:.4f} ms, library (index_add_) "
+            f"{lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}; {moved / 1e6:.3f} MB)")
+        rec[f"K6 {label}"] = {"max_abs_err": e6, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                              "bound_by": by, "library_ms": lib_ms}
     return rec
+
+
+def ml_genres_ids():
+    """The genres ids of one batch of the anchor's train set (rows shuffled
+    with seed 2019), PAD clamped to 0 as the packed layer does: N = 128 x
+    19."""
+    import numpy as np
+
+    from recman_tpu_torch.data import concat_rows, create_ml_features, get_ml_dataset
+    from recman_tpu_torch.training import batch_indices
+
+    train, valid, _, domains = get_ml_dataset(frac=0.5, random_seed=ML_SEED)
+    fs = create_ml_features(concat_rows(train, valid), domains)
+    genres = fs["genres"].transform(train["genres"])["genres"]
+    rows = batch_indices(len(genres), 128, shuffle_seed=ML_SEED)[0]
+    return np.maximum(genres[rows], 0).reshape(-1)
 
 
 def phase_serving(device):
@@ -477,6 +549,124 @@ def phase_training(device):
     return launches
 
 
+def ml_setup(device, hparams):
+    """The example's data and features, a Trainer on ``device`` with the
+    example's configuration (plus ``hparams``), its data on the device."""
+    from recman_tpu_torch.data import concat_rows, create_ml_features, get_ml_dataset
+    from recman_tpu_torch.models import XDeepFM
+    from recman_tpu_torch.training import Trainer
+
+    train, valid, test, domains = get_ml_dataset(frac=0.5, random_seed=ML_SEED)
+    fs = create_ml_features(concat_rows(train, valid), domains)
+    hp = {"learning_rate": ML_LR, **hparams}
+    trainer = Trainer(XDeepFM(fs, hp), hp, epoch=1, batch_size=128, random_seed=ML_SEED,
+                      device=device)
+    data, layout = trainer._to_device(fs.transform(train), train["label"])
+    return trainer, fs, (train, valid, test), data, layout
+
+
+def phase_trainer(device):
+    """The Trainer slice: (a) parity of 8 steps GPU against CPU, (b) the
+    ML-100K anchor with its launch counts, (c) one epoch timed under
+    "segmat" and under "scatter". Returns the anchor's launches."""
+    import numpy as np
+    import torch
+
+    from recman_tpu_torch.examples.xdeepfm_ml import main as ml_example
+    from recman_tpu_torch.ops import cin_chain, segment_matmul
+    from recman_tpu_torch.ops.embedding import fused_grad, grad_kernel
+    from recman_tpu_torch.training import batch_indices
+
+    # (a) parity: one seed's params, every keep 1, the same 8 batches
+    results = []
+    for dev in (device, torch.device("cpu")):
+        trainer, fs, (train, valid, _), data, layout = ml_setup(dev, {"deep_dropout": (1.0, 1.0, 1.0)})
+        if not results:
+            params0 = {k: v.cpu() for k, v in trainer.state.params.items()}
+        else:
+            trainer.state = trainer.state._replace(
+                params=params0, opt_state=trainer.optimizer.init(params0))
+        idx = batch_indices(len(train["label"]), 128, shuffle_seed=ML_SEED)[:PARITY_STEPS]
+        t0 = time.perf_counter()
+        with fused_grad(True), grad_kernel("segmat"):
+            trace = torch.stack([trainer.fit_on_batch(data, i, layout) for i in idx]).cpu().numpy()
+            preds = trainer.predict(fs.transform(valid))
+        results.append((trace, preds, time.perf_counter() - t0))
+    (tg, pg, sg_s), (tc, pc, sc_s) = results
+    max_d = float(np.abs(tg - tc).max())
+    final_rel = float(abs(tg[-1] - tc[-1]) / max(abs(tc[-1]), 1e-9))
+    dp = float(np.abs(pg - pc).max())
+    check(np.isfinite(tg).all() and np.isfinite(pg).all(), "non-finite loss or predictions")
+    check(max_d <= TRACE_ABS and final_rel <= TRACE_REL,
+          f"trainer loss trace GPU vs CPU: max|d| {max_d} (bound {TRACE_ABS}), final rel "
+          f"{final_rel} (bound {TRACE_REL})")
+    check(dp <= PARITY_PRED_ABS, f"valid predictions GPU vs CPU: max|dp| {dp} > {PARITY_PRED_ABS}")
+    log(f"trainer parity, {PARITY_STEPS} steps lr {ML_LR} (GPU {sg_s:.1f} s, CPU {sc_s:.1f} s): "
+        f"trace GPU {tg.tolist()} CPU {tc.tolist()}: max|d| {max_d:.3e}, final rel "
+        f"{final_rel:.3e}; valid predictions ({len(pg)}) max|dp| {dp:.3e}, mean|dp| "
+        f"{float(np.abs(pg - pc).mean()):.3e}")
+
+    # (b) the anchor, counts from 0
+    np.random.seed(ML_SEED)  # draws each epoch's shuffle seed, as in the example
+    cin_chain.LAUNCHES = cin_chain.SAVE_LAUNCHES = cin_chain.BWD_LAUNCHES = 0
+    segment_matmul.LAUNCHES = segment_matmul.ROWS_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with grad_kernel("segmat"):
+        finder, (logloss, auc) = ml_example(frac=0.5, epoch=1, log_dir="build/anchor_logs",
+                                            device=device)
+    torch.cuda.synchronize()
+    anchor_s = time.perf_counter() - t0
+    launches = {"K1": cin_chain.LAUNCHES - cin_chain.SAVE_LAUNCHES,
+                "K1 save": cin_chain.SAVE_LAUNCHES, "K2": cin_chain.BWD_LAUNCHES,
+                "K3": segment_matmul.LAUNCHES, "K6": segment_matmul.ROWS_LAUNCHES}
+    _, _, (train, valid, test), _, _ = ml_setup(device, {})
+    n_grid = 2
+    steps = n_grid * (len(train["label"]) // 128 + 1)
+    eval_batches = n_grid * 2 * sum(len(t["label"]) // 128 + 1 for t in (train, valid)) + \
+        len(test["label"]) // 128 + 1
+    log(f"anchor (GPU, segmat, {anchor_s:.1f} s): TEST logloss {logloss:.4f} auc {auc:.4f}; "
+        f"best lr {finder.best_model.hparams['learning_rate']}; launches {launches} for "
+        f"{steps} train steps and {eval_batches} eval batches")
+    check(finder.best_model.device == device, "the anchor did not train on the GPU")
+    check(ANCHOR_LOGLOSS[0] <= logloss <= ANCHOR_LOGLOSS[1],
+          f"anchor TEST logloss {logloss} outside {ANCHOR_LOGLOSS}")
+    check(ANCHOR_AUC[0] <= auc <= ANCHOR_AUC[1], f"anchor TEST auc {auc} outside {ANCHOR_AUC}")
+    expected = {"K1": eval_batches, "K1 save": steps, "K2": steps, "K3": 0, "K6": 6 * steps}
+    check(launches == expected, f"anchor launches {launches}, expected {expected}")
+
+    # (c) one epoch of steps, timed, under each route in turns
+    trainer, _, (train, _, _), data, layout = ml_setup(device, {})
+    idx = torch.as_tensor(batch_indices(len(train["label"]), 128, shuffle_seed=ML_SEED)).to(device)
+    n_steps = idx.shape[0]
+    for kind in ("segmat", "scatter", "scatter", "segmat"):
+        with grad_kernel(kind):
+            for i in range(3):  # warm-up
+                trainer.fit_on_batch(data, idx[i], layout)
+            torch.cuda.synchronize()
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+            k6_before = segment_matmul.ROWS_LAUNCHES
+            t0 = time.perf_counter()
+            events[0].record()
+            for i in range(n_steps):
+                trainer.fit_on_batch(data, idx[i], layout)
+                events[i + 1].record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k6 = segment_matmul.ROWS_LAUNCHES - k6_before
+            check(k6 == (6 * n_steps if kind == "segmat" else 0),
+                  f"{kind}: K6 launched {k6} times in {n_steps} steps")
+            step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+            log(f"trainer epoch [{kind}]: {n_steps} steps in {wall:.4f} s; step (CUDA events, "
+                f"median) {step_ms:.4f} ms, wall {wall * 1e3 / n_steps:.4f} ms/step; "
+                f"{len(train['label']) / wall:.1f} examples/s (wall); K6 launches {k6}")
+
+            def one_step():
+                trainer.fit_on_batch(data, idx[0], layout)
+
+            profile_device(one_step, step_ms, f"trainer steps [{kind}]", n=3)
+    return launches
+
+
 def kernel_record(name, source, replaces, launches, rec):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -516,6 +706,9 @@ def main():
     t0 = time.perf_counter()
     train = phase_training(device)
     log(f"training phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    anchor = phase_trainer(device)
+    log(f"trainer phase {time.perf_counter() - t0:.1f} s")
 
     fwd, bwd, seg = ("recman_tpu_torch/csrc/cin_chain_fwd.cu", "recman_tpu_torch/csrc/cin_chain_bwd.cu",
                      "recman_tpu_torch/csrc/segment_matmul.cu")
@@ -525,6 +718,8 @@ def main():
                       train["K1"], rec["K1 save"]),
         kernel_record("cin_chain_bwd", bwd, "recman_tpu/ops/cin_chain.py:249", train["K2"], rec["K2"]),
         kernel_record("segment_matmul", seg, "recman_tpu/ops/embedding.py:405", train["K3"], rec["K3"]),
+        kernel_record("segment_matmul_rows", seg, "recman_tpu/ops/embedding.py:323", anchor["K6"],
+                      rec["K6 genres"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

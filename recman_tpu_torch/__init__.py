@@ -7,18 +7,31 @@ copies, so the port runs where JAX is not installed.
 
 Module names mirror the reference so each counterpart is easy to find.
 The slices ported so far are xDeepFM serving (``serving.Predictor`` over
-``models.XDeepFM`` in eval mode) and its stacked-storage train step
-(``training.make_train_step_stacked`` with Adam). Their kernels are
+``models.XDeepFM`` in eval mode), its stacked-storage train step
+(``training.make_train_step_stacked`` with Adam) and the ``Trainer`` with
+the ML-100K example (``examples.xdeepfm_ml``). Their kernels are
 hand-written CUDA (sources in ``csrc/``): the CIN tower forward (K1) and
-backward (K2) in ``ops/cin_chain.py`` and the embedding tables' segment-sum
-gradient (K3) in ``ops/segment_matmul.py``.
+backward (K2) in ``ops/cin_chain.py`` and the embedding tables'
+segment-sum gradients, batched (K3) and per table (K6), in
+``ops/segment_matmul.py``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
 with no GPU they raise instead of falling back to the CPU.
 """
 
-from .device import resolve_device  # noqa: F401
-from .features import (  # noqa: F401
+import logging
+
+
+def config_logger(level=logging.INFO):
+    """Configure root stdlib logging as the reference's ``config_logger``."""
+    logging.basicConfig(
+        level=level,
+        format="%(levelname)s:%(asctime)s:%(name)s:%(lineno)d: %(message)s",
+    )
+
+
+from .device import resolve_device  # noqa: E402,F401
+from .features import (  # noqa: E402,F401
     DenseFeat,
     FeatureSet,
     HashedSparseFeat,

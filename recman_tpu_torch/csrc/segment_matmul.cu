@@ -1,6 +1,7 @@
-// K3: the batched segment sum of the stacked embedding backward.
+// K3: the batched segment sum of the stacked embedding backward, and K6,
+// its one-table form with row-major output (below K3).
 //
-// Replaces the TPU kernel
+// K3 replaces the TPU kernel
 // recman_tpu/ops/embedding.py:_segment_matmul_from_sorted_batched (reached
 // through _segmat_batched_segmented from _stacked_gather_split_bwd). Bound
 // to PyTorch through a plain C interface (ctypes); the wrapper is
@@ -146,6 +147,127 @@ extern "C" int segment_matmul_sorted_batched(const void* sids, const void* sg, v
   if (t < 1 || t > 65535 || c < 1 || n < 1 || v < 1) return (int)cudaErrorInvalidValue;
   dim3 grid((v + kCols - 1) / kCols, t);
   segment_matmul_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(sids), static_cast<const float*>(sg),
+      static_cast<float*>(out), c, n, v);
+  return (int)cudaGetLastError();
+}
+
+// K6: the sorted segment sum of one table's lookup backward, row-major.
+//
+// Replaces the TPU kernel
+// recman_tpu/ops/embedding.py:_segment_matmul_from_sorted (reached through
+// _segment_matmul_grad from _lookup_bwd under grad_kernel("segmat")). The
+// wrapper is recman_tpu_torch/ops/segment_matmul.py:segment_matmul_from_sorted.
+//
+// What it computes: sorted ids (N,) int32 and the cotangent rows permuted
+// into that order, (N, C) f32 row-major, give the dense grad (V, C) f32
+// row-major, as the TPU kernel writes it: row v is the f32 sum of the
+// cotangent rows whose id is v, 0 where no id falls; ids outside [0, V)
+// land nowhere.
+//
+// Bound on an H100 SXM: bytes. It reads the ids and the cotangents once and
+// writes the zero-filled (V, C) grad once; the N*C adds are nothing. On the
+// ML-100K train step (N = 128 or 2,432, V <= 1,574, C = 9) that is under
+// 0.1 MB, so a launch costs more than the bytes; at one Criteo table (N =
+// 8,192, V = 100,001, C = 17) it is 7.4 MB, 2.2 us at 3.35 TB/s, and the
+// zero fill dominates.
+//
+// Design (deterministic, no atomics on the output):
+// - A block owns kRows consecutive rows of the output, whose (rows, C)
+//   tile is one contiguous stretch of memory. It finds its ids' range by
+//   binary search and marks where each row's run begins and ends, as K3
+//   does per column.
+// - Each thread takes elements of the tile in order, so the writes of a
+//   warp coalesce, and sums a short run (at most kShort rows) for its
+//   element in position order; an empty row writes 0.
+// - A long run (ML-100K's genres: the padding ids clamp to id 0, which
+//   then takes most of 2,432 rows) is summed by the whole block: thread
+//   q*C + c takes column c of the run's rows q, q + S, q + 2S, ... with
+//   S = kThreads / C, so each pass of the block reads S whole rows, one
+//   contiguous stretch; its 4 partial sums are added in a fixed order,
+//   then the S partials of each column in order of q. Every sum has a
+//   fixed order, so two calls give the same bits.
+
+namespace {
+
+constexpr int kRows = 256;  // output rows per block
+
+__global__ void __launch_bounds__(kThreads)
+segment_rows_kernel(const int* sids, const float* sg, float* out, int c, int n, int v) {
+  __shared__ int run_begin[kRows], run_end[kRows], long_rows[kRows];
+  __shared__ float partial[kThreads];
+  __shared__ int range[2], n_long;
+  const int v0 = blockIdx.x * kRows;
+  const int v1 = min(v0 + kRows, v);
+  const int rows = v1 - v0;
+  const int tid = threadIdx.x;
+  if (tid < 2) range[tid] = first_at_least(sids, n, tid == 0 ? v0 : v1);
+  if (tid == 0) n_long = 0;
+  for (int i = tid; i < kRows; i += kThreads) run_begin[i] = run_end[i] = 0;
+  __syncthreads();
+  const int p0 = range[0], p1 = range[1];
+  for (int p = p0 + tid; p < p1; p += kThreads) {
+    const int id = __ldg(sids + p);
+    if (p == p0 || __ldg(sids + p - 1) != id) run_begin[id - v0] = p;
+    if (p == p1 - 1 || __ldg(sids + p + 1) != id) run_end[id - v0] = p + 1;
+  }
+  __syncthreads();
+  for (int i = tid; i < rows; i += kThreads)
+    if (run_end[i] - run_begin[i] > kShort)
+      long_rows[atomicAdd(&n_long, 1)] = i;  // list order does not change any sum
+
+  float* o = out + (size_t)v0 * c;
+  for (int e = tid; e < rows * c; e += kThreads) {
+    const int i = e / c, col = e - i * c;
+    const int a = run_begin[i], cnt = run_end[i] - a;
+    if (cnt > kShort) continue;
+    const float* g = sg + (size_t)a * c + col;
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int p = 0; p < cnt; ++p) acc += __ldg(g + (size_t)p * c);
+    o[e] = acc;
+  }
+  __syncthreads();
+
+  const int step = kThreads / c;  // rows of a run read per pass of the block
+  const int q = tid / c, col = tid - q * c;
+  for (int r = 0; r < n_long; ++r) {
+    const int i = long_rows[r];
+    const int a = run_begin[i], cnt = run_end[i] - a;
+    if (q < step) {
+      const float* g = sg + (size_t)a * c + col;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      int p = q;
+      for (; p + 3 * step < cnt; p += 4 * step) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[u] += __ldg(g + (size_t)(p + u * step) * c);
+      }
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+        if (p + u * step < cnt) acc[u] += __ldg(g + (size_t)(p + u * step) * c);
+      partial[tid] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    }
+    __syncthreads();
+    if (tid < c) {
+      float sum = 0.0f;
+      for (int j = 0; j < step; ++j) sum += partial[j * c + tid];
+      o[(size_t)i * c + tid] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+// Launches K6 on `stream`: sids (n,) int32, sorted ascending; sg (n, c) f32
+// row-major; out (v, c) f32 row-major, every element written. Returns
+// cudaGetLastError() after the launch (or cudaErrorInvalidValue for empty
+// shapes or c > 256).
+extern "C" int segment_matmul_sorted_rows(const void* sids, const void* sg, void* out,
+                                          int c, int n, int v, void* stream) {
+  if (c < 1 || c > kThreads || n < 1 || v < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)(((long long)v + kRows - 1) / kRows);
+  segment_rows_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(sids), static_cast<const float*>(sg),
       static_cast<float*>(out), c, n, v);
   return (int)cudaGetLastError();

@@ -17,7 +17,11 @@ of the separate towers:
 Under ``ops.embedding.stacked_tables`` (the stacked train step) the
 packable tables come from one (T, V, k) leaf and their rows from
 ``packed_lookup_stacked_split``, whose backward is one K3 launch over all
-tables. Rows stay float32. The reference's bf16 packed rows (its
+tables. Otherwise the packed matrices go through
+``embedding_lookup_grouped``, whose backward (with the fused backward
+active, the default on CUDA) is one batched K3 launch for each group of
+same-shape tables and, under ``grad_kernel("segmat")``, one K6 launch for
+each table of its own shape. Rows stay float32. The reference's bf16 packed rows (its
 ``PACKED_FWD_BF16`` gate) are on only on its TPU path; the port keeps f32
 until that choice is measured on the GPU. Split lookups and the dedup
 exchange are not ported.

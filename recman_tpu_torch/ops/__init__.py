@@ -13,10 +13,18 @@ from .cin_interact import cin_interact
 from .embedding import (
     embedding_lookup,
     embedding_lookup_grouped,
+    embedding_lookup_multi,
+    fused_grad,
+    grad_kernel,
     packed_lookup_stacked_split,
     stacked_tables,
 )
-from .segment_matmul import segment_matmul_from_sorted_batched, segment_matmul_reference
+from .segment_matmul import (
+    segment_matmul_from_sorted,
+    segment_matmul_from_sorted_batched,
+    segment_matmul_reference,
+    segment_matmul_rows_reference,
+)
 
 __all__ = [
     "chain_supported",
@@ -28,8 +36,13 @@ __all__ = [
     "cin_interact",
     "embedding_lookup",
     "embedding_lookup_grouped",
+    "embedding_lookup_multi",
+    "fused_grad",
+    "grad_kernel",
     "packed_lookup_stacked_split",
+    "segment_matmul_from_sorted",
     "segment_matmul_from_sorted_batched",
     "segment_matmul_reference",
+    "segment_matmul_rows_reference",
     "stacked_tables",
 ]

@@ -57,10 +57,12 @@ _MAX_O = 256
 _MAX_FIELDS = 128
 _MAX_SMEM = 232_448  # bytes a block may use on Hopper
 
-# Launches of K1 (LAUNCHES) and K2 (BWD_LAUNCHES), counted where the
-# wrappers launch them (and nowhere else); callers reset them to 0 to
-# count the launches of one run.
+# Launches of K1 in either form (LAUNCHES), of its save form alone
+# (SAVE_LAUNCHES) and of K2 (BWD_LAUNCHES), counted where the wrappers
+# launch them (and nowhere else); callers reset them to 0 to count the
+# launches of one run.
 LAUNCHES = 0
+SAVE_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 
@@ -311,7 +313,7 @@ def _k1():
 
 
 def _cin_chain_fm_cuda(x0c, ws, bs, units, d, act, save=False):
-    global LAUNCHES
+    global LAUNCHES, SAVE_LAUNCHES
     _check_cuda_args(x0c, ws, bs, units, d, act)
     h0, bd = x0c.shape
     n = len(units)
@@ -342,6 +344,7 @@ def _cin_chain_fm_cuda(x0c, ws, bs, units, d, act, save=False):
     if err != 0:
         raise RuntimeError(f"K1 (cin_chain_fwd) launch failed: CUDA error {err}")
     LAUNCHES += 1
+    SAVE_LAUNCHES += int(save)
     return tuple(outs) + tuple(fmaps)
 
 

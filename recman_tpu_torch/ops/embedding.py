@@ -1,18 +1,28 @@
-"""Embedding lookups and the stacked-storage lookup with its sorted
-segment-sum backward.
+"""Embedding lookups with sorted segment-sum gradients.
 
 Counterpart of ``recman_tpu/ops/embedding.py``. The forward of every
-lookup is a plain row gather, as in the reference (:528-535). Its
-gradient:
+lookup is a plain row gather, as in the reference (:528-535). When the
+fused backward is active (``fused_grad``; by default on for CUDA tensors,
+as the reference's is on for its TPU) each lookup is a
+``torch.autograd.Function`` whose backward stably sorts the ids, permutes
+the cotangent rows into that order and then, by ``grad_kernel``:
 
-- ``packed_lookup_stacked_split`` (the stacked-storage path of the train
-  step, reference :970-1034) is a ``torch.autograd.Function`` whose
-  backward sorts the ids, permutes the cotangents into the transposed
-  (T, C, N) layout and runs the batched segment sum, kernel K3
-  (``ops/segment_matmul.py``), once over all tables.
-- ``embedding_lookup`` and ``embedding_lookup_grouped`` keep plain
-  autograd of the gather (the reference's CPU scatter path); routing them
-  through K3 and K6 is later work.
+- ``embedding_lookup`` (reference ``_lookup``, :527-606): ``"segmat"``
+  runs K6 (``ops/segment_matmul.py:segment_matmul_from_sorted``);
+  ``"scatter"`` and ``"auto"`` add the sorted rows with ``index_add_``,
+  the counterpart of the reference's sorted-hint scatter.
+- ``embedding_lookup_multi`` (same-shape tables, reference
+  ``_lookup_multi``, :738-901) and the stacked-storage
+  ``packed_lookup_stacked_split`` (:970-1034): one batched sort, then K3
+  (``segment_matmul_from_sorted_batched``) once over all tables when
+  ``_segmat_multi_active`` holds, else per-table ``index_add_``.
+
+With the fused backward off (the default on the CPU, as the reference's
+is off there) a lookup is ``index_select`` under plain autograd.
+
+The contexts are read when the forward runs, as the reference reads them
+while tracing: autograd runs a CUDA backward on a thread of its own, where
+this module's thread-local contexts are not set.
 
 ``QuantTable`` tables, the split-lookup and dedup contexts and the
 one-concat stacked form (``STACKED_SPLIT_CONCAT = False``) are not ported.
@@ -20,14 +30,73 @@ one-concat stacked form (``STACKED_SPLIT_CONCAT = False``) are not ported.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 
 import torch
 
-from .segment_matmul import segment_matmul_from_sorted_batched
+from .segment_matmul import segment_matmul_from_sorted, segment_matmul_from_sorted_batched
 
 _state = threading.local()
+
+
+def _mode():
+    return getattr(_state, "mode", "auto")
+
+
+@contextlib.contextmanager
+def fused_grad(enabled: bool | None):
+    """Force the custom lookup backward on or off (None = auto: on for
+    tensors on a CUDA device)."""
+    prev = _mode()
+    _state.mode = "auto" if enabled is None else ("on" if enabled else "off")
+    try:
+        yield
+    finally:
+        _state.mode = prev
+
+
+def _fused_active(device) -> bool:
+    mode = _mode()
+    if mode == "on":
+        return True
+    if mode == "off":
+        return False
+    return torch.device(device).type == "cuda"
+
+
+@contextlib.contextmanager
+def grad_kernel(kind: str):
+    """Select the dense-table-gradient implementation: "auto" (default),
+    "scatter" (sort, permute, ``index_add_``) or "segmat" (sort, permute,
+    the segment-sum kernels K6 and K3). Ignored when the fused backward is
+    inactive.
+
+    "auto" routes the batched multi-table backward through K3 on CUDA when
+    C >= 8 and keeps the scatter elsewhere (single lookups, narrow C), the
+    reference's rule with "tpu" read as "cuda"."""
+    assert kind in ("auto", "scatter", "segmat"), kind
+    prev = getattr(_state, "grad_kernel", "auto")
+    _state.grad_kernel = kind
+    try:
+        yield
+    finally:
+        _state.grad_kernel = prev
+
+
+def _grad_kernel() -> str:
+    return getattr(_state, "grad_kernel", "auto")
+
+
+def _segmat_multi_active(c: int, device) -> bool:
+    """Should a batched multi-table backward run K3 (reference :177-187)?"""
+    kind = _grad_kernel()
+    if kind == "segmat":
+        return True
+    if kind == "scatter":
+        return False
+    return torch.device(device).type == "cuda" and c >= 8
 
 
 @contextlib.contextmanager
@@ -50,17 +119,112 @@ def _stacked_ctx():
     return getattr(_state, "stacked", None)
 
 
+def _sorted_order(ids):
+    """Stable sort of (..., N) ids along the last axis -> (int32 sorted
+    ids, order), the reference's sort_key_val against an iota."""
+    return torch.sort(ids.to(torch.int32), dim=-1, stable=True)
+
+
+def _scatter_sorted_rows(sids, sg, vocab_size: int):
+    """Sorted ids (N,) + permuted rows (N, C) -> (V, C) by ``index_add_``
+    (the reference's sorted-hint scatter-add, :536-561 and :824-843)."""
+    out = torch.zeros((vocab_size, sg.shape[1]), dtype=sg.dtype, device=sg.device)
+    return out.index_add_(0, sids, sg)
+
+
+class _Lookup(torch.autograd.Function):
+    """Rows ``ids`` (N,) of ``table`` (V, k); the reference's ``_lookup``
+    custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.vocab_size = table.shape[0]
+        ctx.segmat = _grad_kernel() == "segmat"
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        sids, order = _sorted_order(ids)
+        sg = g.index_select(0, order).contiguous()
+        if ctx.segmat:
+            return segment_matmul_from_sorted(sids, sg, ctx.vocab_size), None
+        return _scatter_sorted_rows(sids, sg, ctx.vocab_size), None
+
+
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Gather rows ``ids`` (any shape, int32 or int64) from ``table`` (V, k)
-    -> ids.shape + (k,)."""
-    rows = table.index_select(0, ids.reshape(-1))
+    -> ids.shape + (k,). The custom backward runs when the fused backward
+    is active for the table's device."""
+    flat = ids.reshape(-1)
+    if _fused_active(table.device):
+        rows = _Lookup.apply(table, flat)
+    else:
+        rows = table.index_select(0, flat)
     return rows.reshape(*ids.shape, table.shape[1])
 
 
+class _LookupMulti(torch.autograd.Function):
+    """Same-shape tables, one (N,) id vector each; the reference's
+    ``_lookup_multi`` custom_vjp with its batched-sort backward."""
+
+    @staticmethod
+    def forward(ctx, ids_mat, *tables):
+        ctx.save_for_backward(ids_mat)
+        ctx.shape = tuple(tables[0].shape)
+        ctx.segmat = _segmat_multi_active(ctx.shape[1], ids_mat.device)
+        return tuple(t.index_select(0, i) for t, i in zip(tables, ids_mat))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        (ids_mat,) = ctx.saved_tensors
+        vocab_size, k = ctx.shape
+        t, n = ids_mat.shape
+        sids, order = _sorted_order(ids_mat)  # one batched sort, (T, N)
+        if ctx.segmat:
+            # permute straight into K3's transposed (T, k, N) layout
+            g_t = torch.stack(gs).transpose(1, 2)
+            sg_t = torch.gather(g_t, 2, order[:, None, :].expand(t, k, n)).contiguous()
+            grads = segment_matmul_from_sorted_batched(sids, sg_t, vocab_size)  # (T, k, V)
+            return (None, *grads.transpose(1, 2).unbind(0))
+        return (None, *(
+            _scatter_sorted_rows(sids[i], g.index_select(0, order[i]), vocab_size)
+            for i, g in enumerate(gs)
+        ))
+
+
+def embedding_lookup_multi(tables: list, ids_list: list) -> list:
+    """Same-shape multi-table lookup with the batched-sort backward. All
+    tables share one shape and all ids one shape."""
+    flat = [i.reshape(-1) for i in ids_list]
+    if _fused_active(tables[0].device) and len(tables) > 1:
+        rows = _LookupMulti.apply(torch.stack(flat), *tables)
+    else:
+        rows = [t.index_select(0, i) for t, i in zip(tables, flat)]
+    k = tables[0].shape[1]
+    return [r.reshape(*i.shape, k) for r, i in zip(rows, ids_list)]
+
+
 def embedding_lookup_grouped(tables, ids_list) -> list:
-    """One lookup per (table, ids) pair. The reference batches same-shape
-    tables for its backward; the forward values are the same."""
-    return [embedding_lookup(t, i) for t, i in zip(tables, ids_list)]
+    """Lookups across tables -> list of row tensors. Same-shape subsets
+    share the batched-sort backward (``embedding_lookup_multi``); the rest
+    go per table (reference :1178-1210)."""
+    assert len(tables) == len(ids_list)
+    by_shape = collections.defaultdict(list)
+    for pos, (t, i) in enumerate(zip(tables, ids_list)):
+        by_shape[(tuple(t.shape), tuple(i.shape))].append(pos)
+    out: list = [None] * len(tables)
+    for positions in by_shape.values():
+        if len(positions) == 1 or not _fused_active(tables[positions[0]].device):
+            for p in positions:
+                out[p] = embedding_lookup(tables[p], ids_list[p])
+        else:
+            rows = embedding_lookup_multi([tables[p] for p in positions],
+                                          [ids_list[p] for p in positions])
+            for p, r in zip(positions, rows):
+                out[p] = r
+    return out
 
 
 class _StackedGatherSplit(torch.autograd.Function):
@@ -77,6 +241,7 @@ class _StackedGatherSplit(torch.autograd.Function):
         ], dim=1)  # (T*N, k+1): the rows a [table | w] concat-then-gather gives
         ctx.save_for_backward(ids_mat)
         ctx.shape = (t, v, k)
+        ctx.segmat = _segmat_multi_active(k + 1, ids_mat.device)
         return rows.reshape(t, ids_mat.shape[1], k + 1)
 
     @staticmethod
@@ -84,19 +249,24 @@ class _StackedGatherSplit(torch.autograd.Function):
         (ids_mat,) = ctx.saved_tensors
         t, v, k = ctx.shape
         n = ids_mat.shape[1]
-        # one batched stable sort for all tables (sort_key_val with an iota
-        # in the reference), the cotangents permuted straight into the
-        # kernel's transposed (T, C, N) layout, one K3 launch
-        sids, order = torch.sort(ids_mat.to(torch.int32), dim=1, stable=True)
-        sg_t = torch.gather(grad.transpose(1, 2), 2, order[:, None, :].expand(t, k + 1, n))
-        grads = segment_matmul_from_sorted_batched(sids.contiguous(), sg_t.contiguous(), v)
-        return grads[:, :k, :].transpose(1, 2), grads[:, k, :], None
+        sids, order = _sorted_order(ids_mat)  # one batched sort for all tables
+        if ctx.segmat:
+            # the cotangents permuted straight into K3's transposed (T, C, N)
+            # layout, one K3 launch
+            sg_t = torch.gather(grad.transpose(1, 2), 2, order[:, None, :].expand(t, k + 1, n))
+            grads = segment_matmul_from_sorted_batched(sids.contiguous(), sg_t.contiguous(), v)
+            return grads[:, :k, :].transpose(1, 2), grads[:, k, :], None
+        d_packed = torch.stack([
+            _scatter_sorted_rows(sids[i], grad[i].index_select(0, order[i]), v) for i in range(t)
+        ])  # (T, V, C)
+        return d_packed[:, :, :k], d_packed[:, :, k], None
 
 
 def packed_lookup_stacked_split(stack, w_cols, ids_list) -> list:
     """Stacked-storage packed lookup: ``stack`` (T, V, k), ``w_cols`` (T, V)
     linear-weight columns, ``ids_list`` T (N,) id vectors -> T (N, k+1)
     packed rows. The backward reaches the stack and the w columns through
-    one sort, one permute and one K3 launch."""
+    one sort, one permute and one K3 launch (or per-table scatters, by
+    ``_segmat_multi_active``)."""
     ids_mat = torch.stack([i.reshape(-1) for i in ids_list])
     return list(_StackedGatherSplit.apply(stack, w_cols, ids_mat).unbind(0))

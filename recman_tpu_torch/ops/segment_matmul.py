@@ -1,7 +1,6 @@
-"""Batched sorted segment sum: the dense table gradient of the stacked
-embedding lookup.
+"""Sorted segment sums: the dense table gradients of the embedding lookups.
 
-Counterpart of ``_segment_matmul_from_sorted_batched`` in
+K3, batched over same-shape tables, transposed output. Counterpart of ``_segment_matmul_from_sorted_batched`` in
 ``recman_tpu/ops/embedding.py`` (:405-524): sorted ids (T, N) and the
 cotangents permuted into that order, transposed to (T, C, N), give the
 transposed dense grads (T, C, V): column v of table t is the f32 sum of
@@ -13,6 +12,15 @@ land nowhere, as the reference's padding ids do.
 version ``segment_matmul_reference`` on a CPU tensor. The reference's
 ``SEGMAT_SEGMENT_N`` segmenting (:792-821) is a TPU VMEM workaround and
 is not ported: one launch takes any N.
+
+K6, one table, row-major output. Counterpart of
+``_segment_matmul_from_sorted`` (:323-389), the kernel of a single
+lookup's backward under ``grad_kernel("segmat")``: sorted ids (N,) and the
+cotangent rows permuted into that order, (N, C), give the dense grad
+(V, C), row-major as the reference writes it.
+``segment_matmul_from_sorted`` launches K6 (``csrc/segment_matmul.cu``,
+beside K3) on a CUDA tensor and runs ``segment_matmul_rows_reference`` on
+a CPU tensor.
 """
 
 from __future__ import annotations
@@ -23,9 +31,10 @@ import torch
 
 from .cuda_build import load
 
-# Launches of K3, counted where the wrapper launches it (and nowhere
-# else); callers reset it to 0 to count the launches of one run.
+# Launches of K3 and of K6, each counted where its wrapper launches it
+# (and nowhere else); callers reset them to 0 to count one run's launches.
 LAUNCHES = 0
+ROWS_LAUNCHES = 0
 
 
 def segment_matmul_reference(sids, sg_t, vocab_size: int):
@@ -94,3 +103,50 @@ def segment_matmul_from_sorted_batched(sids, sg_t, vocab_size: int):
     if sg_t.device.type == "cpu":
         return segment_matmul_reference(sids, sg_t, vocab_size)
     raise ValueError(f"segment_matmul_from_sorted_batched: no path for device {sg_t.device}")
+
+
+def segment_matmul_rows_reference(sids, sg, vocab_size: int):
+    """Plain PyTorch version of K6 (the CPU path and K6's oracle): K3's
+    prefix-sum twin on the one table, transposed back to rows."""
+    out_t = segment_matmul_reference(sids[None], sg.t()[None], vocab_size)  # (1, C, V)
+    return out_t[0].t().contiguous()
+
+
+def _k6():
+    fn = load("segment_matmul").segment_matmul_sorted_rows
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return fn
+
+
+def _segment_matmul_rows_cuda(sids, sg, vocab_size):
+    global ROWS_LAUNCHES
+    if sids.dtype != torch.int32 or sids.dim() != 1 or not sids.is_contiguous():
+        raise ValueError("K6 takes sids as a contiguous (N,) int32 tensor")
+    if sg.dtype != torch.float32 or sg.dim() != 2 or not sg.is_contiguous():
+        raise ValueError("K6 takes the cotangents as a contiguous (N, C) float32 tensor")
+    n, c = sg.shape
+    if sids.shape[0] != n or sids.device != sg.device:
+        raise ValueError(f"K6: sids {tuple(sids.shape)} on {sids.device} do not match "
+                         f"cotangents {tuple(sg.shape)} on {sg.device}")
+    if not 1 <= c <= 256 or min(n, vocab_size) < 1 or vocab_size * c >= 2**62:
+        raise ValueError(f"K6 takes 1 <= C <= 256 and nonempty N, V; got C={c}, N={n}, "
+                         f"V={vocab_size}")
+    out = torch.empty((vocab_size, c), dtype=torch.float32, device=sg.device)
+    stream = torch.cuda.current_stream(sg.device).cuda_stream
+    err = _k6()(sids.data_ptr(), sg.data_ptr(), out.data_ptr(), c, n, vocab_size, stream)
+    if err != 0:
+        raise RuntimeError(f"K6 (segment_matmul_rows) launch failed: CUDA error {err}")
+    ROWS_LAUNCHES += 1
+    return out
+
+
+def segment_matmul_from_sorted(sids, sg, vocab_size: int):
+    """(N,) sorted ids + (N, C) permuted cotangents -> (V, C) dense grad.
+    Launches K6 for a CUDA tensor (raising on what it does not take) and
+    runs the plain version for a CPU tensor."""
+    if sg.is_cuda:
+        return _segment_matmul_rows_cuda(sids, sg, vocab_size)
+    if sg.device.type == "cpu":
+        return segment_matmul_rows_reference(sids, sg, vocab_size)
+    raise ValueError(f"segment_matmul_from_sorted: no path for device {sg.device}")

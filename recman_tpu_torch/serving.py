@@ -19,23 +19,9 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .training import gather_batch
+from .training import batch_indices, gather_batch
 
-
-def batch_indices(n: int, batch_size: int, shuffle_seed=None) -> np.ndarray:
-    """(num_batches, batch_size) int32 row indices, -1-padded at the tail,
-    in the order ``np.random.RandomState(shuffle_seed).permutation(n)``
-    when a seed is given.
-
-    num_batches is the reference's ``n // batch_size + 1``: a full final
-    slice yields one extra all-padding batch."""
-    order = np.arange(n)
-    if shuffle_seed is not None:
-        order = np.random.RandomState(shuffle_seed).permutation(n)
-    num_batches = n // batch_size + 1
-    padded = np.full((num_batches * batch_size,), -1, dtype=np.int32)
-    padded[:n] = order
-    return padded.reshape(num_batches, batch_size)
+__all__ = ["Predictor", "batch_indices"]
 
 
 class Predictor:

@@ -7,7 +7,8 @@ Counterpart of ``recman_tpu/training/train_step.py``: one step is
 with ``data`` the whole encoded dataset on the device and ``idx`` one
 batch of row indices, -1-padded to a fixed batch size (padded rows get
 loss weight 0). The reference jits and donates the step; here it runs
-eagerly, and an unrolled step is a Python loop over steps.
+eagerly, and an unrolled step, an epoch and an eval scan are Python
+loops over index rows.
 
 Stacked storage (reference :227-356): the packed layer's same-shape
 tables live as ONE (T, V, k) leaf under ``STACKED_KEY``; the stacked step
@@ -214,6 +215,77 @@ def _one_step(model, optimizer, state: TrainState, data: dict, idx, layout=(),
         updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
         params = apply_updates(state.params, updates)
     return TrainState(params, opt_state, state.step + 1, state.generator), loss
+
+
+def make_train_step(model, optimizer):
+    """(state, data, idx (B,), layout=()) -> (state, loss): one step
+    (reference :191-200)."""
+
+    def step_fn(state: TrainState, data: dict, idx, layout=()):
+        return _one_step(model, optimizer, state, data, idx, layout)
+
+    return step_fn
+
+
+def make_train_epoch(model, optimizer):
+    """(state, data, idx_mat (steps, B), layout=()) -> (state, (steps,)
+    losses): the steps of a whole epoch (the reference's lax.scan,
+    :359-377, is a loop here)."""
+
+    def epoch_fn(state: TrainState, data: dict, idx_mat, layout=()):
+        losses = []
+        for idx in idx_mat:
+            state, loss = _one_step(model, optimizer, state, data, idx, layout)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    return epoch_fn
+
+
+def _eval_forward(model, params, data, idx, override, training, layout, generator):
+    batch, _ = gather_batch(data, idx)
+    if layout:
+        batch = unpack_batch(batch, layout)
+    return model.apply(params, batch, training=training, generator=generator,
+                       linear_override=override)
+
+
+def _eval_generator(params, training):
+    """Dropout generator of an eval with ``training=True``: seeded 0 on the
+    params' device, where the reference passes PRNGKey(0)."""
+    if not training:
+        return None
+    return torch.Generator(device=next(iter(params.values())).device).manual_seed(0)
+
+
+def make_eval_step(model):
+    """(params, data, idx (B,), override, training, layout=()) -> (B,)
+    predictions (reference :409-425). ``training=True`` keeps dropout live
+    (the reference's in-fit eval quirk)."""
+
+    def step_fn(params, data, idx, override, training: bool, layout=()):
+        with torch.no_grad():
+            return _eval_forward(model, params, data, idx, override, training, layout,
+                                 _eval_generator(params, training))
+
+    return step_fn
+
+
+def make_eval_scan(model):
+    """(params, data, idx_mat (batches, B), override, training, layout=())
+    -> flat (batches * B,) predictions: the reference's lax.scan
+    (:379-406) as a loop over the index rows; the caller drops the
+    padding tail."""
+
+    def scan_fn(params, data, idx_mat, override, training: bool, layout=()):
+        generator = _eval_generator(params, training)
+        with torch.no_grad():
+            return torch.cat([
+                _eval_forward(model, params, data, idx, override, training, layout, generator)
+                for idx in idx_mat
+            ])
+
+    return scan_fn
 
 
 def _unrolled(model, optimizer, unroll: int, names):

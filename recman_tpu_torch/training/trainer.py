@@ -1,0 +1,383 @@
+"""Trainer: sklearn-style fit / predict / evaluate.
+
+Counterpart of ``recman_tpu/training/trainer.py``: the dataset is encoded
+once and lives on the device; a mini-batch is a device-side gather of a
+shuffled index row; one optimizer is held for the whole run; the final
+partial batch is padded to the batch size and masked. Eval during fit
+defaults to training=False (``eval_in_training_mode=True`` keeps the
+reference's dropout-in-eval quirk).
+
+Not ported yet, and raising where called: ``resilience=`` (checkpointing
+and resume), ``fit_stream``/``predict_stream``/``evaluate_stream`` and
+``save``/``restore`` (ROADMAP.md queue 1, item 8), and Dice calibration
+(item 10).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+from time import time
+
+import numpy as np
+import torch
+
+from ..config import BaseHyperParameters
+from ..device import resolve_device
+from .train_step import (
+    TrainState,
+    create_optimizer,
+    init_state,
+    make_eval_scan,
+    make_eval_step,
+    make_train_epoch,
+    make_train_step,
+    pack_dataset,
+)
+
+log = logging.getLogger(__name__)
+
+
+def batch_indices(n: int, batch_size: int, shuffle_seed=None) -> np.ndarray:
+    """(num_batches, batch_size) int32 row indices, -1-padded at the tail,
+    in the order ``np.random.RandomState(shuffle_seed).permutation(n)``
+    when a seed is given.
+
+    num_batches is the reference's ``n // batch_size + 1``: a full final
+    slice yields one extra all-padding batch."""
+    order = np.arange(n)
+    if shuffle_seed is not None:
+        order = np.random.RandomState(shuffle_seed).permutation(n)
+    num_batches = n // batch_size + 1
+    padded = np.full((num_batches * batch_size,), -1, dtype=np.int32)
+    padded[:n] = order
+    return padded.reshape(num_batches, batch_size)
+
+
+def _first_row(X):
+    """The first row of a dataframe or of a column dict (the reference
+    slices ``X[:1]``, which a dict does not take)."""
+    if isinstance(X, dict):
+        return {k: v[:1] for k, v in X.items()}
+    return X[:1] if hasattr(X, "__getitem__") else None
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, item {item})")
+
+
+class Trainer:
+    """Drives a model. ``hparams`` needs learning_rate/optimizer; everything
+    model-specific lives in the model object. ``device``: default CUDA
+    (raises without a GPU); pass ``device="cpu"`` for the plain path.
+
+    ``steps_per_dispatch``: > 1 groups consecutive steps
+    (``make_train_step_unrolled``, or the stacked step when
+    ``_stacked_active``). "auto" is 1: the reference's 16 on TPU amortises
+    its per-dispatch latency, but an unrolled step here is the same Python
+    loop, so grouping buys nothing. ``epoch_in_one_dispatch`` likewise runs
+    the epoch's steps in one call of a loop."""
+
+    def __init__(
+        self,
+        model,
+        hparams: dict | None = None,
+        metrics=(),
+        epoch=10,
+        batch_size=64,
+        random_seed=2019,
+        eval_in_training_mode=False,
+        epoch_in_one_dispatch=False,
+        steps_per_dispatch="auto",
+        stacked_tables="auto",
+        device=None,
+    ):
+        hp = hparams or {}
+        self.device = resolve_device(device)
+        self.model = model
+        self.hparams = hp
+        self.metrics = tuple(metrics)
+        self.epoch = epoch
+        self.batch_size = batch_size
+        self.random_seed = random_seed
+        self.eval_in_training_mode = eval_in_training_mode
+        self.epoch_in_one_dispatch = epoch_in_one_dispatch
+        self.steps_per_dispatch = 1 if steps_per_dispatch == "auto" else int(steps_per_dispatch)
+        self._train_step_unrolled = None  # built on first use
+        # stacked (T, V, k) table storage for the grouped-step loop
+        # (ops.embedding.stacked_tables); "auto" = on where the fused
+        # backward is active, True forces it, False disables it
+        self.stacked_tables = stacked_tables
+        self._train_step_stacked = None  # built on first use
+
+        self.optimizer = create_optimizer(
+            hp.get(BaseHyperParameters.Optimizer, "adam"),
+            hp.get(BaseHyperParameters.LearningRate, 0.001),
+        )
+        self._train_step = make_train_step(model, self.optimizer)
+        self._train_epoch = make_train_epoch(model, self.optimizer)
+        self._eval_step = make_eval_step(model)
+        self._eval_scan = make_eval_scan(model)
+        self.state: TrainState = init_state(
+            model, self.optimizer, torch.Generator().manual_seed(random_seed), device=self.device
+        )
+
+    # -- data plumbing -----------------------------------------------------
+    def _to_device(self, X, y=None):
+        """Dataframe -> encoded tensors on the device (a dict passes through
+        as already encoded). Columns are packed by dtype (pack_dataset);
+        returns (data, layout)."""
+        if isinstance(X, dict):
+            data = dict(X)
+            if y is not None:
+                data["y"] = np.asarray(y, dtype=np.float32)
+        else:
+            data = self.model.feat_dict.transform(X, y)
+        if "y" not in data:
+            data["y"] = np.zeros(len(next(iter(data.values()))), dtype=np.float32)
+        data, layout = pack_dataset(data)
+        return {k: torch.as_tensor(v).to(self.device) for k, v in data.items()}, layout
+
+    def _override(self):
+        """Linear-tower weight-override vector, rebuilt from the live
+        feature schema each call (so set_weights takes effect at once)."""
+        linear = getattr(self.model, "linear", None)
+        if linear is None:
+            return None
+        return torch.as_tensor(linear.override_vector()).to(self.device)
+
+    def _idx(self, idx):
+        return torch.as_tensor(idx, device=self.device)
+
+    # -- public surface ----------------------------------------------------
+    @property
+    def params(self) -> dict:
+        return self.state.params
+
+    def predict(self, X, training=False, batch_number_to_show_progress=50):
+        """Batched forward over all rows; ``training=True`` keeps dropout
+        live, as the reference's in-fit eval does."""
+        n = len(next(iter(X.values()))) if isinstance(X, dict) else len(X)
+        data, layout = self._to_device(X)
+        return self._predict_device(data, training, layout, n=n)
+
+    def evaluate(self, X, y, training=False):
+        """[metric(y, pred) for metric in metrics]."""
+        pred = self.predict(X, training=training)
+        y = np.asarray(y, dtype=np.float32)
+        return [metric(y, pred) for metric in self.metrics]
+
+    def fit_on_batch(self, data: dict, idx, layout=()):
+        """One train step. Returns the loss as a device tensor (reading it
+        would synchronise with the card every step; fit reads the epoch's
+        losses once)."""
+        self.state, loss = self._train_step(self.state, data, self._idx(idx), layout)
+        return loss
+
+    def fit_stream(self, chunks, epochs=None, shuffle_in_chunk=True, resilience=None):
+        raise _not_ported("Trainer.fit_stream", 8)
+
+    def predict_stream(self, chunks, training=False):
+        raise _not_ported("Trainer.predict_stream", 8)
+
+    def evaluate_stream(self, chunks, training=False):
+        raise _not_ported("Trainer.evaluate_stream", 8)
+
+    def calibrate(self, X, max_rows=65536) -> bool:
+        """Freeze Dice normalization moments into params (fit calls it
+        before each eval). Dice is not ported, so no model of the port has
+        moments to freeze: returns False."""
+        if any("_dice_mean_" in k for k in self.state.params):
+            raise _not_ported("Dice moment capture", 10)
+        return False
+
+    def _eval_at_epoch(self, data_train, y_train, X_valid, y_valid, start_time, epoch,
+                       layout=()):
+        """Per-epoch train/valid metric log."""
+        training = self.eval_in_training_mode
+        train_pred = self._predict_device(data_train, training, layout, n=len(y_train))
+        train_res = [m(y_train, train_pred) for m in self.metrics]
+        valid_res = None
+        if X_valid is not None and y_valid is not None:
+            valid_res = self.evaluate(X_valid, y_valid, training=training)
+            log.info(
+                "[%d] train-result=%s, valid-result=%s [%.1f s]",
+                epoch,
+                [(str(m), round(r, 4)) for m, r in zip(self.metrics, train_res)],
+                [(str(m), round(r, 4)) for m, r in zip(self.metrics, valid_res)],
+                time() - start_time,
+            )
+        else:
+            log.info(
+                "[%d] train-result=%s [%.1f s]",
+                epoch,
+                [(str(m), round(r, 4)) for m, r in zip(self.metrics, train_res)],
+                time() - start_time,
+            )
+        return train_res, valid_res
+
+    def _batch_index_matrix(self, n: int, shuffle_seed=None) -> np.ndarray:
+        return batch_indices(n, self.batch_size, shuffle_seed=shuffle_seed)
+
+    def _stacked_active(self) -> bool:
+        """Should fit's grouped-step loop run on stacked table storage?"""
+        mode = self.stacked_tables
+        if mode in (False, "off"):
+            return False
+        packed = getattr(self.model, "packed", None)
+        eligible = packed is not None and packed.stackable() is not None
+        if mode in (True, "on"):
+            return eligible
+        from ..ops.embedding import _fused_active
+
+        return eligible and _fused_active(self.device)
+
+    def _steps_per_epoch(self, n: int) -> int:
+        """Rows of ``_batch_index_matrix(n)``."""
+        return n // self.batch_size + 1
+
+    def _predict_device(self, data: dict, training: bool, layout=(), n=None) -> np.ndarray:
+        n = int(data["y"].shape[0]) if n is None else n
+        idx = self._idx(self._batch_index_matrix(n))
+        override = None if training else self._override()
+        preds = self._eval_scan(self.state.params, data, idx, override, training, layout)
+        return self._unshard_preds(preds.cpu().numpy(), n)
+
+    def _unshard_preds(self, preds: np.ndarray, n: int) -> np.ndarray:
+        """Flat eval output back to dataset row order (the identity on one
+        device)."""
+        return preds[:n]
+
+    def _fit_grouped(self, data, idx, layout):
+        """Steps in groups of ``steps_per_dispatch`` (stacked storage when
+        active), the non-divisible tail one step at a time."""
+        from .train_step import (
+            make_train_step_stacked,
+            make_train_step_unrolled,
+            stack_train_state,
+            unstack_train_state,
+        )
+
+        u = self.steps_per_dispatch
+        full = (idx.shape[0] // u) * u
+        losses = []
+        if self._stacked_active():
+            if self._train_step_stacked is None:
+                self._train_step_stacked = make_train_step_stacked(
+                    self.model, self.optimizer, u, self.model.packed.stackable())
+            sstate = stack_train_state(self.model, self.state)
+            try:
+                for s in range(0, full, u):
+                    sstate, lvec = self._train_step_stacked(sstate, data, idx[s:s + u], layout)
+                    losses.append(lvec)
+            finally:
+                self.state = unstack_train_state(self.model, sstate)
+        else:
+            if self._train_step_unrolled is None:
+                self._train_step_unrolled = make_train_step_unrolled(
+                    self.model, self.optimizer, u)
+            for s in range(0, full, u):
+                self.state, lvec = self._train_step_unrolled(self.state, data, idx[s:s + u], layout)
+                losses.append(lvec)
+        for i in range(full, idx.shape[0]):
+            losses.append(self.fit_on_batch(data, idx[i], layout)[None])
+        return torch.cat(losses)
+
+    def fit(
+        self,
+        X_train,
+        y_train,
+        X_valid=None,
+        y_valid=None,
+        random_seed_for_mini_batch=True,
+        tb_logger=None,
+        epoch_callback=None,
+        show_progress=False,
+        batch_number_to_show_progress=50,
+        resilience=None,
+    ):
+        """The reference's fit loop: epoch-0 eval (with an optional profiler
+        trace), then per epoch a reshuffle (``np.random.randint(1, 2019)``
+        as the seed, the reference's quirk, unless
+        ``random_seed_for_mini_batch=False``), the steps, the eval, the TB
+        log and the callback."""
+        assert X_train is not None and y_train is not None
+        if resilience is not None:
+            raise _not_ported("Trainer.fit(resilience=...)", 8)
+        try:
+            import tqdm
+
+            progress = tqdm.tqdm(desc="fit", total=self.epoch, disable=not show_progress)
+        except ImportError:
+            progress = contextlib.nullcontext()
+            progress.update = lambda *a, **k: None
+
+        if tb_logger is not None:
+            tb_logger.configure_hparams(self.hparams, self.metrics)
+
+        data, layout = self._to_device(X_train, y_train)
+        y_np = np.asarray(y_train, dtype=np.float32)
+        n = len(y_np)
+
+        if tb_logger is not None:
+            tb_logger.trace_on(epoch=0)
+        self.calibrate(X_train)
+        eval_results = self._eval_at_epoch(data, y_np, X_valid, y_valid, time(), epoch=0,
+                                           layout=layout)
+        if tb_logger is not None:
+            tb_logger.trace_off(epoch=0)
+            tb_logger.log_params(epoch=0, eval_results=eval_results, metrics=self.metrics,
+                                 variables=self._host_params())
+
+        for epoch in range(1, self.epoch + 1):
+            start_time = time()
+            if random_seed_for_mini_batch:
+                seed = np.random.randint(1, 2019)  # reference DeepModel.py:183
+            else:
+                seed = self.random_seed
+            idx = self._idx(self._batch_index_matrix(n, shuffle_seed=seed))
+
+            if tb_logger is None and self.epoch_in_one_dispatch:
+                self.state, losses = self._train_epoch(self.state, data, idx, layout)
+            elif tb_logger is None and self.steps_per_dispatch > 1:
+                losses = self._fit_grouped(data, idx, layout)
+            else:
+                losses = []
+                for i in range(idx.shape[0]):
+                    show = i % batch_number_to_show_progress == 0
+                    if tb_logger is not None and show:
+                        tb_logger.trace_on(epoch)
+                    losses.append(self.fit_on_batch(data, idx[i], layout))
+                    if tb_logger is not None and show:
+                        tb_logger.trace_off(epoch)
+                    if show:
+                        log.debug("Fit: %d/%d batches", i + 1, idx.shape[0])
+                losses = torch.stack(losses)
+            # one read of the epoch's losses, averaged in float64
+            mean_loss = float(losses.double().mean())
+            self.last_mean_loss = mean_loss
+            log.info("Fit epoch %d: %d batches, mean loss %.5f", epoch, idx.shape[0], mean_loss)
+
+            self.calibrate(X_train)
+            eval_results = self._eval_at_epoch(data, y_np, X_valid, y_valid, start_time,
+                                               epoch=epoch, layout=layout)
+            if tb_logger is not None:
+                tb_logger.log_params(epoch=epoch, eval_results=eval_results,
+                                     metrics=self.metrics, variables=self._host_params())
+            if epoch_callback:
+                epoch_callback(model=self, eval_results=eval_results,
+                               df_all=_first_row(X_train))
+            progress.update(1)
+        if hasattr(progress, "close"):
+            progress.close()
+        return self
+
+    def _host_params(self) -> dict:
+        return {k: v.detach().cpu().numpy() for k, v in self.state.params.items()}
+
+    # -- checkpointing -----------------------------------------------------
+    def save(self, directory):
+        raise _not_ported("Trainer.save (checkpoints)", 8)
+
+    def restore(self, directory):
+        raise _not_ported("Trainer.restore (checkpoints)", 8)

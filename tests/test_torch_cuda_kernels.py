@@ -12,8 +12,8 @@ Tolerances, per tensor, of its largest element:
   W to bf16 at the same places; only the order of the f32 sums differs.
 - K2 (dx0, dW_i, db_i) 1e-3: gpre is rounded to bf16 after f32 sums whose
   order differs, so an element can land one bf16 step away.
-- K3 1e-5, and exact zeros where no id falls: f32 sums of the same terms
-  in another order.
+- K3 and K6 1e-5, and exact zeros where no id falls: f32 sums of the same
+  terms in another order.
 - One stacked train step, GPU against CPU: loss 1e-5 relative, every
   gradient 1e-3 (the K2 rounding above).
 """
@@ -253,3 +253,104 @@ def test_stacked_train_step_on_card_matches_cpu(cuda):
     opt = create_optimizer("adam", 1e-3)
     assert opt.update(g_gpu, opt.init(g_gpu))[1].count.item() == 1
 
+
+
+def _rows_case(n, v, c, seed, device, hot=None):
+    rs = np.random.RandomState(seed)
+    ids = np.minimum(rs.zipf(1.2, n) - 1, v - 1)
+    if hot is not None:  # one id takes most rows, as PAD (clamped to 0) in genres
+        ids = np.where(rs.rand(n) < hot, 0, ids)
+    sids = torch.from_numpy(np.sort(ids).astype(np.int32)).to(device)
+    sg = torch.from_numpy(rs.randn(n, c).astype(np.float32)).to(device)
+    return sids, sg
+
+
+K6_CASES = [
+    (128, 944, 9, None),     # ML-100K user_id
+    (128, 3, 9, None),       # gender
+    (2432, 20, 9, 0.85),     # genres: the longest run
+    (77, 30, 3, None),       # N not a multiple of 8
+    (5000, 7, 256, 0.5),     # the widest C K6 takes
+    (8192, 100_001, 17, None),  # one Criteo table
+]
+
+
+@pytest.mark.parametrize("n,v,c,hot", K6_CASES)
+def test_k6_matches_plain_version_and_is_deterministic(cuda, n, v, c, hot):
+    sids, sg = _rows_case(n, v, c, n + v, cuda, hot)
+    before = segment_matmul.ROWS_LAUNCHES
+    got = segment_matmul.segment_matmul_from_sorted(sids, sg, v)
+    again = segment_matmul.segment_matmul_from_sorted(sids, sg, v)
+    torch.cuda.synchronize()
+    assert segment_matmul.ROWS_LAUNCHES == before + 2
+    ref = segment_matmul.segment_matmul_rows_reference(sids, sg, v)
+    _close(ref, got, 1e-5)
+    assert torch.equal(got == 0, ref == 0) and got.is_contiguous()
+    assert torch.equal(got, again)
+
+
+def test_k6_wrapper_raises_on_what_it_does_not_take(cuda):
+    sids, sg = _rows_case(64, 10, 257, 0, cuda)
+    with pytest.raises(ValueError, match="C <= 256"):
+        segment_matmul.segment_matmul_from_sorted(sids, sg, 10)
+
+
+@pytest.mark.parametrize("kind,k6,scatter_calls", [("segmat", 1, 0), ("scatter", 0, 1),
+                                                   ("auto", 0, 1)])
+def test_lookup_backward_route_on_card(cuda, monkeypatch, kind, k6, scatter_calls):
+    """A single lookup's backward on a CUDA tensor: "segmat" launches K6
+    once and never reaches index_add_ or the twin; "scatter" and "auto"
+    launch no K6."""
+    from recman_tpu_torch.ops import embedding as emb
+
+    calls = {"scatter": 0}
+    real = emb._scatter_sorted_rows
+
+    def counting(*a):
+        calls["scatter"] += 1
+        return real(*a)
+
+    monkeypatch.setattr(emb, "_scatter_sorted_rows", counting)
+    monkeypatch.setattr(segment_matmul, "segment_matmul_rows_reference", None)  # never reached
+    table = torch.randn((944, 9), device=cuda, requires_grad=True)
+    ids = torch.randint(0, 944, (128,), device=cuda)
+    before = segment_matmul.ROWS_LAUNCHES
+    with emb.grad_kernel(kind):
+        emb.embedding_lookup(table, ids).square().sum().backward()
+    torch.cuda.synchronize()
+    assert segment_matmul.ROWS_LAUNCHES - before == k6 and calls["scatter"] == scatter_calls
+    ref = torch.zeros_like(table).index_add_(0, ids, 2 * table.detach()[ids])
+    _close(ref, table.grad, 1e-5)
+
+
+def test_ml_train_step_on_card_launches_k6_per_field(cuda):
+    """One ML-100K-shaped train step under "segmat": K6 once per embedded
+    field, K1 (save) and K2 once, and the step's gradients against the
+    same step on the CPU under the same contexts."""
+    from recman_tpu_torch.data import concat_rows, create_ml_features, get_ml_dataset
+    from recman_tpu_torch.models import XDeepFM
+    from recman_tpu_torch.ops import embedding as emb
+    from recman_tpu_torch.training import gather_batch, pack_dataset, unpack_batch
+    from recman_tpu_torch.training.train_step import loss_and_grads
+
+    train, valid, _, domains = get_ml_dataset(frac=0.05)
+    fs = create_ml_features(concat_rows(train, valid), domains)
+    hp = {"deep_dropout": (1.0, 1.0, 1.0)}
+    model = XDeepFM(fs, hp)
+    params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    data, layout = pack_dataset(fs.transform(train, y=train["label"]))
+    idx = torch.arange(128)
+    results = {}
+    for dev in ("cpu", cuda):
+        tdata = {k: torch.as_tensor(v).to(dev) for k, v in data.items()}
+        batch, w = gather_batch(tdata, idx.to(dev))
+        p = {k: v.to(dev) for k, v in params.items()}
+        counts = (cin_chain.LAUNCHES, cin_chain.BWD_LAUNCHES, segment_matmul.ROWS_LAUNCHES)
+        with emb.fused_grad(True), emb.grad_kernel("segmat"):
+            results[str(dev)] = loss_and_grads(model, p, unpack_batch(batch, layout), w)
+        after = (cin_chain.LAUNCHES, cin_chain.BWD_LAUNCHES, segment_matmul.ROWS_LAUNCHES)
+        assert [a - c for a, c in zip(after, counts)] == ([0, 0, 0] if dev == "cpu" else [1, 1, 6])
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(cuda)]
+    assert abs(l_gpu.item() - l_cpu.item()) <= 1e-5 * abs(l_cpu.item())
+    for k in g_cpu:
+        _close(g_cpu[k], g_gpu[k].cpu(), 1e-3)

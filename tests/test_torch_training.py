@@ -46,6 +46,7 @@ from recman_tpu_torch.convert import params_from_jax
 from recman_tpu_torch.data import create_criteo_features, synthetic_criteo_arrays
 from recman_tpu_torch.models import XDeepFM
 from recman_tpu_torch.ops import cin_chain, segment_matmul
+from recman_tpu_torch.ops import embedding as torch_emb
 from recman_tpu_torch.serving import batch_indices
 from recman_tpu_torch.training import (
     STACKED_KEY,
@@ -149,7 +150,8 @@ def port_stacked(jax_runs, port):
     idx = torch.as_tensor(_batches())
     batch, weights = gather_batch(tdata, idx[0])
     batch = unpack_batch(batch, layout)
-    loss, grads = loss_and_grads(model, params_s, batch, weights, names=names)
+    with torch_emb.grad_kernel("segmat"):  # K3's twin, as the shipped path's kernel
+        loss, grads = loss_and_grads(model, params_s, batch, weights, names=names)
     return params_s, names, loss, grads
 
 
@@ -179,7 +181,8 @@ def _port_trace(jax_runs, port):
     opt = create_optimizer("adam", 1e-3)
     state = TrainState(params_s, opt.init(params_s), 0, None)
     step = make_train_step_stacked(model, opt, STEPS, names)
-    state, losses = step(state, tdata, torch.as_tensor(_batches()), layout)
+    with torch_emb.grad_kernel("segmat"):
+        state, losses = step(state, tdata, torch.as_tensor(_batches()), layout)
     return state, losses.numpy()
 
 

@@ -312,7 +312,7 @@ def test_importing_the_port_loads_no_jax_package():
 COPIED = [
     "features/__init__.py", "features/encoders.py", "features/schema.py",
     "features/serialize.py", "config/__init__.py", "config/hparams.py",
-    "data/criteo.py",
+    "data/criteo.py", "training/metrics.py", "obs/__init__.py", "obs/best_model.py",
 ]
 
 
