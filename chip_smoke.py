@@ -48,7 +48,25 @@ Phases, each failing the script (non-zero exit) when it fails:
    with a 3-step profile.
 
 The kernels phase also holds K6 (segment_matmul.cu's row-major form)
-against its twin at ML-100K's genres geometry and at one Criteo table.
+against its twin at ML-100K's genres geometry and at one Criteo table,
+and K4 (cin_interact_fwd.cu) and K5 (cin_interact_bwd.cu), one CIN
+layer's forward and backward, against their twins at the xDeepFM paper's
+Criteo layers (B 4096, D 10; layer 0 and layers 1-2) and at a small
+geometry with a tail tile; K5 must be bit-equal on two calls.
+
+6. the per-layer CIN path at ``xdeepfm_paper_criteo``, the xDeepFM paper's
+   Criteo setting (arXiv:1803.05170 section 4.1.3): k 10, CIN (200, 200,
+   200), DNN (400, 400), Adam 0.001, batch 4096, L2 1e-4, on 26 hashed
+   fields x 100,000 buckets. D = 10 is no chain geometry, so every CIN
+   layer runs K4 forward and K5 backward. (a) Parity: one 4096-row
+   predict batch and, at batch 1024, step 1's gradients and a 2-step
+   ``fit_on_batch`` trace, card against CPU. (b) Serving: K4 three times
+   a batch, K1 never; timed with a profile. (c) Training: ``Trainer.fit``
+   one epoch over 65,536 rows, then ``evaluate``; K4 and K5 three times a
+   step, K1 and K2 never; 16 steps timed with a profile. (d) ``cin_remat``:
+   the same step-1 gradients, K4 six times a step, peak memory. (e) Live
+   in-chain dropout: the per-layer path, finite losses. (f) The example
+   ``examples.criteo_xdeepfm.main(embedding_size=10)``.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU it exits
@@ -103,6 +121,30 @@ PARITY_STEPS = 8
 PARITY_PRED_ABS = 5e-3
 ANCHOR_LOGLOSS = (0.575, 0.615)  # bench.py:251
 ANCHOR_AUC = (0.718, 0.748)
+# K4 and K5 at the paper's Criteo layers (H0, Hk, O, B*D) and at a small
+# geometry with a tail tile (B*D neither a multiple of 128 nor of 4)
+INTERACT_GEOMETRIES = {"paper layer 0": (26, 26, 200, 4096 * 10),
+                       "paper layers 1-2": (26, 100, 200, 4096 * 10),
+                       "small tail": (7, 5, 9, 301)}
+K4_TOL = 1e-3  # of max|ref|: same bf16 roundings of z and W, f32 sum order differs
+K5_TOL = 1e-3  # of max|ref| per output: the same, with g rounded to bf16
+# xdeepfm_paper_criteo: the xDeepFM paper's Criteo setting (section 4.1.3)
+PAPER_HP = {
+    "learning_rate": 0.001,
+    "optimizer": "adam",
+    "embedding_size": 10,
+    "cin_cross_layer_units": (200, 200, 200),
+    "cin_dropout": (1, 1, 1, 1),
+    "cin_activation": "leaky_relu",
+    "deep_hidden_units": (400, 400),
+    "deep_dropout": (1.0, 1.0, 1.0),
+    "deep_l2_reg": 1e-4,
+    "cin_l2_reg": 1e-4,
+}
+PAPER_BATCH = 4096
+PAPER_ROWS = 65_536
+PAPER_VALID = 8192  # rows for evaluate after the fit
+PARITY_BATCH = 1024  # bounds the CPU's time for the parity steps
 
 
 def log(msg):
@@ -327,6 +369,76 @@ def phase_kernels(device):
             f"{lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}; {moved / 1e6:.3f} MB)")
         rec[f"K6 {label}"] = {"max_abs_err": e6, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
                               "bound_by": by, "library_ms": lib_ms}
+    return rec
+
+
+def interact_bound_ms(x0c, xkc, w, outs, passes):
+    """Least time for K4's (passes=1) or K5's (passes=2) work: ``passes``
+    bf16 products of 2*X*O*B*D operations, or each input read and each
+    output written once."""
+    flops = passes * 2 * w.shape[0] * w.shape[1] * x0c.shape[1]
+    moved = nbytes(x0c, xkc, w, *outs)
+    return (*bound(flops, moved), flops, moved)
+
+
+def phase_interact_kernels(device):
+    """K4 and K5 against their twins at every geometry of
+    INTERACT_GEOMETRIES, K5 bit-equal on two calls; then timed at the
+    paper's layers beside the twins, their bounds and the library's
+    contraction alone. Returns the records of layers 1-2's shape."""
+    import torch
+
+    from recman_tpu_torch.ops import cin_interact
+
+    rec = {}
+    for label, (h0, hk, o, bd) in INTERACT_GEOMETRIES.items():
+        g = torch.Generator().manual_seed(17)
+        x0c = torch.randn((h0, bd), generator=g).to(device)
+        xkc = torch.randn((hk, bd), generator=g).to(device)
+        w = (torch.randn((h0 * hk, o), generator=g) * (2.0 / (h0 * hk + o)) ** 0.5).to(device)
+        cot = torch.randn((o, bd), generator=g).to(device)
+        got = cin_interact.cin_interact_fwd(x0c, xkc, w)
+        grads = cin_interact.cin_interact_bwd(x0c, xkc, w, cot)
+        again = cin_interact.cin_interact_bwd(x0c, xkc, w, cot)
+        torch.cuda.synchronize()
+        ref = cin_interact.cin_interact_fm_reference(x0c, xkc, w)
+        e4 = max_rel_err([ref], [got], K4_TOL, f"K4 {label}")
+        ref_b = cin_interact.cin_interact_fm_bwd_reference(x0c, xkc, w, cot)
+        e5 = max_rel_err(ref_b, grads, K5_TOL, f"K5 {label}")
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)), f"K5 {label}: two calls differ")
+        log(f"K4/K5 vs plain [{label} H0={h0} Hk={hk} O={o} B*D={bd}]: max|d| {e4:.3e} / "
+            f"{e5:.3e}; max|ref| pre {ref.abs().max().item():.4g}, dx0 "
+            f"{ref_b[0].abs().max().item():.4g}, dxk {ref_b[1].abs().max().item():.4g}, dW "
+            f"{ref_b[2].abs().max().item():.4g}; K5 bit-equal on two calls")
+        if label == "small tail":
+            continue
+        z = (x0c.to(torch.bfloat16)[:, None, :] * xkc.to(torch.bfloat16)[None, :, :]).reshape(
+            h0 * hk, bd)
+        w_bf, g_bf = w.to(torch.bfloat16), cot.to(torch.bfloat16)
+        times = {}
+        for what, fn in (
+            ("K4", lambda: cin_interact.cin_interact_fwd(x0c, xkc, w)),
+            ("K4 plain", lambda: cin_interact.cin_interact_fm_reference(x0c, xkc, w)),
+            ("K4 library", lambda: torch.matmul(w_bf.t(), z)),
+            ("K5", lambda: cin_interact.cin_interact_bwd(x0c, xkc, w, cot)),
+            ("K5 plain", lambda: cin_interact.cin_interact_fm_bwd_reference(x0c, xkc, w, cot)),
+            ("K5 library", lambda: (torch.matmul(w_bf, g_bf), torch.matmul(z, g_bf.t()))),
+        ):
+            times[what] = cuda_time_ms(fn, reps=10 if "plain" in what else 20)
+        b4, by4, f4, m4 = interact_bound_ms(x0c, xkc, w, [got], 1)
+        b5, by5, f5, m5 = interact_bound_ms(x0c, xkc, w, grads, 2)
+        log(f"K4 [{label}]: {times['K4']:.4f} ms, plain {times['K4 plain']:.4f} ms, library "
+            f"(bf16 matmul on a prebuilt z, the contraction alone) {times['K4 library']:.4f} ms, "
+            f"bound {b4:.4f} ms ({by4}; {f4 / 1e9:.2f} GFLOP, {m4 / 1e6:.2f} MB), "
+            f"{f4 / times['K4'] / 1e9:.1f} TFLOP/s achieved")
+        log(f"K5 [{label}]: {times['K5']:.4f} ms, plain {times['K5 plain']:.4f} ms, library "
+            f"(the two bf16 matmuls alone) {times['K5 library']:.4f} ms, bound {b5:.4f} ms "
+            f"({by5}; {f5 / 1e9:.2f} GFLOP, {m5 / 1e6:.2f} MB), "
+            f"{f5 / times['K5'] / 1e9:.1f} TFLOP/s achieved")
+        rec["K4"] = {"max_abs_err": e4, "ms": times["K4"], "plain_ms": times["K4 plain"],
+                     "bound_ms": b4, "bound_by": by4, "library_ms": times["K4 library"]}
+        rec["K5"] = {"max_abs_err": e5, "ms": times["K5"], "plain_ms": times["K5 plain"],
+                     "bound_ms": b5, "bound_by": by5, "library_ms": times["K5 library"]}
     return rec
 
 
@@ -667,6 +779,281 @@ def phase_trainer(device):
     return launches
 
 
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    from recman_tpu_torch.ops import cin_chain, cin_interact, segment_matmul
+
+    cin_chain.LAUNCHES = cin_chain.SAVE_LAUNCHES = cin_chain.BWD_LAUNCHES = 0
+    segment_matmul.LAUNCHES = segment_matmul.ROWS_LAUNCHES = 0
+    cin_interact.LAUNCHES = cin_interact.BWD_LAUNCHES = 0
+
+
+def kernel_counts():
+    from recman_tpu_torch.ops import cin_chain, cin_interact, segment_matmul
+
+    return {"K1": cin_chain.LAUNCHES - cin_chain.SAVE_LAUNCHES,
+            "K1 save": cin_chain.SAVE_LAUNCHES, "K2": cin_chain.BWD_LAUNCHES,
+            "K3": segment_matmul.LAUNCHES, "K4": cin_interact.LAUNCHES,
+            "K5": cin_interact.BWD_LAUNCHES, "K6": segment_matmul.ROWS_LAUNCHES}
+
+
+def check_counts(counts, expected, what):
+    got = {k: counts[k] for k in expected}
+    check(got == expected, f"{what}: launches {got}, expected {expected}")
+
+
+def phase_per_layer(device):
+    """The per-layer CIN path at xdeepfm_paper_criteo: (a) parity with the
+    CPU, (b) serving, (c) training, (d) cin_remat, (e) live in-chain
+    dropout, (f) the Criteo example. Returns the launches of (c)'s fit."""
+    import numpy as np
+    import torch
+
+    from recman_tpu_torch.data import create_criteo_features, synthetic_criteo_arrays
+    from recman_tpu_torch.examples.criteo_xdeepfm import main as criteo_example
+    from recman_tpu_torch.models import XDeepFM
+    from recman_tpu_torch.serving import Predictor
+    from recman_tpu_torch.training import LogLoss, StreamingAUC, Trainer, batch_indices
+    from recman_tpu_torch.training.train_step import gather_batch, loss_and_grads, unpack_batch
+
+    t0 = time.perf_counter()
+    fs = create_criteo_features(num_buckets=NUM_BUCKETS)
+    data = synthetic_criteo_arrays(PAPER_ROWS + PAPER_VALID, num_buckets=NUM_BUCKETS, seed=2019)
+    y_train, y_valid = data["y"][:PAPER_ROWS], data["y"][PAPER_ROWS:]
+    x_train = {k: v[:PAPER_ROWS] for k, v in data.items() if k != "y"}
+    x_valid = {k: v[PAPER_ROWS:] for k, v in data.items() if k != "y"}
+
+    def trainer(dev, hp=None, batch=PAPER_BATCH):
+        hpx = {**PAPER_HP, **(hp or {})}
+        return Trainer(XDeepFM(fs, hpx), hpx, metrics=(LogLoss(), StreamingAUC()), epoch=1,
+                       batch_size=batch, random_seed=2019, device=dev)
+
+    log(f"per-layer setup: xdeepfm_paper_criteo {PAPER_HP}, {PAPER_ROWS} + {PAPER_VALID} rows, "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # (a) parity: one predict batch, then step 1's gradients and a 2-step
+    # trace at batch PARITY_BATCH, card against CPU from the same params
+    t_gpu, t_cpu = trainer(device, batch=PARITY_BATCH), trainer("cpu", batch=PARITY_BATCH)
+    params0 = {k: v.detach().cpu() for k, v in t_gpu.state.params.items()}
+    t_cpu.state = t_cpu.state._replace(params=dict(params0), opt_state=t_cpu.optimizer.init(params0))
+    check(all(v.device.type == device.type for v in t_gpu.state.params.values()),
+          "params not on the GPU")
+    first = {k: v[:PAPER_BATCH] for k, v in x_train.items()}
+    reset_counts()
+    p_gpu = Predictor(t_gpu.model, t_gpu.state.params, batch_size=PAPER_BATCH).predict(first)
+    counts = kernel_counts()
+    t1 = time.perf_counter()
+    p_cpu = Predictor(t_cpu.model, params0, batch_size=PAPER_BATCH, device="cpu").predict(first)
+    cpu_pred_s = time.perf_counter() - t1
+    check_counts(counts, {"K1": 0, "K4": 3 * 2}, "parity predict (1 batch + 1 padding batch)")
+    dp = float(np.abs(p_gpu - p_cpu).max())
+    check(np.isfinite(p_gpu).all() and dp <= PRED_TOL,
+          f"per-layer predict GPU vs CPU: max|dp| {dp} > {PRED_TOL}")
+    idx = batch_indices(PAPER_ROWS, PARITY_BATCH, shuffle_seed=2019)[:2]
+    # step 1 records, per CIN layer, the interaction's output (pre minus the
+    # bias) and the L1 mass sum_n |dloss/dpre[o, n]| of the terms whose sum
+    # is cin_bias_i's gradient
+    from recman_tpu_torch.layers import cin as cin_layer
+
+    real_fm = cin_layer.cin_interact_fm
+    results = []
+    for tr in (t_gpu, t_cpu):
+        t1 = time.perf_counter()
+        d, layout = tr._to_device(x_train, y_train)
+        batch, w = gather_batch(d, tr._idx(idx[0]))
+        pres, masses = [], []
+
+        def recording(x0c, xkc, wt, pres=pres, masses=masses):
+            out = real_fm(x0c, xkc, wt)
+            pres.append(out.detach().cpu())
+            masses.append(None)
+            out.register_hook(
+                lambda g, i=len(masses) - 1: masses.__setitem__(i, g.abs().sum(1).cpu()))
+            return out
+
+        cin_layer.cin_interact_fm = recording
+        try:
+            loss, grads = loss_and_grads(tr.model, tr.state.params, unpack_batch(batch, layout), w)
+        finally:
+            cin_layer.cin_interact_fm = real_fm
+        trace = torch.stack([tr.fit_on_batch(d, i, layout) for i in idx]).cpu().numpy()
+        results.append((loss.item(), {k: g.cpu() for k, g in grads.items()}, trace,
+                        time.perf_counter() - t1, pres, masses))
+    (lg, gg, tg, sg_s, pres_g, _), (lc, gc, tc, sc_s, pres_c, masses_c) = results
+    n_layers = len(PAPER_HP["cin_cross_layer_units"])
+    check(len(pres_g) == len(pres_c) == n_layers and all(m is not None for m in masses_c),
+          "the parity step did not run the per-layer path")
+    rel, bias_rel, flips = {}, {}, []
+    for i in range(n_layers):
+        bias = params0[f"cin_bias_{i}"][:, None]
+        flips.append(int(((pres_g[i] + bias > 0) != (pres_c[i] + bias > 0)).sum()))
+    for k in gc:
+        diff = (gg[k] - gc[k]).abs()
+        err, scale = diff.max().item(), gc[k].abs().max().item()
+        rel[k] = err / scale if scale else err
+        if k.startswith("cin_bias_"):
+            # a bias's gradient is a sum over B*D terms that cancel: one
+            # leaky_relu derivative read on the other side of 0 (pre within
+            # the f32 sum-order difference of 0) moves it by 0.8 of a term,
+            # so it is held to its terms' L1 mass
+            mass = masses_c[int(k.rsplit("_", 1)[1])]
+            bias_rel[k] = (diff / mass).max().item()
+            check(bool((diff <= GRAD_TOL * mass).all()),
+                  f"per-layer step-1 grad {k}: max|d|/mass {bias_rel[k]} > {GRAD_TOL}")
+        else:
+            check(err <= GRAD_TOL * scale, f"per-layer step-1 grad {k}: max|d| {err} > {GRAD_TOL} * {scale}")
+    max_d = float(np.abs(tg - tc).max())
+    final_rel = float(abs(tg[-1] - tc[-1]) / max(abs(tc[-1]), 1e-9))
+    check(np.isfinite(tg).all() and np.isfinite(tc).all(), "non-finite loss")
+    check(max_d <= TRACE_ABS and final_rel <= TRACE_REL,
+          f"per-layer trace GPU vs CPU: max|d| {max_d}, final rel {final_rel}")
+    worst = max((k for k in rel if k not in bias_rel), key=rel.get)
+    log(f"per-layer parity: predict {PAPER_BATCH} rows max|dp| {dp:.3e} (CPU {cpu_pred_s:.1f} s); "
+        f"batch {PARITY_BATCH}: step-1 loss {lg:.7f} vs {lc:.7f}, grads max|d|/max|ref| worst "
+        f"{rel[worst]:.3e} ({worst}); CIN biases max|d|/max|ref| "
+        f"{ {k: f'{rel[k]:.3e}' for k in bias_rel} }, max|d|/L1 mass of the terms "
+        f"{ {k: f'{v:.3e}' for k, v in bias_rel.items()} }; leaky_relu derivatives read on the "
+        f"other side of 0, per layer, of {pres_c[0].numel()}: {flips}; trace GPU "
+        f"{tg.tolist()} CPU {tc.tolist()}: max|d| {max_d:.3e}, final rel {final_rel:.3e} "
+        f"(GPU {sg_s:.1f} s, CPU {sc_s:.1f} s)")
+    del t_cpu, results
+
+    # (b) serving: Predictor at batch 4096 over PAPER_ROWS rows
+    predictor = Predictor(t_gpu.model, t_gpu.state.params, batch_size=PAPER_BATCH)
+    n_batches = PAPER_ROWS // PAPER_BATCH + 1
+    reset_counts()
+    t1 = time.perf_counter()
+    preds = predictor.predict(x_train)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    check_counts(kernel_counts(), {"K1": 0, "K1 save": 0, "K4": 3 * n_batches, "K5": 0},
+                 f"serving {n_batches} batches")
+    check(preds.shape == (PAPER_ROWS,) and bool(np.isfinite(preds).all())
+          and bool(((preds > 0) & (preds < 1)).all()), "serving predictions")
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        predictor.predict(x_train)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    wall = statistics.median(walls)
+    dev = {k: torch.as_tensor(v[:PAPER_BATCH]).cuda() for k, v in x_train.items()}
+
+    def forward():
+        with torch.inference_mode():
+            return t_gpu.model.apply(predictor.params, dev)
+
+    batch_ms = cuda_time_ms(forward, reps=20)
+    log(f"per-layer serving: first predict {first_s:.3f} s; steady {wall * 1e3:.3f} ms per call of "
+        f"{PAPER_ROWS} rows ({n_batches} batches), {PAPER_ROWS / wall:.1f} examples/s; one batch "
+        f"forward (device) {batch_ms:.4f} ms, {PAPER_BATCH / batch_ms * 1e3:.1f} examples/s; "
+        f"K4 {3 * n_batches} launches")
+    profile_device(forward, batch_ms, "per-layer batch forwards")
+    del predictor, dev, t_gpu
+
+    # (c) training: Trainer.fit, one epoch, then evaluate; then 16 timed steps
+    tr = trainer(device)
+    steps = PAPER_ROWS // PAPER_BATCH + 1
+    eval_batches = 2 * steps + len(y_valid) // PAPER_BATCH + 1  # epoch 0 and 1 evals, valid
+    reset_counts()
+    t1 = time.perf_counter()
+    tr.fit(x_train, y_train)
+    logloss, auc = tr.evaluate(x_valid, y_valid)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    fit_launches = kernel_counts()
+    check_counts(fit_launches, {"K1": 0, "K1 save": 0, "K2": 0, "K4": 3 * (steps + eval_batches),
+                                "K5": 3 * steps}, f"fit ({steps} steps, {eval_batches} eval batches)")
+    check(np.isfinite(tr.last_mean_loss) and np.isfinite(logloss) and np.isfinite(auc),
+          "non-finite fit loss or metrics")
+    log(f"per-layer fit: {steps} steps + {eval_batches} eval batches in {fit_s:.2f} s; mean loss "
+        f"{tr.last_mean_loss:.5f}; VALID logloss {logloss:.4f} auc {auc:.4f}; launches {fit_launches}")
+    d, layout = tr._to_device(x_train, y_train)
+    idx = tr._idx(batch_indices(PAPER_ROWS, PAPER_BATCH, shuffle_seed=7))
+    for i in range(2):  # warm-up
+        tr.fit_on_batch(d, idx[i], layout)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n_timed = PAPER_ROWS // PAPER_BATCH
+    reset_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_timed + 1)]
+    losses = []
+    t1 = time.perf_counter()
+    events[0].record()
+    for i in range(n_timed):
+        losses.append(tr.fit_on_batch(d, idx[i], layout))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(kernel_counts(), {"K1": 0, "K1 save": 0, "K2": 0, "K4": 3 * n_timed,
+                                   "K5": 3 * n_timed}, f"{n_timed} timed steps")
+    losses = torch.stack(losses).cpu().numpy()
+    check(bool(np.isfinite(losses).all()), "non-finite loss in the timed steps")
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    log(f"per-layer train steady: {n_timed} steps; step (CUDA events, median) {step_ms:.4f} ms, "
+        f"{PAPER_BATCH / step_ms * 1e3:.1f} examples/s; wall {wall * 1e3 / n_timed:.3f} ms/step, "
+        f"{n_timed * PAPER_BATCH / wall:.1f} examples/s; loss first {losses[0]:.6f} last "
+        f"{losses[-1]:.6f}; peak memory {peak / 1e9:.3f} GB ({(peak - base_mem) / 1e9:.3f} GB "
+        f"over the {base_mem / 1e9:.3f} GB held before the steps)")
+
+    def one_step():
+        tr.fit_on_batch(d, idx[0], layout)
+
+    profile_device(one_step, step_ms, "per-layer train steps", n=3)
+
+    # (d) cin_remat: step 1's gradients with and without, launches, peak memory
+    tr_r = trainer(device, {"cin_remat": True})
+    batch, w = gather_batch(d, idx[0])
+    ub = unpack_batch(batch, layout)
+    runs = []
+    for model, k4 in ((tr.model, 3), (tr_r.model, 6)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        loss, grads = loss_and_grads(model, tr.state.params, ub, w)
+        torch.cuda.synchronize()
+        check_counts(kernel_counts(), {"K1": 0, "K4": k4, "K5": 3}, f"one step, remat={k4 == 6}")
+        runs.append((loss.item(), grads, torch.cuda.max_memory_allocated() - before))
+    (la, ga, pa), (lb, gb, pb) = runs
+    equal = all(torch.equal(ga[k], gb[k]) for k in ga)
+    if not equal:
+        max_rel_err([ga[k] for k in ga], [gb[k] for k in ga], K5_TOL, "remat gradients")
+    log(f"per-layer cin_remat: loss {la:.7f} vs {lb:.7f}; gradients "
+        f"{'bit-equal' if equal else 'within K5_TOL'}; K4 6 a step (3 without); peak memory of "
+        f"the step over what it holds before: {pb / 1e9:.3f} GB with remat, {pa / 1e9:.3f} GB "
+        f"without")
+    del tr_r, runs, ga, gb
+
+    # (e) live in-chain dropout: two steps on the per-layer path
+    tr_d = trainer(device, {"cin_dropout": (1, 0.5, 0.5, 0.5)})
+    reset_counts()
+    dl = torch.stack([tr_d.fit_on_batch(d, idx[i], layout) for i in range(2)]).cpu().numpy()
+    check_counts(kernel_counts(), {"K1": 0, "K1 save": 0, "K2": 0, "K4": 6, "K5": 6},
+                 "2 steps with live CIN dropout")
+    check(bool(np.isfinite(dl).all()), "non-finite loss with live CIN dropout")
+    log(f"per-layer live dropout (keeps (1, 0.5, 0.5, 0.5)): losses {dl.tolist()}")
+    del tr_d, tr, d
+
+    # (f) the Criteo example at its defaults with the paper's k
+    reset_counts()
+    t1 = time.perf_counter()
+    ex_trainer, (ex_logloss, ex_auc) = criteo_example(embedding_size=10, device=device)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    check(ex_trainer.device == device, "the example did not train on the GPU")
+    check(counts["K4"] > 0 and counts["K5"] > 0 and counts["K1"] == 0 and counts["K1 save"] == 0,
+          f"example launches {counts}")
+    check(np.isfinite(ex_logloss) and np.isfinite(ex_auc) and ex_auc > 0.5,
+          f"example VALID logloss {ex_logloss}, auc {ex_auc}")
+    log(f"criteo example (embedding_size 10, 200,000 rows, batch 4096, one epoch) in "
+        f"{time.perf_counter() - t1:.1f} s: VALID logloss {ex_logloss:.4f} auc {ex_auc:.4f}; "
+        f"launches {counts}")
+    return fit_launches
+
+
 def kernel_record(name, source, replaces, launches, rec):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -700,6 +1087,7 @@ def main():
 
     device = torch.device("cuda")
     rec = phase_kernels(device)
+    rec.update(phase_interact_kernels(device))
     t0 = time.perf_counter()
     serve_k1 = phase_serving(device)
     log(f"serving phase {time.perf_counter() - t0:.1f} s")
@@ -709,6 +1097,9 @@ def main():
     t0 = time.perf_counter()
     anchor = phase_trainer(device)
     log(f"trainer phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    per_layer = phase_per_layer(device)
+    log(f"per-layer phase {time.perf_counter() - t0:.1f} s")
 
     fwd, bwd, seg = ("recman_tpu_torch/csrc/cin_chain_fwd.cu", "recman_tpu_torch/csrc/cin_chain_bwd.cu",
                      "recman_tpu_torch/csrc/segment_matmul.cu")
@@ -720,6 +1111,10 @@ def main():
         kernel_record("segment_matmul", seg, "recman_tpu/ops/embedding.py:405", train["K3"], rec["K3"]),
         kernel_record("segment_matmul_rows", seg, "recman_tpu/ops/embedding.py:323", anchor["K6"],
                       rec["K6 genres"]),
+        kernel_record("cin_interact_fwd", "recman_tpu_torch/csrc/cin_interact_fwd.cu",
+                      "recman_tpu/ops/cin_interact.py:144", per_layer["K4"], rec["K4"]),
+        kernel_record("cin_interact_bwd", "recman_tpu_torch/csrc/cin_interact_bwd.cu",
+                      "recman_tpu/ops/cin_interact.py:157", per_layer["K5"], rec["K5"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -8,10 +8,12 @@ copies, so the port runs where JAX is not installed.
 Module names mirror the reference so each counterpart is easy to find.
 The slices ported so far are xDeepFM serving (``serving.Predictor`` over
 ``models.XDeepFM`` in eval mode), its stacked-storage train step
-(``training.make_train_step_stacked`` with Adam) and the ``Trainer`` with
-the ML-100K example (``examples.xdeepfm_ml``). Their kernels are
+(``training.make_train_step_stacked`` with Adam), the ``Trainer`` with
+the ML-100K example (``examples.xdeepfm_ml``) and the per-layer CIN path
+with the Criteo example (``examples.criteo_xdeepfm``). Their kernels are
 hand-written CUDA (sources in ``csrc/``): the CIN tower forward (K1) and
-backward (K2) in ``ops/cin_chain.py`` and the embedding tables'
+backward (K2) in ``ops/cin_chain.py``, one CIN layer's forward (K4) and
+backward (K5) in ``ops/cin_interact.py``, and the embedding tables'
 segment-sum gradients, batched (K3) and per table (K6), in
 ``ops/segment_matmul.py``.
 

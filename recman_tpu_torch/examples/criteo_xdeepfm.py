@@ -1,0 +1,100 @@
+"""xDeepFM on Criteo (a TSV or synthetic rows): the scale configuration.
+
+Counterpart of ``recman_tpu/examples/criteo_xdeepfm.py`` (:28-112): 26
+hashed categorical fields and 13 log1p dense ones, batch 4096, Adam at
+0.001, one epoch, a 90/10 train/valid split, then the VALID logloss and
+streaming AUC. Without ``tsv`` the rows are synthetic
+(``synthetic_criteo_arrays``, or the calibrated generator with
+``calibrated=True``). ``tsv`` reads a Criteo TSV with the pandas loader
+(``data.load_criteo_tsv``); the reference's native C++ loader is not
+ported (ROADMAP.md queue 1, item 8), nor is the ``large_batch`` recipe,
+which needs ``training/lr_schedule.py``.
+
+``embedding_size`` 10 (the xDeepFM paper's Criteo setting) is not a
+power of two, so the CIN runs its per-layer kernels (K4, K5) rather than
+the fused chain.
+
+Run on the GPU (or with ``--device cpu``):
+
+    python -m recman_tpu_torch.examples.criteo_xdeepfm [--rows 200000] [--embedding-size 10]
+"""
+
+import argparse
+import logging
+
+import recman_tpu_torch
+from recman_tpu_torch.data import (
+    calibrated_criteo_arrays,
+    create_criteo_features,
+    load_criteo_tsv,
+    synthetic_criteo_arrays,
+)
+from recman_tpu_torch.models import XDeepFM
+from recman_tpu_torch.training import LogLoss, StreamingAUC, Trainer
+
+log = logging.getLogger(__name__)
+
+
+def main(tsv=None, rows=200_000, num_buckets=100_000, epoch=1, batch_size=4096,
+         learning_rate=0.001, embedding_size=16, optimizer="adam", calibrated=False,
+         large_batch=False, device=None):
+    """Returns (trainer, [valid logloss, valid auc])."""
+    if large_batch:
+        raise NotImplementedError(
+            "large_batch needs training/lr_schedule.py (warmup and cosine decay), "
+            "not ported yet (ROADMAP.md queue 1, item 7)"
+        )
+    recman_tpu_torch.config_logger()
+    feat_dict = create_criteo_features(num_buckets=num_buckets)
+
+    if tsv:
+        raw = load_criteo_tsv(tsv, max_rows=rows)
+        y = raw.pop("y")
+        data = feat_dict.transform(raw, y=y)
+    elif calibrated:
+        data = calibrated_criteo_arrays(rows, num_buckets=num_buckets)
+    else:
+        data = synthetic_criteo_arrays(rows, num_buckets=num_buckets)
+
+    n = len(data["y"])
+    split = int(n * 0.9)
+    train = {k: v[:split] for k, v in data.items()}
+    valid = {k: v[split:] for k, v in data.items()}
+    y_valid = valid.pop("y")
+
+    hp = {
+        "learning_rate": learning_rate,
+        "optimizer": optimizer,
+        "embedding_size": embedding_size,
+        "cin_cross_layer_units": (100, 100),
+        "cin_dropout": (1, 1, 1),
+        "deep_hidden_units": (400, 400),
+        "deep_dropout": (1.0, 1.0, 1.0),
+    }
+    model = XDeepFM(feat_dict, hp)
+    trainer = Trainer(
+        model, hp, metrics=(LogLoss(), StreamingAUC()), epoch=epoch,
+        batch_size=batch_size, random_seed=2019, device=device,
+    )
+    trainer.fit(train, train["y"])
+    res = trainer.evaluate(valid, y_valid)
+    kind = "" if tsv else (" (calibrated synthetic)" if calibrated else " (synthetic)")
+    log.info("Criteo%s: VALID logloss=%.4f auc=%.4f", kind, res[0], res[1])
+    return trainer, res
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tsv", default=None)
+    ap.add_argument("--rows", type=int, default=200_000)
+    ap.add_argument("--buckets", type=int, default=100_000)
+    ap.add_argument("--epoch", type=int, default=1)
+    ap.add_argument("--batch-size", type=int, default=4096)
+    ap.add_argument("--embedding-size", type=int, default=16)
+    ap.add_argument("--calibrated", action="store_true",
+                    help="published-stats-calibrated synthetic generator instead of the bench one")
+    ap.add_argument("--device", default=None, help="default: cuda")
+    args = ap.parse_args()
+    main(tsv=args.tsv, rows=args.rows, num_buckets=args.buckets, epoch=args.epoch,
+         batch_size=args.batch_size, embedding_size=args.embedding_size,
+         calibrated=args.calibrated, device=args.device)

@@ -19,15 +19,29 @@ def dropout(generator, x, keep_prob: float, training: bool):
     takes ``torch.Generator(device="cuda")``). It cannot match the
     reference's ``jax.random`` bits, so parity runs keep every keep at 1.
     """
+    return apply_mask(x, dropout_mask(generator, x.shape, x.device, keep_prob, training),
+                      keep_prob)
+
+
+def dropout_mask(generator, shape, device, keep_prob: float, training: bool):
+    """The keep mask ``dropout`` draws for a tensor of ``shape`` on
+    ``device``, or None where ``dropout`` is a no-op. Drawn apart from its
+    use so that a rematerialized layer reuses it (layers/cin.py)."""
     if not training or keep_prob >= 1.0 or generator is None:
-        return x
-    if generator.device.type != x.device.type:
+        return None
+    if generator.device.type != torch.device(device).type:
         raise ValueError(
-            f"dropout: generator on {generator.device}, tensor on {x.device}; "
+            f"dropout: generator on {generator.device}, tensor on {device}; "
             "draw the mask with a generator on the tensor's device"
         )
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
+def apply_mask(x, mask, keep_prob: float):
+    """Inverted dropout of ``x`` by a mask from ``dropout_mask``."""
+    if mask is None:
+        return x
+    return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def leaky_relu(x):

@@ -45,6 +45,7 @@ class XDeepFM(Model):
             dropout_keep=hp[HP.CinDropOut],
             l2_reg=hp[HP.CinL2Reg],
             compute_dtype=hp.get(HP.CinComputeDtype, "bfloat16"),
+            remat=bool(hp.get(HP.CinRemat, False)),
         )
         dnn_input_dim = (
             self.embeddings.field_size * hp[HP.EmbeddingSize]

@@ -9,7 +9,7 @@ from .cin_chain import (
     cin_chain_fm_reference,
     cin_chain_fwd,
 )
-from .cin_interact import cin_interact
+from .cin_interact import cin_interact_fm, pallas_cin
 from .embedding import (
     embedding_lookup,
     embedding_lookup_grouped,
@@ -33,13 +33,14 @@ __all__ = [
     "cin_chain_fm",
     "cin_chain_fm_reference",
     "cin_chain_fwd",
-    "cin_interact",
+    "cin_interact_fm",
     "embedding_lookup",
     "embedding_lookup_grouped",
     "embedding_lookup_multi",
     "fused_grad",
     "grad_kernel",
     "packed_lookup_stacked_split",
+    "pallas_cin",
     "segment_matmul_from_sorted",
     "segment_matmul_from_sorted_batched",
     "segment_matmul_reference",

@@ -12,6 +12,10 @@ Tolerances, per tensor, of its largest element:
   W to bf16 at the same places; only the order of the f32 sums differs.
 - K2 (dx0, dW_i, db_i) 1e-3: gpre is rounded to bf16 after f32 sums whose
   order differs, so an element can land one bf16 step away.
+- K4 (pre) and K5 (dx0, dxk, dW) 1e-3: the same bf16 roundings of z, W
+  and g on both sides, f32 sums in another order; K5 bit-equal on two
+  calls (no atomics).
+- The CIN layer's per-layer path, card against CPU: 1e-4 forward.
 - K3 and K6 1e-5, and exact zeros where no id falls: f32 sums of the same
   terms in another order.
 - One stacked train step, GPU against CPU: loss 1e-5 relative, every
@@ -22,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from recman_tpu_torch.ops import cin_chain, segment_matmul
+from recman_tpu_torch.ops import cin_chain, cin_interact, segment_matmul
 
 ACTS = ["identity", "relu", "leaky_relu"]
 
@@ -78,15 +82,19 @@ def test_k1_raises_on_geometry_it_does_not_take(cuda):
         cin_chain.cin_chain_fm(x0c, ws, bs, (6, 4), 10, "relu")
 
 
-def test_cin_outside_the_chain_raises_on_cuda(cuda):
+def test_cin_outside_the_chain_takes_k4_on_cuda(cuda):
     from recman_tpu_torch.layers import CIN
 
     cin = CIN(field_size=5, cross_layer_units=(6, 4), activation="relu",
               dropout_keep=(1, 1, 1))
     params = cin.init(torch.Generator().manual_seed(0), device=cuda)
     x = torch.randn((8, 5, 10), device=cuda)  # D = 10: not a chain geometry
-    with pytest.raises(NotImplementedError, match="K4"):
-        cin.apply(params, x)
+    before = (cin_chain.LAUNCHES, cin_interact.LAUNCHES)
+    got = cin.apply(params, x)
+    torch.cuda.synchronize()
+    assert (cin_chain.LAUNCHES - before[0], cin_interact.LAUNCHES - before[1]) == (0, 2)
+    ref = cin.apply({k: v.cpu() for k, v in params.items()}, x.cpu())
+    _close(ref, got.cpu(), 1e-4)
 
 
 def test_serving_on_card_matches_cpu(cuda):
@@ -191,17 +199,24 @@ def test_k3_matches_plain_version(cuda, t, c, n, v):
     assert torch.equal(got == 0, ref == 0)
 
 
-def test_cin_with_live_dropout_raises_on_cuda_in_training(cuda):
+def test_cin_with_live_dropout_takes_k4_and_k5_on_cuda_in_training(cuda):
     from recman_tpu_torch.layers import CIN
 
     cin = CIN(field_size=5, cross_layer_units=(6, 4), activation="relu",
               dropout_keep=(1, 0.5, 1))
     params = cin.init(torch.Generator().manual_seed(0), device=cuda)
     x = torch.randn((32, 5, 4), device=cuda)
+    before = cin_chain.LAUNCHES
     assert cin.apply(params, x).shape == (32, 1)  # eval: the chain
-    with pytest.raises(NotImplementedError, match="K4"):
-        cin.apply(params, x, training=True,
-                  generator=torch.Generator(device=cuda).manual_seed(1))
+    assert cin_chain.LAUNCHES == before + 1
+    p = {k: v.requires_grad_() for k, v in params.items()}
+    counts = (cin_chain.LAUNCHES, cin_interact.LAUNCHES, cin_interact.BWD_LAUNCHES)
+    out = cin.apply(p, x, training=True, generator=torch.Generator(device=cuda).manual_seed(1))
+    out.sum().backward()
+    torch.cuda.synchronize()
+    after = (cin_chain.LAUNCHES, cin_interact.LAUNCHES, cin_interact.BWD_LAUNCHES)
+    assert [a - c for a, c in zip(after, counts)] == [0, 2, 2]
+    assert all(torch.isfinite(v.grad).all() for v in p.values())
 
 
 def test_dnn_dropout_draws_its_mask_on_the_card(cuda):
@@ -354,3 +369,86 @@ def test_ml_train_step_on_card_launches_k6_per_field(cuda):
     assert abs(l_gpu.item() - l_cpu.item()) <= 1e-5 * abs(l_cpu.item())
     for k in g_cpu:
         _close(g_cpu[k], g_gpu[k].cpu(), 1e-3)
+
+
+def _interact_inputs(h0, hk, o, bd, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    x0c = torch.randn((h0, bd), generator=g)
+    xkc = torch.randn((hk, bd), generator=g)
+    w = torch.randn((h0 * hk, o), generator=g) * (2.0 / (h0 * hk + o)) ** 0.5
+    cot = torch.randn((o, bd), generator=g)
+    return [t.to(device) for t in (x0c, xkc, w, cot)]
+
+
+INTERACT_CASES = [
+    (5, 3, 8, 64),            # the CPU tests' small geometry
+    (5, 40, 8, 8),            # 32 < Hk <= 64
+    (7, 5, 9, 301),           # tail tile; B*D not a multiple of 4
+    (26, 26, 200, 40_960),    # the paper's Criteo layer 0 (B 4096, D 10)
+    (26, 100, 200, 40_960),   # its layers 1 and 2
+    (26, 100, 300, 1000),     # two map tiles in K4
+    (3, 128, 512, 130),       # the widest fan-in and maps
+    (130, 1, 4, 200),         # H0 over 128, Hk 1
+]
+
+
+@pytest.mark.parametrize("h0,hk,o,bd", INTERACT_CASES)
+def test_k4_and_k5_match_plain_versions(cuda, h0, hk, o, bd):
+    """K4 and K5 against their twins, 1e-3 of each output's largest
+    element (the same bf16 roundings, f32 sums in another order); K5
+    bit-equal on two calls."""
+    x0c, xkc, w, g = _interact_inputs(h0, hk, o, bd, h0 + hk + o, cuda)
+    before = (cin_interact.LAUNCHES, cin_interact.BWD_LAUNCHES)
+    got = cin_interact.cin_interact_fwd(x0c, xkc, w)
+    grads = cin_interact.cin_interact_bwd(x0c, xkc, w, g)
+    again = cin_interact.cin_interact_bwd(x0c, xkc, w, g)
+    torch.cuda.synchronize()
+    assert (cin_interact.LAUNCHES - before[0], cin_interact.BWD_LAUNCHES - before[1]) == (1, 2)
+    _close(cin_interact.cin_interact_fm_reference(x0c, xkc, w), got, 1e-3)
+    for r, a, b in zip(cin_interact.cin_interact_fm_bwd_reference(x0c, xkc, w, g), grads, again):
+        _close(r, a, 1e-3)
+        assert torch.equal(a, b)
+
+
+def test_cin_interact_fm_shared_input_on_card(cuda):
+    """Layer 0 passes x0c as xkc: autograd sums K5's dx0 and dxk."""
+    x0c, _, w, g = _interact_inputs(6, 6, 10, 640, 1, cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        x = x0c.detach().to(dev).requires_grad_()
+        cin_interact.cin_interact_fm(x, x, w.to(dev)).backward(g.to(dev))
+        grads.append(x.grad.cpu())
+    _close(grads[1], grads[0], 1e-3)
+
+
+def test_k4_and_k5_wrappers_raise_on_what_they_do_not_take(cuda):
+    x0c, xkc, w, g = _interact_inputs(3, 129, 8, 64, 0, cuda)
+    with pytest.raises(ValueError, match="Hk <= 128"):
+        cin_interact.cin_interact_fwd(x0c, xkc, w)
+    x0c, xkc, w, g = _interact_inputs(3, 4, 513, 64, 0, cuda)
+    with pytest.raises(ValueError, match="O <= 512"):
+        cin_interact.cin_interact_bwd(x0c, xkc, w, g)
+    x0c, xkc, w, g = _interact_inputs(3, 4, 8, 64, 0, cuda)
+    with pytest.raises(ValueError, match="cotangent"):
+        cin_interact.cin_interact_bwd(x0c, xkc, w, g[:, :32].contiguous())
+
+
+def test_cin_remat_on_card_launches_k4_twice_a_layer(cuda):
+    from recman_tpu_torch.layers import CIN
+
+    x = torch.randn((64, 5, 10), device=cuda)
+    grads = []
+    for remat in (False, True):
+        cin = CIN(field_size=5, cross_layer_units=(6, 4), activation="relu",
+                  dropout_keep=(1, 0.5, 0.5), remat=remat)
+        p = {k: v.requires_grad_() for k, v in
+             cin.init(torch.Generator().manual_seed(0), device=cuda).items()}
+        before = (cin_interact.LAUNCHES, cin_interact.BWD_LAUNCHES)
+        out = cin.apply(p, x, training=True, generator=torch.Generator(device=cuda).manual_seed(3))
+        out.sum().backward()
+        torch.cuda.synchronize()
+        assert (cin_interact.LAUNCHES - before[0], cin_interact.BWD_LAUNCHES - before[1]) == \
+            ((4, 2) if remat else (2, 2))
+        grads.append({k: v.grad for k, v in p.items()})
+    for k in grads[0]:
+        assert torch.equal(grads[0][k], grads[1][k])

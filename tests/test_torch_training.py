@@ -368,8 +368,8 @@ def test_init_state_seeds_a_dropout_generator_on_the_device(port):
 
 def test_live_cin_dropout_leaves_the_chain_on_cpu(port):
     """CIN in training takes the chain only with every keep past index 0
-    at 1; otherwise the CPU runs the batch-major path (CUDA raises, naming
-    K4: tests/test_torch_cuda_kernels.py)."""
+    at 1; otherwise it runs the per-layer path (K4 and K5's twins on the
+    CPU, the kernels on CUDA: tests/test_torch_cuda_kernels.py)."""
     from recman_tpu_torch.layers import CIN
 
     cin = CIN(field_size=5, cross_layer_units=(6, 4), activation="relu",

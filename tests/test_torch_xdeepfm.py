@@ -103,8 +103,9 @@ class TestModelParity:
         assert np.abs(ref - got).max() <= PRED_TOL
 
     def test_synthetic_batch_major_geometry(self, synthetic_df):
-        # D = 10 is outside the chain's tiles: the port's CPU path takes
-        # the batch-major einsum, like the reference
+        # D = 10 is outside the chain's tiles: the port's CPU path takes the
+        # per-layer path (K4's twin), the reference's CPU path the
+        # batch-major einsum, with the same roundings
         hp = {"embedding_size": 10}
         jm, tm, np_params = _pair(synthetic_df, hp)
         batch = tm.feat_dict.transform(synthetic_df)
