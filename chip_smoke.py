@@ -17,8 +17,10 @@ Phases, each failing the script (non-zero exit) when it fails:
    least time the card could take for the same work and, where one
    PyTorch call computes the same function, that call: K1 without and
    with saved fmaps (cin_chain_fwd.cu), K2 (cin_chain_bwd.cu) on the
-   full-width forward's fmaps, K3 (segment_matmul.cu) on the sorted ids
-   of 8192 synthetic Criteo rows.
+   full-width forward's fmaps, K2's recompute form (the same source; bit-
+   equal to the save form, at batch 8192 and at 65,536), K3 and K7
+   (segment_matmul.cu; K7 beside index_add_ into a (T*V, k_eff) buffer)
+   on the sorted ids of 8192 synthetic Criteo rows.
 3. the serving slice end to end: full-width xDeepFM (26 hashed fields x
    100,000 buckets, k=16, CIN (100, 100), DNN (400, 400)) with random
    params from a seed, Predictor(batch_size=8192).predict on 65,536
@@ -68,6 +70,28 @@ geometry with a tail tile; K5 must be bit-equal on two calls.
    in-chain dropout: the per-layer path, finite losses. (f) The example
    ``examples.criteo_xdeepfm.main(embedding_size=10)``.
 
+7. the large-batch slice: the reference's criteo_large_batch model (the
+   bench model) with the warmup-plus-cosine schedule. (a) Parity at batch
+   4096, card against CPU: step 1's gradients with saved fmaps and
+   recomputed (and the two forms bit-equal on the card), and a 4-step
+   ``fit_on_batch`` trace with ``large_batch_schedule`` and lamb. (b)
+   ``examples.criteo_large_batch.main(batch_size=65536)`` on 2,000,000
+   rows: VALID logloss finite, AUC > 0.5, K1 save, K2 and K3 once a step.
+   (b, c) 8 steps timed with saved fmaps and with K2's recompute form
+   (``CHAIN_SAVE_FMAPS = False``: K1 without fmaps and K2 recompute once a
+   step, the save forms never), in the order save, recompute, recompute,
+   save, each with its peak memory, which must be lower recomputed; the
+   step's gradients bit-equal in both forms; 3-step profiles. (d)
+   ``examples.criteo_xdeepfm.main(large_batch=True)`` on 1,000,000 rows.
+8. the split lookup at the bench configuration, per-table step at batch
+   8192 under ``split_lookup("on")``: step 1 with ``SEGMAT_VK_OUT`` on (K7
+   once) and off (K3 once), gradients within 1e-5 of max|ref|; card
+   against CPU on the same batch, with the DNN's and the CIN's activation
+   derivatives read on the other side of 0 counted and bounded, and every
+   gradient held with them read on the card's side; then 3 steps each of
+   concat, split with K3 and split with
+   K7, in the order concat, K3, K7, K7, K3, concat, each profiled once.
+
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU it exits
 non-zero and prints no result.
@@ -80,6 +104,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -99,11 +125,26 @@ HPARAMS = {
 # K1 at the serving path's full-width shapes (H0, units, B, D), then at a
 # small geometry of the tests
 CHAIN_GEOMETRIES = {"full": (26, (100, 100), BATCH, 16), "small": (5, (6, 4), 64, 4)}
+# the chain at the large-batch slice's batch (H0, units, B, D)
+LARGE_GEOMETRY = (26, (100, 100), 65_536, 16)
 K1_TOL = 1e-3    # of max|ref|: same bf16 rounding both sides, f32 sum order differs
 K2_TOL = 1e-3    # of max|ref|: gpre rounds to bf16 after f32 sums in another order
 K3_TOL = 1e-5    # of max|ref|: f32 sums of up to 8192 terms in another order
 PRED_TOL = 1e-4  # max |dp| between the GPU and the CPU run of the same batch
 GRAD_TOL = 1e-3  # of max|ref| per param: step 1's gradient, GPU against CPU (K2's rounding)
+# a piecewise-linear activation's derivative read on the other side of 0 by
+# two runs of the same formulas (card and CPU, or a kernel and its twin):
+# at most this share of the elements (or one), each where the reference
+# lies within FLIP_ABS of its max|ref| of 0 (K1 and its twin on the card)
+# or within the two runs' tolerance (card against CPU)
+FLIP_SHARE = 1e-5
+FLIP_ABS = 1e-5
+DNN_Z_TOL = 1e-5  # of max|ref|: the DNN's f32 pre-activations, GPU against CPU
+# of max|ref|: the CIN's fmaps, GPU against CPU. A layer past the first
+# reads the one below's fmap rounded to bf16 after f32 sums whose order
+# differs between the card and the CPU's matmul, so an element of it can
+# land one bf16 step (up to 2**-7 of it) apart
+FEED_TOL = 2.0 ** -7
 TRACE_ABS, TRACE_REL = 6e-3, 0.01  # loss trace, GPU against CPU (bench.py:215's bounds)
 CPU_STEPS = 4     # steps compared with the CPU
 TIMED_STEPS = 32  # steps timed on the card
@@ -145,6 +186,14 @@ PAPER_BATCH = 4096
 PAPER_ROWS = 65_536
 PAPER_VALID = 8192  # rows for evaluate after the fit
 PARITY_BATCH = 1024  # bounds the CPU's time for the parity steps
+# the large-batch slice: the reference's criteo_large_batch configuration
+# (the bench model; Adam, or lamb, with large_batch_schedule)
+LARGE_HP = dict(HPARAMS, optimizer="adam")
+LARGE_BATCH = 65_536
+LARGE_ROWS = 2_000_000   # the example's default rows, split 95/5
+PARITY_LARGE = 4096      # the parity steps' batch (the CPU runs them too)
+TIMED_LARGE = 8          # steps timed in each form
+RECIPE_ROWS = 1_000_000  # rows of the Criteo example's large-batch recipe
 
 
 def log(msg):
@@ -228,6 +277,118 @@ def chain_bwd_bound_ms(x0c, ws, gs, fmaps, grads):
     return (*bound(flops, moved), flops, moved)
 
 
+def chain_bwd_recompute_bound_ms(x0c, ws, bs, gs, grads):
+    """Least time for K2's recompute form: the forward's bf16 products
+    (K1's) and the backward's (dW and u), or x0c, W, b and the pooled
+    cotangents in and dx0, dW and db out."""
+    bd = x0c.shape[1]
+    flops = sum(3 * 2 * bd * w.shape[0] * w.shape[1] for w in ws)
+    moved = nbytes(x0c, *ws, *bs, *gs, grads[0], *grads[1], *grads[2])
+    return (*bound(flops, moved), flops, moved)
+
+
+def sign_flips(refs, gots, tol, what, near_tol=FLIP_ABS):
+    """``gots`` against ``refs`` (pre-activations, or fmaps after a
+    piecewise-linear activation) to tol of max|ref|, and the elements of
+    other sign: at most FLIP_SHARE of them (or one), each where the
+    reference lies within near_tol of max|ref| of 0. Logs the readings per
+    tensor before it checks them; returns the count of such elements."""
+    stats = []
+    for i, (r, g) in enumerate(zip(refs, gots)):
+        check(g.shape == r.shape, f"{what}[{i}] shape {tuple(g.shape)} vs {tuple(r.shape)}")
+        scale = r.abs().max().item() or 1.0
+        flip = (r > 0) != (g > 0)
+        n_flip = int(flip.sum())
+        near = r[flip].abs().max().item() / scale if n_flip else 0.0
+        stats.append(((g - r).abs().max().item() / scale, n_flip, near, r.numel()))
+    log(f"{what}, per tensor: max|d|/max|ref|, elements of other sign, the largest |ref| "
+        f"among them over max|ref|: " + "; ".join(
+            f"{e:.3e}, {n} of {m}, {near:.3e}" for e, n, near, m in stats))
+    for i, (e, n_flip, near, _) in enumerate(stats):
+        check(e <= tol, f"{what}[{i}]: max|d|/max|ref| {e} > {tol}")
+        check(near <= near_tol, f"{what}[{i}]: a sign differs where |ref|/max|ref| is {near}")
+    flips, numel = sum(s[1] for s in stats), sum(s[3] for s in stats)
+    check(flips <= max(1, FLIP_SHARE * numel),
+          f"{what}: {flips} of {numel} elements differ in sign")
+    return flips
+
+
+def check_recompute(x0c, ws, bs, gs, units, d, act, fmaps, got, what):
+    """K2's recompute form against its twin (K1's twin rebuilds the fmaps,
+    K2's twin runs on them) to K2_TOL of max|ref|. K1's fmaps (``fmaps``,
+    the bits the kernel rebuilds) are first held to the twin's to K1_TOL,
+    with their sign differences bounded by ``sign_flips``. At such an
+    element K1 and its twin read the activation's derivative on the two
+    sides of 0, which moves that column's gpre by 0.8 of a term and its
+    dx0 with it; so when there is one, the kernel is held to K2's twin on
+    K1's fmaps instead. Returns (max|d|, sign differences)."""
+    import torch
+
+    from recman_tpu_torch.ops import cin_chain
+
+    n = len(units)
+    twin = cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True)[n:]
+    flips = sign_flips(twin, fmaps, K1_TOL, f"{what}: K1's fmaps")
+    if flips:
+        ref = cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, fmaps, units, d, act)
+    else:
+        ref = cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, twin, units, d, act)
+    del twin
+    err = max_rel_err([ref[0], *ref[1], *ref[2]], [got[0], *got[1], *got[2]], K2_TOL, what)
+    torch.cuda.synchronize()
+    return err, flips
+
+
+def time_k2_recompute(x0c, ws, bs, gs, units, d, act, err, label):
+    """K2's recompute form timed beside its twin and its bound."""
+    from recman_tpu_torch.ops import cin_chain
+
+    got = cin_chain.cin_chain_bwd_recompute(x0c, ws, bs, gs, units, d, act)
+    ms = cuda_time_ms(lambda: cin_chain.cin_chain_bwd_recompute(x0c, ws, bs, gs, units, d, act),
+                      reps=10)
+    plain_ms = cuda_time_ms(lambda: cin_chain.cin_chain_bwd_recompute_reference(
+        x0c, ws, bs, gs, units, d, act), warmup=1, reps=5)
+    bnd, by, flops, moved = chain_bwd_recompute_bound_ms(x0c, ws, bs, gs, got)
+    log(f"K2 recompute {label} (B*D={x0c.shape[1]}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bnd:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.2f} MB), "
+        f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None}
+
+
+def k2_recompute_large_batch(device):
+    """K2's recompute form at the large-batch geometry (B 65,536), its main
+    path's: against its twin, bit-equal to the save form on K1's saved
+    fmaps, then timed beside both forms. Returns its record."""
+    import torch
+
+    from recman_tpu_torch.ops import cin_chain
+
+    h0, units, b, d = LARGE_GEOMETRY
+    n = len(units)
+    x0c, ws, bs = chain_inputs(h0, units, b, d, seed=8, device=device)
+    out = cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, "leaky_relu", save=True)
+    g = torch.Generator().manual_seed(14)
+    gs = [torch.randn(p.shape, generator=g).to(device) for p in out[:n]]
+    saved = cin_chain.cin_chain_bwd(x0c, ws, bs, gs, out[n:], units, d, "leaky_relu")
+    got = cin_chain.cin_chain_bwd_recompute(x0c, ws, bs, gs, units, d, "leaky_relu")
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, c) for a, c in zip([saved[0], *saved[1], *saved[2]],
+                                                [got[0], *got[1], *got[2]])),
+          "K2 recompute at B 65,536: not bit-equal to K2 save")
+    err, flips = check_recompute(x0c, ws, bs, gs, units, d, "leaky_relu", out[n:], got,
+                                 "K2 recompute at B 65,536")
+    rec = time_k2_recompute(x0c, ws, bs, gs, units, d, "leaky_relu", err, f"B {b}")
+    k1s_ms = cuda_time_ms(lambda: cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, "leaky_relu",
+                                                          save=True), reps=10)
+    k2_ms = cuda_time_ms(lambda: cin_chain.cin_chain_bwd(x0c, ws, bs, gs, out[n:], units, d,
+                                                         "leaky_relu"), reps=10)
+    log(f"K2 recompute at B {b}: max|d| {err:.3e} against its plain version ({flips} fmap "
+        f"elements of other sign than the twin's), bit-equal to K2 save; {rec['ms']:.4f} ms "
+        f"against K1 save {k1s_ms:.4f} ms + K2 save {k2_ms:.4f} ms")
+    return rec
+
+
 def segmat_bound_ms(sids, sg, out):
     """Least time for K3's work: one f32 add per cotangent element (CUDA
     cores), or the ids and cotangents in and the dense grads out."""
@@ -251,7 +412,6 @@ def max_rel_err(refs, gots, tol, what):
 def phase_kernels(device):
     """Every kernel against its plain version at the small and the full
     geometry, then timed at full width. Returns the kernels' records."""
-    import numpy as np
     import torch
 
     from recman_tpu_torch.data import synthetic_criteo_arrays
@@ -275,8 +435,18 @@ def phase_kernels(device):
             ref_b = cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, got_s[n:], units, d, act)
             e2 = max_rel_err([ref_b[0], *ref_b[1], *ref_b[2]],
                              [got_b[0], *got_b[1], *got_b[2]], K2_TOL, f"K2 {label} {act}")
-            log(f"K1/K1 save/K2 vs plain [{label} H0={h0} units={units} B={b} D={d} {act}]: "
-                f"max|d| {e1:.3e} / {e1s:.3e} / {e2:.3e}; max|ref| pooled "
+            # K2's recompute form: the save form's bits, and its twin
+            got_r = cin_chain.cin_chain_bwd_recompute(x0c, ws, bs, gs, units, d, act)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, c) for a, c in zip([got_b[0], *got_b[1], *got_b[2]],
+                                                        [got_r[0], *got_r[1], *got_r[2]])),
+                  f"K2 recompute {label} {act}: not bit-equal to K2 save")
+            e2r, flips = check_recompute(x0c, ws, bs, gs, units, d, act, got_s[n:], got_r,
+                                         f"K2 recompute {label} {act}")
+            log(f"K1/K1 save/K2/K2 recompute vs plain [{label} H0={h0} units={units} B={b} D={d} "
+                f"{act}]: max|d| {e1:.3e} / {e1s:.3e} / {e2:.3e} / {e2r:.3e} ({flips} fmap "
+                f"elements of other sign than the twin's), K2 recompute bit-equal to K2 save; "
+                f"max|ref| pooled "
                 f"{max(r.abs().max().item() for r in ref[:n]):.4g}, dx0 "
                 f"{ref_b[0].abs().max().item():.4g}, dW {[round(w.abs().max().item(), 4) for w in ref_b[1]]}")
         if label != "full":
@@ -309,6 +479,8 @@ def phase_kernels(device):
         log(f"K2 full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms "
             f"({by}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.2f} MB), "
             f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+        time_k2_recompute(x0c, ws, bs, gs, units, d, act, e2r, "full width")
+    rec["K2 recompute"] = k2_recompute_large_batch(device)
 
     # K3: a small Zipf case, then the full-width sorted ids of one batch
     rs = np.random.RandomState(3)
@@ -342,6 +514,43 @@ def phase_kernels(device):
     log(f"K3 full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, library (scatter_add_) "
         f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}; {moved / 1e6:.2f} MB), "
         f"{moved / ms / 1e6:.1f} GB/s achieved")
+
+    # K7: the same ids, the cotangents split into k_emb table rows and one
+    # vector row, row-major table grads
+    for label, ids, v, (k_emb, n_vec) in (("small", small_ids, 50, (4, 1)),
+                                          ("full", full_ids, vocab_full, (HPARAMS["embedding_size"], 1))):
+        t, nn = ids.shape
+        c = k_emb + n_vec
+        sids = torch.from_numpy(ids).to(device)
+        sg = torch.randn((t, c, nn), generator=torch.Generator().manual_seed(15)).to(device)
+        got = segment_matmul.segment_matmul_from_sorted_batched_vk(sids, sg, v, k_emb, n_vec)
+        again = segment_matmul.segment_matmul_from_sorted_batched_vk(sids, sg, v, k_emb, n_vec)
+        torch.cuda.synchronize()
+        ref = segment_matmul.segment_matmul_vk_reference(sids, sg, v, k_emb, n_vec)
+        e7 = max_rel_err(list(ref), list(got), K3_TOL, f"K7 {label}")
+        check(all(torch.equal(a == 0, r == 0) for a, r in zip(got, ref)),
+              f"K7 {label}: zeros differ from the plain version")
+        check(all(torch.equal(a, r) for a, r in zip(got, again)), f"K7 {label}: two calls differ")
+        log(f"K7 vs plain [{label} T={t} k_emb={k_emb} n_vec={n_vec} N={nn} V={v}]: max|d| "
+            f"{e7:.3e}, max|ref| {max(r.abs().max().item() for r in ref):.4g}, empty rows exact, "
+            f"two calls bit-equal")
+    ms = cuda_time_ms(lambda: segment_matmul.segment_matmul_from_sorted_batched_vk(
+        sids, sg, v, k_emb, n_vec))
+    plain_ms = cuda_time_ms(lambda: segment_matmul.segment_matmul_vk_reference(
+        sids, sg, v, k_emb, n_vec), reps=20)
+    # one PyTorch call for the same sums, row-major: index_add_ of the
+    # (T*N, k_eff) cotangent rows into a (T*V, k_eff) buffer
+    flat_ids = (sids.long() + v * torch.arange(t, device=device)[:, None]).reshape(-1)
+    rows = sg.transpose(1, 2).reshape(t * nn, c).contiguous()
+    lib_ms = cuda_time_ms(lambda: torch.zeros((t * v, c), device=device).index_add_(0, flat_ids, rows))
+    bnd, by, flops, moved = segmat_bound_ms(sids, sg, got[0])
+    moved += nbytes(got[1])
+    bnd, by = bound(flops, moved, PEAK_F32_FLOPS)
+    rec["K7"] = {"max_abs_err": e7, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                 "bound_by": by, "library_ms": lib_ms}
+    log(f"K7 full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, library (index_add_ into "
+        f"(T*V, k_eff)) {lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}; {moved / 1e6:.2f} MB), "
+        f"{moved / ms / 1e6:.1f} GB/s achieved; K3 at the same shape {rec['K3']['ms']:.4f} ms")
 
     # K6: ML-100K's genres ids of the first train batch (the longest run
     # of the anchor's step), then one Criteo table of the same 8192 rows
@@ -446,7 +655,6 @@ def ml_genres_ids():
     """The genres ids of one batch of the anchor's train set (rows shuffled
     with seed 2019), PAD clamped to 0 as the packed layer does: N = 128 x
     19."""
-    import numpy as np
 
     from recman_tpu_torch.data import concat_rows, create_ml_features, get_ml_dataset
     from recman_tpu_torch.training import batch_indices
@@ -459,7 +667,6 @@ def ml_genres_ids():
 
 
 def phase_serving(device):
-    import numpy as np
     import torch
 
     from recman_tpu_torch.data import create_criteo_features, synthetic_criteo_arrays
@@ -556,7 +763,6 @@ def profile_device(fn, unit_ms, what, n=5):
 def phase_training(device):
     """The stacked train step at full width: GPU against the port's CPU
     run, then timed. Returns the launches of the timed run per kernel."""
-    import numpy as np
     import torch
 
     from recman_tpu_torch.data import create_criteo_features, synthetic_criteo_arrays
@@ -604,23 +810,14 @@ def phase_training(device):
     loss_c, grads_c = first_grads(params_cpu, data_cpu, idx_cpu)
     _, trace_c = trace(params_cpu, data_cpu, idx_cpu)
     cpu_s = time.perf_counter() - t0
-    rel = {}
-    for k in grads_c:
-        err = (grads_g[k].cpu() - grads_c[k]).abs().max().item()
-        scale = grads_c[k].abs().max().item()
-        rel[k] = err / scale if scale else err
-        check(err <= GRAD_TOL * scale, f"step-1 grad {k}: GPU vs CPU max|d| {err} > {GRAD_TOL} * {scale}")
+    rel, worst = grads_match(grads_c, grads_g, "step-1 grad, GPU vs CPU")
+    leaf = (grads_g["__stacked_feat_embed"].cpu() - grads_c["__stacked_feat_embed"]).abs().max() \
+        / grads_c["__stacked_feat_embed"].abs().max()
     tg, tc = trace_g.cpu().numpy(), trace_c.numpy()
-    max_d = float(np.abs(tg - tc).max())
-    final_rel = float(abs(tg[-1] - tc[-1]) / max(abs(tc[-1]), 1e-9))
-    check(np.isfinite(tg).all() and np.isfinite(tc).all(), "non-finite loss")
-    check(max_d <= TRACE_ABS and final_rel <= TRACE_REL,
-          f"loss trace GPU vs CPU: max|d| {max_d} (bound {TRACE_ABS}), final rel {final_rel} "
-          f"(bound {TRACE_REL})")
-    worst = max(rel, key=rel.get)
+    max_d, final_rel = trace_match(tg, tc, "loss trace")
     log(f"training GPU vs CPU (CPU {CPU_STEPS} steps + step-1 grads in {cpu_s:.1f} s): step-1 loss "
-        f"{loss_g.item():.7f} vs {loss_c.item():.7f}; grads max|d|/max|ref| worst {rel[worst]:.3e} "
-        f"({worst}), stacked leaf {rel['__stacked_feat_embed']:.3e}; trace GPU {tg.tolist()} "
+        f"{loss_g.item():.7f} vs {loss_c.item():.7f}; grads max|d|/max|ref| worst {rel:.3e} "
+        f"({worst}), stacked leaf {leaf.item():.3e}; trace GPU {tg.tolist()} "
         f"CPU {tc.tolist()}: max|d| {max_d:.3e}, final rel {final_rel:.3e}")
 
     # timed: TIMED_STEPS single steps on the card, counts from 0
@@ -629,6 +826,7 @@ def phase_training(device):
     for i in range(3):  # warm-up
         state, _ = step(state, data, idx[i:i + 1], layout)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     cin_chain.LAUNCHES = cin_chain.BWD_LAUNCHES = segment_matmul.LAUNCHES = 0
     events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
     losses = []
@@ -681,7 +879,6 @@ def phase_trainer(device):
     """The Trainer slice: (a) parity of 8 steps GPU against CPU, (b) the
     ML-100K anchor with its launch counts, (c) one epoch timed under
     "segmat" and under "scatter". Returns the anchor's launches."""
-    import numpy as np
     import torch
 
     from recman_tpu_torch.examples.xdeepfm_ml import main as ml_example
@@ -705,13 +902,9 @@ def phase_trainer(device):
             preds = trainer.predict(fs.transform(valid))
         results.append((trace, preds, time.perf_counter() - t0))
     (tg, pg, sg_s), (tc, pc, sc_s) = results
-    max_d = float(np.abs(tg - tc).max())
-    final_rel = float(abs(tg[-1] - tc[-1]) / max(abs(tc[-1]), 1e-9))
+    max_d, final_rel = trace_match(tg, tc, "trainer loss trace")
     dp = float(np.abs(pg - pc).max())
-    check(np.isfinite(tg).all() and np.isfinite(pg).all(), "non-finite loss or predictions")
-    check(max_d <= TRACE_ABS and final_rel <= TRACE_REL,
-          f"trainer loss trace GPU vs CPU: max|d| {max_d} (bound {TRACE_ABS}), final rel "
-          f"{final_rel} (bound {TRACE_REL})")
+    check(np.isfinite(pg).all(), "non-finite predictions")
     check(dp <= PARITY_PRED_ABS, f"valid predictions GPU vs CPU: max|dp| {dp} > {PARITY_PRED_ABS}")
     log(f"trainer parity, {PARITY_STEPS} steps lr {ML_LR} (GPU {sg_s:.1f} s, CPU {sc_s:.1f} s): "
         f"trace GPU {tg.tolist()} CPU {tc.tolist()}: max|d| {max_d:.3e}, final rel "
@@ -784,7 +977,8 @@ def reset_counts():
     from recman_tpu_torch.ops import cin_chain, cin_interact, segment_matmul
 
     cin_chain.LAUNCHES = cin_chain.SAVE_LAUNCHES = cin_chain.BWD_LAUNCHES = 0
-    segment_matmul.LAUNCHES = segment_matmul.ROWS_LAUNCHES = 0
+    cin_chain.RECOMPUTE_LAUNCHES = 0
+    segment_matmul.LAUNCHES = segment_matmul.ROWS_LAUNCHES = segment_matmul.VK_LAUNCHES = 0
     cin_interact.LAUNCHES = cin_interact.BWD_LAUNCHES = 0
 
 
@@ -793,8 +987,10 @@ def kernel_counts():
 
     return {"K1": cin_chain.LAUNCHES - cin_chain.SAVE_LAUNCHES,
             "K1 save": cin_chain.SAVE_LAUNCHES, "K2": cin_chain.BWD_LAUNCHES,
+            "K2 recompute": cin_chain.RECOMPUTE_LAUNCHES,
             "K3": segment_matmul.LAUNCHES, "K4": cin_interact.LAUNCHES,
-            "K5": cin_interact.BWD_LAUNCHES, "K6": segment_matmul.ROWS_LAUNCHES}
+            "K5": cin_interact.BWD_LAUNCHES, "K6": segment_matmul.ROWS_LAUNCHES,
+            "K7": segment_matmul.VK_LAUNCHES}
 
 
 def check_counts(counts, expected, what):
@@ -806,7 +1002,6 @@ def phase_per_layer(device):
     """The per-layer CIN path at xdeepfm_paper_criteo: (a) parity with the
     CPU, (b) serving, (c) training, (d) cin_remat, (e) live in-chain
     dropout, (f) the Criteo example. Returns the launches of (c)'s fit."""
-    import numpy as np
     import torch
 
     from recman_tpu_torch.data import create_criteo_features, synthetic_criteo_arrays
@@ -902,11 +1097,7 @@ def phase_per_layer(device):
                   f"per-layer step-1 grad {k}: max|d|/mass {bias_rel[k]} > {GRAD_TOL}")
         else:
             check(err <= GRAD_TOL * scale, f"per-layer step-1 grad {k}: max|d| {err} > {GRAD_TOL} * {scale}")
-    max_d = float(np.abs(tg - tc).max())
-    final_rel = float(abs(tg[-1] - tc[-1]) / max(abs(tc[-1]), 1e-9))
-    check(np.isfinite(tg).all() and np.isfinite(tc).all(), "non-finite loss")
-    check(max_d <= TRACE_ABS and final_rel <= TRACE_REL,
-          f"per-layer trace GPU vs CPU: max|d| {max_d}, final rel {final_rel}")
+    max_d, final_rel = trace_match(tg, tc, "per-layer trace")
     worst = max((k for k in rel if k not in bias_rel), key=rel.get)
     log(f"per-layer parity: predict {PAPER_BATCH} rows max|dp| {dp:.3e} (CPU {cpu_pred_s:.1f} s); "
         f"batch {PARITY_BATCH}: step-1 loss {lg:.7f} vs {lc:.7f}, grads max|d|/max|ref| worst "
@@ -1054,6 +1245,369 @@ def phase_per_layer(device):
     return fit_launches
 
 
+def grads_match(ref, got, what, tol=GRAD_TOL):
+    """Every gradient of ``got`` within tol * max|ref| of ``ref``'s (on the
+    CPU); returns the worst ratio and its param."""
+    rel = {}
+    for k in ref:
+        err = (got[k].cpu() - ref[k].cpu()).abs().max().item()
+        scale = ref[k].abs().max().item()
+        rel[k] = err / scale if scale else err
+        check(err <= tol * scale, f"{what} {k}: max|d| {err} > {tol} * {scale}")
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def rel_err(ref, got):
+    """max|ref - got| over max|ref| (over 1 where ref is all 0)."""
+    scale = ref.abs().max().item()
+    return (got - ref).abs().max().item() / (scale or 1.0)
+
+
+def recorded_grads(model, params, ub, w, card=None):
+    """Step-1 gradients of an xDeepFM whose CIN takes the chain with saved
+    fmaps, recording each DNN layer's pre-activation and the CIN's fmaps
+    (on the CPU). With ``card``, another run's record: where this run's
+    pre-activation or fmap has the other sign than the card's, the
+    activation (piecewise linear through 0) is taken on the card's side of
+    0, and its derivative with it; every value is this run's own but the
+    fmap at such an element, which K2 reads for its sign, and which is the
+    card's. Returns (grads, {"dnn": [...], "cin": [...]})."""
+    import torch
+
+    from recman_tpu_torch.ops import cin_chain
+    from recman_tpu_torch.training.train_step import loss_and_grads
+
+    real_act, real_fwd = model.dnn.activation, cin_chain.cin_chain_fwd
+    seen = {"dnn": [], "cin": []}
+
+    def dnn_act(z):
+        i = len(seen["dnn"])
+        seen["dnn"].append(z.detach().cpu())
+        if card is None:
+            return real_act(z)
+        pos = card["dnn"][i].to(z.device) > 0
+        return torch.where(pos == (z > 0), real_act(z), torch.where(pos, z, -real_act(-z)))
+
+    def fwd(x0c, ws, bs, units, d, act="leaky_relu", save=False):
+        out = real_fwd(x0c, ws, bs, units, d, act, save)
+        if save:
+            n = len(units)
+            seen["cin"] = [f.cpu() for f in out[n:]]
+            if card is not None:
+                out = (*out[:n], *(torch.where((f > 0) == (c > 0), f, c.to(f.device))
+                                   for f, c in zip(out[n:], card["cin"])))
+        return out
+
+    model.dnn.activation, cin_chain.cin_chain_fwd = dnn_act, fwd
+    try:
+        grads = loss_and_grads(model, params, ub, w)[1]
+    finally:
+        model.dnn.activation, cin_chain.cin_chain_fwd = real_act, real_fwd
+    check(len(seen["dnn"]) == len(model.dnn.hidden_units) and seen["cin"],
+          "the step did not run the DNN and the CIN chain with saved fmaps")
+    return grads, seen
+
+
+def trace_match(tg, tc, what):
+    max_d = float(np.abs(tg - tc).max())
+    final_rel = float(abs(tg[-1] - tc[-1]) / max(abs(tc[-1]), 1e-9))
+    check(np.isfinite(tg).all() and np.isfinite(tc).all(), f"{what}: non-finite loss")
+    check(max_d <= TRACE_ABS and final_rel <= TRACE_REL,
+          f"{what} GPU vs CPU: max|d| {max_d} (bound {TRACE_ABS}), final rel {final_rel} "
+          f"(bound {TRACE_REL})")
+    return max_d, final_rel
+
+
+def timed_steps(trainer, data, idx, layout, n):
+    """n ``fit_on_batch`` steps after 2 of warm-up: (device ms per step,
+    median of CUDA events; wall ms per step; peak memory over what was held
+    before, bytes; the launches of the n steps)."""
+    import torch
+
+    for i in range(2):
+        trainer.fit_on_batch(data, idx[i], layout)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(n):
+        losses.append(trainer.fit_on_batch(data, idx[i % idx.shape[0]], layout))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    counts = kernel_counts()
+    check(bool(torch.isfinite(torch.stack(losses)).all()), "non-finite loss in the timed steps")
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return step_ms, wall, torch.cuda.max_memory_allocated() - base, counts
+
+
+def large_batch_trainer(device, batch, hp=None, seed=2019):
+    """A Trainer of the large-batch slice's model (the reference's
+    criteo_large_batch configuration) with Adam and the warmup-plus-cosine
+    schedule of a 30-step epoch."""
+    from recman_tpu_torch.data import create_criteo_features
+    from recman_tpu_torch.models import XDeepFM
+    from recman_tpu_torch.training import LogLoss, StreamingAUC, Trainer, large_batch_schedule
+
+    hpx = {**LARGE_HP, "learning_rate": large_batch_schedule(1e-3, batch, 8192, 2, 30),
+           **(hp or {})}
+    return Trainer(XDeepFM(create_criteo_features(num_buckets=NUM_BUCKETS), hpx), hpx,
+                   metrics=(LogLoss(), StreamingAUC()), epoch=1, batch_size=batch,
+                   random_seed=seed, device=device)
+
+
+def phase_large_batch(device):
+    """The large-batch slice: (a) parity with the CPU at batch 4096, (b) the
+    example at batch 65,536 with saved fmaps, (c) the same steps with K2's
+    recompute form, (d) the Criteo example's large-batch recipe. Returns
+    the launches of the recompute form's timed steps."""
+    import torch
+
+    from recman_tpu_torch.data import synthetic_criteo_arrays
+    from recman_tpu_torch.examples.criteo_large_batch import main as large_batch_example
+    from recman_tpu_torch.examples.criteo_xdeepfm import main as criteo_example
+    from recman_tpu_torch.ops import cin_chain
+    from recman_tpu_torch.training import batch_indices, create_optimizer, large_batch_schedule
+    from recman_tpu_torch.training.train_step import gather_batch, loss_and_grads, unpack_batch
+
+    # (a) parity at batch PARITY_LARGE: step-1 gradients in both forms, and
+    # a 4-step trace with large_batch_schedule and lamb, card against CPU
+    t0 = time.perf_counter()
+    data = synthetic_criteo_arrays(PARITY_LARGE * CPU_STEPS, num_buckets=NUM_BUCKETS, seed=5)
+    x = {k: v for k, v in data.items() if k != "y"}
+    idx = batch_indices(PARITY_LARGE * CPU_STEPS, PARITY_LARGE, shuffle_seed=1)[:CPU_STEPS]
+    hp = {"optimizer": create_optimizer(
+        "lamb", large_batch_schedule(1e-3, PARITY_LARGE, 256, 2, CPU_STEPS))}
+    tg, tc = (large_batch_trainer(dev, PARITY_LARGE, hp) for dev in (device, "cpu"))
+    params0 = {k: v.detach().cpu() for k, v in tg.state.params.items()}
+    tc.state = tc.state._replace(params=dict(params0), opt_state=tc.optimizer.init(params0))
+    grads, traces = {}, []
+    for where, tr in (("gpu", tg), ("cpu", tc)):
+        d, layout = tr._to_device(x, data["y"])
+        batch, w = gather_batch(d, tr._idx(idx[0]))
+        ub = unpack_batch(batch, layout)
+        for save in (True, False):
+            cin_chain.CHAIN_SAVE_FMAPS = save
+            reset_counts()
+            grads[where, save] = loss_and_grads(tr.model, tr.state.params, ub, w)[1]
+            counts = kernel_counts()
+            if where == "gpu":
+                check_counts(counts, {"K1 save": int(save), "K2": int(save),
+                                      "K2 recompute": int(not save), "K3": 1},
+                             f"parity step, CHAIN_SAVE_FMAPS={save}")
+        cin_chain.CHAIN_SAVE_FMAPS = True
+        traces.append(torch.stack([tr.fit_on_batch(d, i, layout) for i in idx]).cpu().numpy())
+    bits = all(torch.equal(grads["gpu", True][k], grads["gpu", False][k]) for k in params0)
+    check(bits, "step-1 gradients on the card differ between the two CIN forms")
+    w_save, k_save = grads_match(grads["cpu", True], grads["gpu", True], "large-batch step-1 grad")
+    w_rec, k_rec = grads_match(grads["cpu", False], grads["gpu", False],
+                               "large-batch step-1 grad (recompute)")
+    max_d, final_rel = trace_match(traces[0], traces[1], "large-batch lamb trace")
+    log(f"large-batch parity at batch {PARITY_LARGE} ({time.perf_counter() - t0:.1f} s): step-1 "
+        f"grads GPU vs CPU worst {w_save:.3e} ({k_save}) with saved fmaps, {w_rec:.3e} ({k_rec}) "
+        f"recomputed; the two forms bit-equal on the card; lamb + warmup-cosine trace GPU "
+        f"{traces[0].tolist()} CPU {traces[1].tolist()}: max|d| {max_d:.3e}, final rel "
+        f"{final_rel:.3e}")
+    del tg, tc, grads
+
+    # (b) the example at batch 65,536, saved fmaps
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, (logloss, auc) = large_batch_example(batch_size=LARGE_BATCH, rows=LARGE_ROWS,
+                                                  device=device)
+    torch.cuda.synchronize()
+    example_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    split = int(LARGE_ROWS * 0.95)
+    steps = split // LARGE_BATCH + 1
+    eval_batches = 2 * steps + (LARGE_ROWS - split) // LARGE_BATCH + 1
+    check(trainer.device.type == "cuda", "the large-batch example did not train on the GPU")
+    check(np.isfinite(logloss) and np.isfinite(auc) and auc > 0.5,
+          f"large-batch example VALID logloss {logloss}, auc {auc}")
+    check_counts(counts, {"K1": eval_batches, "K1 save": steps, "K2": steps, "K2 recompute": 0,
+                          "K3": steps}, f"large-batch example ({steps} steps, {eval_batches} eval "
+                          f"batches)")
+    log(f"large-batch example (batch {LARGE_BATCH}, {LARGE_ROWS} rows, {steps} steps, Adam "
+        f"warmup+cosine) in {example_s:.1f} s: VALID logloss {logloss:.4f} auc {auc:.4f}; "
+        f"launches {counts}")
+
+    # (b, c) the same steps timed with saved fmaps and recomputed, in turns
+    d, layout = trainer._to_device(*timed_data(LARGE_BATCH))
+    idx = trainer._idx(batch_indices(TIMED_LARGE * LARGE_BATCH, LARGE_BATCH, shuffle_seed=3))
+    batch, w = gather_batch(d, idx[0])
+    ub = unpack_batch(batch, layout)
+    results = {}
+    for save in (True, False, False, True):
+        cin_chain.CHAIN_SAVE_FMAPS = save
+        step_ms, wall, peak, counts = timed_steps(trainer, d, idx, layout, TIMED_LARGE)
+        n = TIMED_LARGE
+        check_counts(counts, {"K1": 0 if save else n, "K1 save": n if save else 0,
+                              "K2": n if save else 0, "K2 recompute": 0 if save else n, "K3": n},
+                     f"{n} timed steps, CHAIN_SAVE_FMAPS={save}")
+        results.setdefault(save, []).append((step_ms, wall, peak))
+        if not save:
+            rec_launches = counts
+        log(f"large-batch steps [{'saved fmaps' if save else 'recomputed'}]: step (CUDA events, "
+            f"median) {step_ms:.4f} ms, {LARGE_BATCH / step_ms * 1e3:.1f} examples/s; wall "
+            f"{wall:.3f} ms/step, {LARGE_BATCH / wall * 1e3:.1f} examples/s; peak memory "
+            f"{peak / 1e9:.3f} GB over what was held before")
+    cin_chain.CHAIN_SAVE_FMAPS = True
+    peak_save = min(p for _, _, p in results[True])
+    peak_rec = max(p for _, _, p in results[False])
+    check(peak_rec < peak_save, f"recompute form's peak {peak_rec} not below the save form's "
+          f"{peak_save}")
+    for save in (True, False):
+        cin_chain.CHAIN_SAVE_FMAPS = save
+
+        def one_step():
+            trainer.fit_on_batch(d, idx[0], layout)
+
+        profile_device(one_step, statistics.median(r[0] for r in results[save]),
+                       f"large-batch train steps [{'saved fmaps' if save else 'recomputed'}]", n=3)
+    cin_chain.CHAIN_SAVE_FMAPS = True
+    grads = {}
+    for save in (True, False):
+        cin_chain.CHAIN_SAVE_FMAPS = save
+        grads[save] = loss_and_grads(trainer.model, trainer.state.params, ub, w)[1]
+    cin_chain.CHAIN_SAVE_FMAPS = True
+    check(all(torch.equal(grads[True][k], grads[False][k]) for k in grads[True]),
+          f"batch {LARGE_BATCH}: step gradients differ between the two CIN forms")
+    log(f"large-batch, batch {LARGE_BATCH}: step gradients bit-equal in the two forms; peak "
+        f"memory of a step over what it holds: saved fmaps {peak_save / 1e9:.3f} GB, recomputed "
+        f"{peak_rec / 1e9:.3f} GB")
+    del trainer, d, grads
+
+    # (d) the Criteo example's large-batch recipe
+    reset_counts()
+    t0 = time.perf_counter()
+    ex_trainer, (ex_logloss, ex_auc) = criteo_example(rows=RECIPE_ROWS, large_batch=True,
+                                                      device=device)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    check(ex_trainer.batch_size == LARGE_BATCH and ex_trainer.device.type == "cuda",
+          "the large-batch recipe did not train at batch 65,536 on the GPU")
+    check(np.isfinite(ex_logloss) and np.isfinite(ex_auc) and ex_auc > 0.5,
+          f"recipe VALID logloss {ex_logloss}, auc {ex_auc}")
+    check(counts["K1 save"] == counts["K2"] == counts["K3"] > 0, f"recipe launches {counts}")
+    log(f"criteo example, large-batch recipe ({RECIPE_ROWS} rows, batch {ex_trainer.batch_size}) "
+        f"in {time.perf_counter() - t0:.1f} s: VALID logloss {ex_logloss:.4f} auc {ex_auc:.4f}; "
+        f"launches {counts}")
+    return rec_launches
+
+
+def timed_data(batch):
+    from recman_tpu_torch.data import synthetic_criteo_arrays
+
+    data = synthetic_criteo_arrays(TIMED_LARGE * batch, num_buckets=NUM_BUCKETS, seed=7)
+    return {k: v for k, v in data.items() if k != "y"}, data["y"]
+
+
+def phase_split_lookup(device):
+    """The split lookup at the bench configuration, per-table step at batch
+    8192: K7 against K3 and the split route against concat (launches,
+    gradients), card against CPU at step 1 (``recorded_grads``: the DNN's
+    pre-activations, the CIN's fmaps and their sign differences bounded,
+    every gradient held on the card's signs), then concat / split with K3
+    / split with K7 timed in turns. Returns the launches of the K7 steps."""
+    import torch
+
+    from recman_tpu_torch.ops import embedding as emb_ops
+    from recman_tpu_torch.training import batch_indices
+    from recman_tpu_torch.training.train_step import gather_batch, unpack_batch
+
+    def split_grads(params, ub, w, route, card=None):
+        emb_ops.SEGMAT_VK_OUT = route == "split K7"
+        with emb_ops.split_lookup("off" if route == "concat" else "on"):
+            reset_counts()
+            grads, seen = recorded_grads(tr.model, params, ub, w, card)
+        emb_ops.SEGMAT_VK_OUT = False
+        return grads, kernel_counts(), seen
+
+    # step 1 at batch BATCH on the card: K7 against K3, and the split route
+    # against concat, whose forward gives the same rows (so every gradient
+    # but the lookups' is the same bits)
+    t0 = time.perf_counter()
+    tr = large_batch_trainer(device, BATCH, {"learning_rate": 1e-3})
+    d, layout = tr._to_device(*timed_data(BATCH))
+    idx = tr._idx(batch_indices(TIMED_LARGE * BATCH, BATCH, shuffle_seed=4))
+    batch, w = gather_batch(d, idx[0])
+    ub = unpack_batch(batch, layout)
+    grads, counts = {}, {}
+    for route in ("split K7", "split K3", "concat"):
+        grads[route], counts[route], seen = split_grads(tr.state.params, ub, w, route)
+        if route == "split K7":
+            seen_gpu = seen
+        check_counts(counts[route], {"K7": int(route == "split K7"),
+                                     "K3": int(route != "split K7")}, f"step 1 [{route}]")
+    e_vk, k_vk = grads_match(grads["split K3"], grads["split K7"], "split K7 vs K3 grad",
+                             tol=K3_TOL)
+    e_cat, k_cat = grads_match(grads["concat"], grads["split K7"], "split K7 vs concat grad",
+                               tol=K3_TOL)
+    same = sum(torch.equal(grads["concat"][k], grads["split K7"][k]) for k in grads["concat"])
+    # the same step on the CPU (the twins), as it runs and with every
+    # derivative of a DNN or CIN activation read on the card's side of 0
+    t1 = time.perf_counter()
+    params_cpu = {k: v.cpu() for k, v in tr.state.params.items()}
+    ub_cpu = {k: v.cpu() for k, v in ub.items()}
+    g_cpu, _, seen_cpu = split_grads(params_cpu, ub_cpu, w.cpu(), "split K7")
+    g_signs = split_grads(params_cpu, ub_cpu, w.cpu(), "split K7", card=seen_gpu)[0]
+    cpu_s = time.perf_counter() - t1
+    g_gpu = {k: v.cpu() for k, v in grads["split K7"].items()}
+    rel = {k: rel_err(g_cpu[k], g_gpu[k]) for k in g_cpu}
+    by_flips = {k: rel_err(g_cpu[k], g_signs[k]) for k in g_cpu}
+    on_signs = {k: rel_err(g_signs[k], g_gpu[k]) for k in g_cpu}
+    worst = sorted(rel, key=rel.get, reverse=True)[:3]
+    worst_sgn = max(on_signs, key=on_signs.get)
+
+    def fmt(r):
+        return "{" + ", ".join(f"{k}: {r[k]:.3e}" for k in worst) + "}"
+
+    log(f"step-1 grads at batch {BATCH}, GPU (K7) vs CPU (CPU {cpu_s:.1f} s), max|d|/max|ref| "
+        f"of the worst three {fmt(rel)}; the CPU's own signs against the card's move them by "
+        f"{fmt(by_flips)}; GPU vs CPU on the card's signs {fmt(on_signs)}, worst of all "
+        f"{on_signs[worst_sgn]:.3e} ({worst_sgn})")
+    flips = {part: sign_flips(seen_cpu[part], seen_gpu[part], tol, f"step 1 {part}, GPU vs CPU",
+                              near_tol=tol)
+             for part, tol in (("dnn", DNN_Z_TOL), ("cin", FEED_TOL))}
+    grads_match(g_signs, g_gpu, "split step-1 grad GPU vs CPU on the card's signs")
+    log(f"split lookup ({time.perf_counter() - t0:.1f} s): step-1 grads at batch {BATCH}, K7 vs "
+        f"K3 worst {e_vk:.3e} ({k_vk}), split K7 vs concat worst {e_cat:.3e} ({k_cat}; "
+        f"{same} of {len(grads['concat'])} params bit-equal); GPU (K7) vs CPU: derivatives read "
+        f"on the other side of 0, DNN {flips['dnn']} of {sum(z.numel() for z in seen_cpu['dnn'])}"
+        f", CIN {flips['cin']} of {sum(f.numel() for f in seen_cpu['cin'])}; every gradient "
+        f"within {GRAD_TOL} of max|ref| on the card's signs (worst {on_signs[worst_sgn]:.3e})")
+    del grads, g_gpu, g_cpu, g_signs, seen_gpu, seen_cpu
+
+    results = {}
+    for route in ("concat", "split K3", "split K7", "split K7", "split K3", "concat"):
+        emb_ops.SEGMAT_VK_OUT = route == "split K7"
+        with emb_ops.split_lookup("off" if route == "concat" else "on"):
+            step_ms, wall, peak, c = timed_steps(tr, d, idx, layout, 3)
+            expected = {"K7": 3 * (route == "split K7"),
+                        "K3": 3 * (route != "split K7")}
+            check_counts(c, expected, f"3 steps [{route}]")
+            results.setdefault(route, []).append((step_ms, wall))
+            if route in results and len(results[route]) == 2:
+
+                def one_step():
+                    tr.fit_on_batch(d, idx[0], layout)
+
+                profile_device(one_step, step_ms, f"split-lookup train steps [{route}]", n=3)
+            if route == "split K7":
+                k7_launches = c
+        log(f"split-lookup steps [{route}]: step (CUDA events, median of 3) {step_ms:.4f} ms, "
+            f"{BATCH / step_ms * 1e3:.1f} examples/s; wall {wall:.3f} ms/step")
+    emb_ops.SEGMAT_VK_OUT = False
+    log("split-lookup summary (median of the two turns): " + ", ".join(
+        f"{r} {statistics.median(x[0] for x in v):.4f} ms" for r, v in results.items()))
+    return k7_launches
+
+
 def kernel_record(name, source, replaces, launches, rec):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -1100,6 +1654,12 @@ def main():
     t0 = time.perf_counter()
     per_layer = phase_per_layer(device)
     log(f"per-layer phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    large = phase_large_batch(device)
+    log(f"large-batch phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    split = phase_split_lookup(device)
+    log(f"split-lookup phase {time.perf_counter() - t0:.1f} s")
 
     fwd, bwd, seg = ("recman_tpu_torch/csrc/cin_chain_fwd.cu", "recman_tpu_torch/csrc/cin_chain_bwd.cu",
                      "recman_tpu_torch/csrc/segment_matmul.cu")
@@ -1115,6 +1675,10 @@ def main():
                       "recman_tpu/ops/cin_interact.py:144", per_layer["K4"], rec["K4"]),
         kernel_record("cin_interact_bwd", "recman_tpu_torch/csrc/cin_interact_bwd.cu",
                       "recman_tpu/ops/cin_interact.py:157", per_layer["K5"], rec["K5"]),
+        kernel_record("cin_chain_bwd_recompute", bwd, "recman_tpu/ops/cin_chain.py:249",
+                      large["K2 recompute"], rec["K2 recompute"]),
+        kernel_record("segment_matmul_vk", seg, "recman_tpu/ops/embedding.py:609", split["K7"],
+                      rec["K7"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

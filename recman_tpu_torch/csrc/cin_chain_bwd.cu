@@ -1,10 +1,13 @@
-// K2: the whole CIN tower backward, from the pooled cotangents and the
-// fmaps that K1 saved.
+// K2: the whole CIN tower backward, from the pooled cotangents and either
+// the fmaps that K1 saved (the save form, cin_chain_bwd) or fmaps rebuilt
+// from x0c, W and b (the recompute form, cin_chain_bwd_recompute).
 //
 // Replaces the TPU kernel recman_tpu/ops/cin_chain.py:_chain_bwd_kernel
-// in its save-fmaps form (launched from _chain_bwd_pallas with fmaps).
-// Bound to PyTorch through a plain C interface (ctypes); the wrapper is
-// recman_tpu_torch/ops/cin_chain.py:cin_chain_bwd.
+// in both its forms (launched from _chain_bwd_pallas with fmaps, and
+// without them under CHAIN_SAVE_FMAPS = False). Bound to PyTorch through a
+// plain C interface (ctypes); the wrappers are
+// recman_tpu_torch/ops/cin_chain.py:cin_chain_bwd and
+// cin_chain_bwd_recompute.
 //
 // What it computes, per column n = b*D + d, walking the layers in reverse
 // (reference ops/cin_chain.py:286-355):
@@ -17,7 +20,9 @@
 // with x0 and xk entering the last two lines in f32, not rounded; layer
 // 0's dxk folds into dx0. xk is x0 for layer 0 and the first Hk_i rows of
 // fmap_{i-1} after it. Every bf16 rounding above is one the reference
-// makes, at the same place.
+// makes, at the same place. Of the fmaps the backward reads only two
+// things: act' of every fmap element (from its sign, fmap > 0) and the
+// feed rows (the xk of the next layer).
 //
 // Bound on an H100 SXM: operations. At the training geometry (H0 = 26,
 // units (100, 100), D = 16, B = 8192) dW and u each take 51.8 GFLOP of
@@ -53,13 +58,36 @@
 //   bf16 values (or is an f32 product the reference also forms in f32),
 //   so only the order of the f32 sums differs from the plain version.
 //
+// The recompute form (the reference's CHAIN_SAVE_FMAPS = False: no fmap
+// crosses from the forward to the backward, whose activation memory is
+// then O(B*D*H0) instead of O(B*D*sum O_i)). A phase 0 runs K1's own
+// kernel (cin_chain_fwd.cuh) again, the same arithmetic in the same
+// order, so the rebuilt values are the bits K1 saves; it writes, into
+// scratch that lives only for the backward, the two things phases 1 and 2
+// read of the fmaps: each non-final layer's feed rows in f32 (phase 1
+// takes xk in f32, phase 2 rounds it to bf16) and one bit per fmap
+// element (fmap > 0, which gives act'). Phases 1-3 then run as in the
+// save form, reading the feed scratch where they read fmap rows and the
+// bits where they read the fmap for act', so both forms give the same
+// bits. Scratch at the training geometry (units (100, 100), B*D =
+// 1,048,576, batch 65,536): feed rows 50 x B*D x 4 B = 209.7 MB and bits
+// 200 x B*D / 8 = 26.2 MB, against the save form's 838.9 MB of fmaps kept
+// from the forward to the backward. The alternative, rebuilding inside
+// phase 1 and phase 2 each, would repeat the forward's operations twice
+// and needs every layer's feed rows in phase 1's shared memory at once.
+// Bound on an H100 SXM: operations, the forward's and the backward's:
+// 155.4 GFLOP at B = 8192, 0.157 ms at 989 TFLOP/s.
+//
 // Geometry taken (the wrapper checks and raises outside it): K1's range
 // (D divides 128, B*D a multiple of 128, at most 8 layers, O_i <= 256,
-// non-final O_i even, H0 and Hk_i <= 128) and shared memory <= 227 KB.
+// non-final O_i even, H0 and Hk_i <= 128) and shared memory <= 227 KB;
+// the recompute form's phase 0 is K1 and takes K1's range.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cin_chain_fwd.cuh"
 
 namespace {
 
@@ -80,20 +108,20 @@ struct ColsArgs {
   int hk[kMaxLayers], o[kMaxLayers], feed[kMaxLayers], hk_pad[kMaxLayers];
   int o_pad[kMaxLayers], db_off[kMaxLayers];
   const __nv_bfloat16* wt[kMaxLayers];  // (h0, o, hk_pad) bf16: [h][o][m] = W[h*hk+m, o]
-  const float* fmap[kMaxLayers];        // (o, bd) f32
+  const float* fmap[kMaxLayers];        // (o, bd) f32 saved fmap, or null: read sign
+  const uint32_t* sign[kMaxLayers];     // (o, bd/128, 4) uint32 bits fmap > 0
+  const float* xk[kMaxLayers];          // (>= hk, bd) f32 rows of layer l's xk, l >= 1
   const float* g[kMaxLayers];           // (bd/d, o - feed) f32
   __nv_bfloat16* gt[kMaxLayers];        // (bd, o_pad) bf16: bf16(gpre) transposed
   float* pdb;                           // (bd/128, o_total) f32
   float* dx0;                           // (h0, bd) f32
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float act_deriv(float fmap, int act) {
-  if (act == 1) return fmap > 0.0f ? 1.0f : 0.0f;
-  if (act == 2) return fmap > 0.0f ? 1.0f : 0.2f;
+// d act / d pre from the sign of the activation's output (fmap > 0 <=>
+// pre > 0 for the supported set), as the reference reads it
+__device__ __forceinline__ float act_deriv(bool positive, int act) {
+  if (act == 1) return positive ? 1.0f : 0.0f;
+  if (act == 2) return positive ? 1.0f : 0.2f;
   return 1.0f;
 }
 
@@ -131,9 +159,17 @@ __global__ void __launch_bounds__(512) cin_chain_bwd_cols(const ColsArgs a) {
 
     // gpre, its bf16 rounding and this block's partial db, one map per warp
     for (int r = warp; r < o; r += a.nwarps) {
-      const float4 f = *reinterpret_cast<const float4*>(
-          a.fmap[l] + (size_t)r * a.bd + col0 + n0);
-      const float fv[4] = {f.x, f.y, f.z, f.w};
+      bool pos[4];
+      if (a.fmap[l] != nullptr) {
+        const float4 f = *reinterpret_cast<const float4*>(
+            a.fmap[l] + (size_t)r * a.bd + col0 + n0);
+        pos[0] = f.x > 0.0f, pos[1] = f.y > 0.0f, pos[2] = f.z > 0.0f, pos[3] = f.w > 0.0f;
+      } else {
+        const uint4 s = reinterpret_cast<const uint4*>(a.sign[l])[
+            (size_t)r * (a.bd / kTileN) + blockIdx.x];
+        pos[0] = (s.x >> lane) & 1u, pos[1] = (s.y >> lane) & 1u;
+        pos[2] = (s.z >> lane) & 1u, pos[3] = (s.w >> lane) & 1u;
+      }
       float gp[4];
       float s = 0.0f;
 #pragma unroll
@@ -141,7 +177,7 @@ __global__ void __launch_bounds__(512) cin_chain_bwd_cols(const ColsArgs a) {
         const float df = r < feed
             ? xks[r * kTileN + n0 + c]
             : a.g[l][(size_t)(row0 + (n0 + c) / a.d) * nd + (r - feed)];
-        gp[c] = a.act == 0 ? df : df * act_deriv(fv[c], a.act);
+        gp[c] = a.act == 0 ? df : df * act_deriv(pos[c], a.act);
       }
       s = (gp[0] + gp[1]) + (gp[2] + gp[3]);
       for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -162,12 +198,12 @@ __global__ void __launch_bounds__(512) cin_chain_bwd_cols(const ColsArgs a) {
       v.y = r + 1 < o ? gps[(r + 1) * kGStride + n] : zero;
       *reinterpret_cast<__nv_bfloat162*>(a.gt[l] + (size_t)(col0 + n) * o_pad + r) = v;
     }
-    // this layer's xk, f32 as saved: x0 for layer 0, fmap_{l-1}[:hk] after
+    // this layer's xk in f32: x0 for layer 0, fmap_{l-1}[:hk] after
     for (int i = tid; i < hk * (kTileN / 4); i += nthreads) {
       const int m = i / (kTileN / 4), c = (i % (kTileN / 4)) * 4;
       const float4 v = l == 0
           ? *reinterpret_cast<const float4*>(x0s + m * kTileN + c)
-          : *reinterpret_cast<const float4*>(a.fmap[l - 1] + (size_t)m * a.bd + col0 + c);
+          : *reinterpret_cast<const float4*>(a.xk[l] + (size_t)m * a.bd + col0 + c);
       *reinterpret_cast<float4*>(xks + m * kTileN + c) = v;
     }
 
@@ -444,25 +480,20 @@ extern "C" int cin_chain_bwd_plan(int h0, int bd, int n_layers, const int* units
   return cols_plan(h0, n_layers, units).smem;
 }
 
-// Launches K2 on `stream`: phase 1 once, then phase 2 and the reduction
-// once per layer. x0c (h0, bd) f32; wt[l] (h0, units[l], roundup8(hk_l))
-// bf16 with wt[l][h][o][m] = W_l[h*hk_l + m, o] and padding 0; fmap[l]
-// (units[l], bd) f32 from K1; g[l] (bd/d, F_l) f32 pooled cotangents.
-// Scratch: gt[l] (bd, roundup8(units[l])) bf16; pdb (bd/128, sum units)
-// f32; pdw[l] (splits[l], h0*hk_l, units[l]) f32. Out: dx0 (h0, bd),
-// dw[l] (h0*hk_l, units[l]), db[l] (units[l],), all f32. act: 0 identity,
-// 1 relu, 2 leaky_relu. Returns cudaGetLastError() after the launches (or
-// cudaErrorInvalidValue for a geometry outside the kernel's range).
-extern "C" int cin_chain_bwd(const void* x0c, int h0, int bd, int d, int n_layers,
-                             const int* units, const void* const* wt,
-                             const void* const* fmap, const void* const* g,
-                             void* const* gt, void* pdb, void* const* pdw,
-                             const int* splits, void* dx0, void* const* dw,
-                             void* const* db, int act, void* stream) {
+namespace {
+
+// Phases 1-3 of either form on `stream`. fmap[l] (units[l], bd) f32 saved
+// fmaps, or null and then sign[l] (units[l], bd/128, 4) uint32 bits fmap >
+// 0; xk[l] for l >= 1: (>= hk_l, bd) f32 rows holding layer l's xk (the
+// saved fmap_{l-1}, or the feed rows of the recompute form's phase 0).
+int bwd_launch(const void* x0c, int h0, int bd, int d, int n_layers, const int* units,
+               const void* const* wt, const void* const* fmap, const void* const* sign,
+               const void* const* xk, const void* const* g, void* const* gt, void* pdb,
+               void* const* pdw, const int* splits, void* dx0, void* const* dw,
+               void* const* db, int act, cudaStream_t st) {
   if (n_layers < 1 || n_layers > kMaxLayers || h0 < 1 || h0 > 128 || d < 1 ||
       kTileN % d != 0 || bd % kTileN != 0 || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   ColsArgs a;
   a.x0c = static_cast<const float*>(x0c);
   a.h0 = h0;
@@ -485,7 +516,10 @@ extern "C" int cin_chain_bwd(const void* x0c, int h0, int bd, int d, int n_layer
     a.db_off[l] = a.o_total;
     a.o_total += o;
     a.wt[l] = static_cast<const __nv_bfloat16*>(wt[l]);
-    a.fmap[l] = static_cast<const float*>(fmap[l]);
+    a.fmap[l] = fmap != nullptr ? static_cast<const float*>(fmap[l]) : nullptr;
+    a.sign[l] = sign != nullptr ? static_cast<const uint32_t*>(sign[l]) : nullptr;
+    if (a.fmap[l] == nullptr && a.sign[l] == nullptr) return (int)cudaErrorInvalidValue;
+    a.xk[l] = l == 0 ? a.x0c : static_cast<const float*>(xk[l]);
     a.g[l] = static_cast<const float*>(g[l]);
     a.gt[l] = static_cast<__nv_bfloat16*>(gt[l]);
     hk = o / 2;
@@ -511,7 +545,7 @@ extern "C" int cin_chain_bwd(const void* x0c, int h0, int bd, int d, int n_layer
   for (int l = 0; l < n_layers; ++l) {
     DwArgs b;
     b.x0c = a.x0c;
-    b.xk = l == 0 ? a.x0c : a.fmap[l - 1];
+    b.xk = a.xk[l];
     b.gt = a.gt[l];
     b.pdw = static_cast<float*>(pdw[l]);
     b.h0 = h0;
@@ -538,4 +572,59 @@ extern "C" int cin_chain_bwd(const void* x0c, int h0, int bd, int d, int n_layer
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches K2's save form on `stream`: phase 1 once, then phase 2 and the
+// reduction once per layer. x0c (h0, bd) f32; wt[l] (h0, units[l],
+// roundup8(hk_l)) bf16 with wt[l][h][o][m] = W_l[h*hk_l + m, o] and
+// padding 0; fmap[l] (units[l], bd) f32 from K1; g[l] (bd/d, F_l) f32
+// pooled cotangents. Scratch: gt[l] (bd, roundup8(units[l])) bf16; pdb
+// (bd/128, sum units) f32; pdw[l] (splits[l], h0*hk_l, units[l]) f32.
+// Out: dx0 (h0, bd), dw[l] (h0*hk_l, units[l]), db[l] (units[l],), all
+// f32. act: 0 identity, 1 relu, 2 leaky_relu. Returns cudaGetLastError()
+// after the launches (or cudaErrorInvalidValue for a geometry outside the
+// kernel's range).
+extern "C" int cin_chain_bwd(const void* x0c, int h0, int bd, int d, int n_layers,
+                             const int* units, const void* const* wt,
+                             const void* const* fmap, const void* const* g,
+                             void* const* gt, void* pdb, void* const* pdw,
+                             const int* splits, void* dx0, void* const* dw,
+                             void* const* db, int act, void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
+  const void* xk[kMaxLayers] = {nullptr};
+  for (int l = 1; l < n_layers; ++l) xk[l] = fmap[l - 1];
+  return bwd_launch(x0c, h0, bd, d, n_layers, units, wt, fmap, nullptr, xk, g, gt, pdb, pdw,
+                    splits, dx0, dw, db, act, static_cast<cudaStream_t>(stream));
+}
+
+// Launches K2's recompute form on `stream`: phase 0 (K1's kernel, from x0c,
+// w and b, writing the feed rows and the sign bits), then phases 1-3 as
+// the save form. w[l] (h0*hk_l, roundup8(units[l])) bf16 and b[l]
+// (units[l],) f32 as K1 takes them; wt, g, gt, pdb, pdw, splits and the
+// outputs as cin_chain_bwd. Scratch of phase 0: feed[l] for every
+// non-final layer (units[l]/2, bd) f32 (feed[n_layers-1] unused); sign[l]
+// (units[l], bd/128, 4) uint32. Returns as cin_chain_bwd.
+extern "C" int cin_chain_bwd_recompute(const void* x0c, int h0, int bd, int d, int n_layers,
+                                       const int* units, const void* const* w,
+                                       const void* const* b, const void* const* wt,
+                                       void* const* feed, void* const* sign,
+                                       const void* const* g, void* const* gt, void* pdb,
+                                       void* const* pdw, const int* splits, void* dx0,
+                                       void* const* dw, void* const* db, int act,
+                                       void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  void* fmap[kMaxLayers] = {nullptr};
+  const void* xk[kMaxLayers] = {nullptr};
+  for (int l = 0; l + 1 < n_layers; ++l) {
+    fmap[l] = feed[l];
+    xk[l + 1] = feed[l];
+  }
+  const int err = chain_fwd_launch(x0c, h0, bd, d, n_layers, units, w, b, nullptr, fmap, sign,
+                                   act, st);
+  if (err != 0) return err;
+  return bwd_launch(x0c, h0, bd, d, n_layers, units, wt, nullptr, sign, xk, g, gt, pdb, pdw,
+                    splits, dx0, dw, db, act, st);
 }

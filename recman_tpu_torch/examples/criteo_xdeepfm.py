@@ -7,8 +7,12 @@ streaming AUC. Without ``tsv`` the rows are synthetic
 (``synthetic_criteo_arrays``, or the calibrated generator with
 ``calibrated=True``). ``tsv`` reads a Criteo TSV with the pandas loader
 (``data.load_criteo_tsv``); the reference's native C++ loader is not
-ported (ROADMAP.md queue 1, item 8), nor is the ``large_batch`` recipe,
-which needs ``training/lr_schedule.py``.
+ported (ROADMAP.md queue 1, item 8).
+
+``large_batch=True`` is the reference's config-5 recipe (:72-89): batch
+65,536 when ``batch_size <= 4096`` (the command line's default), a peak
+learning rate sqrt-scaled from base batch 8192, a warmup of
+``min(12, max(total_steps // 10, 1))`` steps and cosine decay to the end.
 
 ``embedding_size`` 10 (the xDeepFM paper's Criteo setting) is not a
 power of two, so the CIN runs its per-layer kernels (K4, K5) rather than
@@ -30,7 +34,14 @@ from recman_tpu_torch.data import (
     synthetic_criteo_arrays,
 )
 from recman_tpu_torch.models import XDeepFM
-from recman_tpu_torch.training import LogLoss, StreamingAUC, Trainer
+from recman_tpu_torch.training import (
+    LogLoss,
+    StreamingAUC,
+    Trainer,
+    create_optimizer,
+    sqrt_scaled_lr,
+    warmup_schedule,
+)
 
 log = logging.getLogger(__name__)
 
@@ -39,11 +50,6 @@ def main(tsv=None, rows=200_000, num_buckets=100_000, epoch=1, batch_size=4096,
          learning_rate=0.001, embedding_size=16, optimizer="adam", calibrated=False,
          large_batch=False, device=None):
     """Returns (trainer, [valid logloss, valid auc])."""
-    if large_batch:
-        raise NotImplementedError(
-            "large_batch needs training/lr_schedule.py (warmup and cosine decay), "
-            "not ported yet (ROADMAP.md queue 1, item 7)"
-        )
     recman_tpu_torch.config_logger()
     feat_dict = create_criteo_features(num_buckets=num_buckets)
 
@@ -61,6 +67,19 @@ def main(tsv=None, rows=200_000, num_buckets=100_000, epoch=1, batch_size=4096,
     train = {k: v[:split] for k, v in data.items()}
     valid = {k: v[split:] for k, v in data.items()}
     y_valid = valid.pop("y")
+
+    if large_batch:
+        if batch_size <= 4096:  # the command line's default: bump to config 5
+            batch_size = 65_536
+        total_steps = (split // batch_size + 1) * epoch
+        peak = sqrt_scaled_lr(learning_rate, batch_size, base_batch_size=8192)
+        optimizer = create_optimizer(
+            optimizer if isinstance(optimizer, str) else "adam",
+            warmup_schedule(peak, min(12, max(total_steps // 10, 1)), total_steps,
+                            decay="cosine"),
+        )
+        log.info("large-batch recipe: batch=%d, sqrt-scaled peak lr=%.2e, "
+                 "warmup+cosine over %d steps", batch_size, peak, total_steps)
 
     hp = {
         "learning_rate": learning_rate,
@@ -91,10 +110,16 @@ if __name__ == "__main__":
     ap.add_argument("--epoch", type=int, default=1)
     ap.add_argument("--batch-size", type=int, default=4096)
     ap.add_argument("--embedding-size", type=int, default=16)
+    ap.add_argument("--optimizer", default="adam",
+                    help="adam | adam_bf16m | rowwise_adam | adagrad | lamb | ...")
+    ap.add_argument("--large-batch", action="store_true",
+                    help="the config-5 recipe: batch 65,536 and sqrt-scaled warmup+cosine; "
+                         "pass --rows proportionally more")
     ap.add_argument("--calibrated", action="store_true",
                     help="published-stats-calibrated synthetic generator instead of the bench one")
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args()
     main(tsv=args.tsv, rows=args.rows, num_buckets=args.buckets, epoch=args.epoch,
          batch_size=args.batch_size, embedding_size=args.embedding_size,
-         calibrated=args.calibrated, device=args.device)
+         optimizer=args.optimizer, calibrated=args.calibrated,
+         large_batch=args.large_batch, device=args.device)

@@ -1,9 +1,9 @@
 """Packed embedding + linear lookup: one gather per feature.
 
 Counterpart of ``recman_tpu/layers/packed.py`` — the stacked-storage
-branch (:128-164, in its ``STACKED_SPLIT_CONCAT = True`` form), the
-concat-then-gather branch (:183-216) and the per-type postprocessing
-(:218-288). Each
+branch (:128-164), the split branch (:165-182), the concat-then-gather
+branch (:183-216) and the per-type postprocessing (:218-288), taken in
+the reference's order: stacked, then split, then concat. Each
 feature that both towers use gets a packed [table | bias | w_slice]
 matrix (V, k [+1] +1), so one row gather serves both. Semantics are those
 of the separate towers:
@@ -16,15 +16,20 @@ of the separate towers:
 
 Under ``ops.embedding.stacked_tables`` (the stacked train step) the
 packable tables come from one (T, V, k) leaf and their rows from
-``packed_lookup_stacked_split``, whose backward is one K3 launch over all
-tables. Otherwise the packed matrices go through
-``embedding_lookup_grouped``, whose backward (with the fused backward
-active, the default on CUDA) is one batched K3 launch for each group of
-same-shape tables and, under ``grad_kernel("segmat")``, one K6 launch for
-each table of its own shape. Rows stay float32. The reference's bf16 packed rows (its
+``packed_lookup_stacked_split`` (per-table [stack[i] | w] rows) or, with
+``ops.embedding.STACKED_SPLIT_CONCAT = False``, ``packed_lookup_stacked``
+(one (T, V, k + 1) concat); either backward is one K3 launch over all
+tables. Under ``ops.embedding.split_lookup("on")`` the table rows and the
+vector columns are gathered apart (``packed_lookup_grouped``), with no
+packed matrix; its backward is K7 or K3 per same-shape group. Otherwise
+the packed matrices go through ``embedding_lookup_grouped``, whose
+backward (with the fused backward active, the default on CUDA) is one
+batched K3 launch for each group of same-shape tables and, under
+``grad_kernel("segmat")``, one K6 launch for each table of its own shape.
+Rows stay float32. The reference's bf16 packed rows (its
 ``PACKED_FWD_BF16`` gate) are on only on its TPU path; the port keeps f32
-until that choice is measured on the GPU. Split lookups and the dedup
-exchange are not ported.
+until that choice is measured on the GPU. The dedup exchange is not
+ported.
 """
 
 from __future__ import annotations
@@ -39,10 +44,14 @@ from ..features import (
     SparseFeat,
     SparseValueFeat,
 )
+from ..ops import embedding as emb_ops
 from ..ops.embedding import (
+    _split_lookup_active,
     _stacked_ctx,
     embedding_lookup,
     embedding_lookup_grouped,
+    packed_lookup_grouped,
+    packed_lookup_stacked,
     packed_lookup_stacked_split,
 )
 
@@ -99,13 +108,30 @@ class PackedEmbeddingLinear:
             and not use_bias
             and tuple(f.name for f in self.packable) == sc[0]
         ):
-            # stacked (T, V, k) storage: per-table [stack[i] | w] rows, one
-            # batched sort / permute / K3 backward into the stacked leaf
+            # stacked (T, V, k) storage: [stack[i] | w] rows, one batched
+            # sort / permute / K3 backward into the stacked leaf
             v = self.packable[0].feat_size
             w_cols = torch.stack([
                 w[lin.offsets[f.name]: lin.offsets[f.name] + v] for f in self.packable
             ])  # (T, V)
-            rows_list = packed_lookup_stacked_split(sc[1][:, :v], w_cols, ids_mats)
+            if emb_ops.STACKED_SPLIT_CONCAT:
+                rows_list = packed_lookup_stacked_split(sc[1][:, :v], w_cols, ids_mats)
+            else:
+                packed = torch.cat([sc[1][:, :v], w_cols[:, :, None]], dim=2)
+                rows_list = packed_lookup_stacked(packed, ids_mats)
+        elif _split_lookup_active(w.device):
+            # the split form: table rows and vector columns gathered apart,
+            # no (V, k + m) packed matrix built
+            tables, vec_cols = [], []
+            for feat in self.packable:
+                tables.append(params[f"{emb.prefix}{feat.name}_feat_embed"][: feat.feat_size])
+                vv = []
+                if use_bias:
+                    vv.append(params[f"{emb.prefix}{feat.name}_feat_bias"][: feat.feat_size])
+                off = lin.offsets[feat.name]
+                vv.append(w[off: off + feat.feat_size])
+                vec_cols.append(tuple(vv))
+            rows_list = packed_lookup_grouped(tables, vec_cols, ids_mats)
         else:
             # phase 1: each feature's packed [table | bias | w] matrix
             packed_mats = []

@@ -4,6 +4,8 @@ hand-written CUDA kernels (sources in ``recman_tpu_torch/csrc``)."""
 from .cin_chain import (
     chain_supported,
     cin_chain_bwd,
+    cin_chain_bwd_recompute,
+    cin_chain_bwd_recompute_reference,
     cin_chain_bwd_reference,
     cin_chain_fm,
     cin_chain_fm_reference,
@@ -16,19 +18,26 @@ from .embedding import (
     embedding_lookup_multi,
     fused_grad,
     grad_kernel,
+    packed_lookup_grouped,
+    packed_lookup_stacked,
     packed_lookup_stacked_split,
+    split_lookup,
     stacked_tables,
 )
 from .segment_matmul import (
     segment_matmul_from_sorted,
     segment_matmul_from_sorted_batched,
+    segment_matmul_from_sorted_batched_vk,
     segment_matmul_reference,
     segment_matmul_rows_reference,
+    segment_matmul_vk_reference,
 )
 
 __all__ = [
     "chain_supported",
     "cin_chain_bwd",
+    "cin_chain_bwd_recompute",
+    "cin_chain_bwd_recompute_reference",
     "cin_chain_bwd_reference",
     "cin_chain_fm",
     "cin_chain_fm_reference",
@@ -39,11 +48,16 @@ __all__ = [
     "embedding_lookup_multi",
     "fused_grad",
     "grad_kernel",
+    "packed_lookup_grouped",
+    "packed_lookup_stacked",
     "packed_lookup_stacked_split",
     "pallas_cin",
     "segment_matmul_from_sorted",
     "segment_matmul_from_sorted_batched",
+    "segment_matmul_from_sorted_batched_vk",
     "segment_matmul_reference",
     "segment_matmul_rows_reference",
+    "segment_matmul_vk_reference",
+    "split_lookup",
     "stacked_tables",
 ]

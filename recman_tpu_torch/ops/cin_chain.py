@@ -20,15 +20,21 @@ is the CPU path and the kernel's oracle:
   the forward. With ``save=True`` it also writes every layer's fmap
   (O_i, B*D) f32 for the backward (``CHAIN_SAVE_FMAPS`` in the
   reference); serving launches it without.
-- K2 ``csrc/cin_chain_bwd.cu`` (the TPU kernel ``_chain_bwd_kernel`` in
-  its save-fmaps form): the backward from the pooled cotangents and the
-  saved fmaps to dx0, dW_i and db_i.
+- K2 ``csrc/cin_chain_bwd.cu`` (the TPU kernel ``_chain_bwd_kernel``):
+  the backward from the pooled cotangents to dx0, dW_i and db_i, in two
+  forms. The save form (``cin_chain_bwd``) reads the fmaps K1 saved; the
+  recompute form (``cin_chain_bwd_recompute``, the reference's
+  ``save=False``) rebuilds them from x0c, W and b with K1's own code, so
+  no fmap crosses from the forward to the backward.
 
-``cin_chain_fm`` is the differentiable entry: when a gradient is needed it
-runs K1 with saved fmaps under one ``torch.autograd.Function`` whose
-backward runs K2; otherwise (``no_grad``, ``inference_mode``) the no-save
-K1 launch. A CUDA tensor launches the kernels (raising on what they do not
-take); a CPU tensor runs the twins.
+``cin_chain_fm`` is the differentiable entry. When a gradient is needed it
+runs one ``torch.autograd.Function``, chosen by ``CHAIN_SAVE_FMAPS`` when
+the forward runs: True (the reference's default), K1 with saved fmaps and
+K2's save form; False, K1 without fmaps, only x0c and the params kept for
+the backward (the reference's residuals), and K2's recompute form.
+Otherwise (``no_grad``, ``inference_mode``) the no-save K1 launch. A CUDA
+tensor launches the kernels (raising on what they do not take); a CPU
+tensor runs the twins.
 """
 
 from __future__ import annotations
@@ -57,13 +63,21 @@ _MAX_O = 256
 _MAX_FIELDS = 128
 _MAX_SMEM = 232_448  # bytes a block may use on Hopper
 
+# The training forward saves the fmaps for the backward (True, the
+# reference's default, recman_tpu/ops/cin_chain.py:85) or keeps only x0c
+# and the params, the backward rebuilding the fmaps (False: activation
+# memory O(B*D*H0) instead of O(B*D*sum O_i), for very large batches).
+# Read when the forward runs.
+CHAIN_SAVE_FMAPS = True
+
 # Launches of K1 in either form (LAUNCHES), of its save form alone
-# (SAVE_LAUNCHES) and of K2 (BWD_LAUNCHES), counted where the wrappers
-# launch them (and nowhere else); callers reset them to 0 to count the
-# launches of one run.
+# (SAVE_LAUNCHES), of K2's save form (BWD_LAUNCHES) and of K2's recompute
+# form (RECOMPUTE_LAUNCHES), counted where the wrappers launch them (and
+# nowhere else); callers reset them to 0 to count the launches of one run.
 LAUNCHES = 0
 SAVE_LAUNCHES = 0
 BWD_LAUNCHES = 0
+RECOMPUTE_LAUNCHES = 0
 
 
 def _act(kind, x):
@@ -248,6 +262,14 @@ def cin_chain_bwd_reference(x0c, ws, bs, gs, fmaps, units, d, act="leaky_relu"):
     return dx0, tuple(dws), tuple(dbs)
 
 
+def cin_chain_bwd_recompute_reference(x0c, ws, bs, gs, units, d, act="leaky_relu"):
+    """Plain PyTorch version of K2's recompute form (the CPU path and its
+    oracle): K1's twin rebuilds the fmaps, then K2's twin runs on them, so
+    the two forms give the same bits on the CPU by construction."""
+    fmaps = cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True)[len(units):]
+    return cin_chain_bwd_reference(x0c, ws, bs, gs, fmaps, units, d, act)
+
+
 def _check_chain_args(name, x0c, ws, units, d, act, reason):
     if act not in _SUPPORTED_ACTS:
         raise ValueError(f"{name} activation must be one of {_SUPPORTED_ACTS}, got {act!r}")
@@ -295,7 +317,9 @@ def _check_cuda_args(x0c, ws, bs, units, d, act):
 
 
 def _ptrs(tensors):
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    """A C array of the tensors' data pointers (NULL for None)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
 
 
 def _k1():
@@ -312,6 +336,17 @@ def _k1():
     return fn
 
 
+def _k1_weights(cfgs, ws):
+    """W to bf16 in K1's layout, once per call: columns zero-padded to a
+    multiple of 8, so the kernel reads each row in 16-byte pieces."""
+    w_bf = []
+    for cfg, w in zip(cfgs, ws):
+        wb = torch.zeros((w.shape[0], _round8(cfg.o)), dtype=torch.bfloat16, device=w.device)
+        wb[:, : cfg.o] = w
+        w_bf.append(wb)
+    return w_bf
+
+
 def _cin_chain_fm_cuda(x0c, ws, bs, units, d, act, save=False):
     global LAUNCHES, SAVE_LAUNCHES
     _check_cuda_args(x0c, ws, bs, units, d, act)
@@ -319,13 +354,7 @@ def _cin_chain_fm_cuda(x0c, ws, bs, units, d, act, save=False):
     n = len(units)
     cfgs = _layer_cfgs(h0, units)
     fn = _k1()
-    # W to bf16 once per call, columns zero-padded to a multiple of 8 so
-    # the kernel reads each row in 16-byte pieces
-    w_bf = []
-    for cfg, w in zip(cfgs, ws):
-        wb = torch.zeros((w.shape[0], _round8(cfg.o)), dtype=torch.bfloat16, device=w.device)
-        wb[:, : cfg.o] = w
-        w_bf.append(wb)
+    w_bf = _k1_weights(cfgs, ws)
     b_c = [b.contiguous() for b in bs]
     outs = [
         torch.empty((bd // d, c.o - c.feed), dtype=torch.float32, device=x0c.device)
@@ -377,25 +406,28 @@ def k2_plan(h0: int, units, bd: int, device) -> tuple[int, list[int]]:
     return smem, list(splits)
 
 
-def _cin_chain_bwd_cuda(x0c, ws, gs, fmaps, units, d, act):
-    global BWD_LAUNCHES
-    _check_chain_args("K2", x0c, ws, units, d, act, k2_unsupported_reason)
+def _k2_recompute():
+    """K2's recompute entry (``cin_chain_bwd_recompute``)."""
+    fn = load("cin_chain_bwd").cin_chain_bwd_recompute
+    fn.restype = ctypes.c_int
+    p = ctypes.POINTER(ctypes.c_void_p)
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), p, p, p, p, p, p, p, ctypes.c_void_p, p,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, p, p, ctypes.c_int, ctypes.c_void_p,
+    ]
+    return fn
+
+
+def _k2_buffers(x0c, ws, units):
+    """K2's W in the layout it walks, its scratch and its outputs, for
+    either form: (splits, wts, gts, pdb, pdws, dx0, dws, dbs)."""
     h0, bd = x0c.shape
-    b = bd // d
-    n = len(units)
     cfgs = _layer_cfgs(h0, units)
     dev = x0c.device
-    if len(gs) != n or len(fmaps) != n:
-        raise ValueError("K2 needs one pooled cotangent and one fmap per layer")
-    for cfg, w, g, f in zip(cfgs, ws, gs, fmaps):
-        _check_tensor("K2", "W", w, (h0 * cfg.hk, cfg.o), torch.float32, dev, align=4)
-        _check_tensor("K2", "pooled cotangent", g, (b, cfg.o - cfg.feed),
-                      torch.float32, dev, align=4)
-        _check_tensor("K2", "fmap", f, (cfg.o, bd), torch.float32, dev)
     smem, splits = k2_plan(h0, units, bd, dev)
     if smem > _MAX_SMEM:
         raise ValueError(f"K2 needs {smem} bytes of shared memory, over {_MAX_SMEM}")
-    fn = _k2()
     # W to bf16 once per call in the layout the kernel walks: per field h
     # the (O, Hk) block W[h*Hk + m, o] transposed, Hk zero-padded to 8
     wts = []
@@ -412,8 +444,32 @@ def _cin_chain_bwd_cuda(x0c, ws, gs, fmaps, units, d, act):
     dx0 = torch.empty_like(x0c)
     dws = [torch.empty((h0 * c.hk, c.o), dtype=torch.float32, device=dev) for c in cfgs]
     dbs = [torch.empty((c.o,), dtype=torch.float32, device=dev) for c in cfgs]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(
+    return splits, wts, gts, pdb, pdws, dx0, dws, dbs
+
+
+def _check_k2_args(x0c, ws, gs, units, d, act):
+    _check_chain_args("K2", x0c, ws, units, d, act, k2_unsupported_reason)
+    h0, bd = x0c.shape
+    if len(gs) != len(units):
+        raise ValueError("K2 needs one pooled cotangent per layer")
+    for cfg, w, g in zip(_layer_cfgs(h0, units), ws, gs):
+        _check_tensor("K2", "W", w, (h0 * cfg.hk, cfg.o), torch.float32, x0c.device, align=4)
+        _check_tensor("K2", "pooled cotangent", g, (bd // d, cfg.o - cfg.feed),
+                      torch.float32, x0c.device, align=4)
+
+
+def _cin_chain_bwd_cuda(x0c, ws, gs, fmaps, units, d, act):
+    global BWD_LAUNCHES
+    _check_k2_args(x0c, ws, gs, units, d, act)
+    h0, bd = x0c.shape
+    n = len(units)
+    if len(fmaps) != n:
+        raise ValueError("K2 needs one fmap per layer")
+    for cfg, f in zip(_layer_cfgs(h0, units), fmaps):
+        _check_tensor("K2", "fmap", f, (cfg.o, bd), torch.float32, x0c.device)
+    splits, wts, gts, pdb, pdws, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
+    stream = torch.cuda.current_stream(x0c.device).cuda_stream
+    err = _k2()(
         x0c.data_ptr(), h0, bd, d, n, (ctypes.c_int * n)(*units),
         _ptrs(wts), _ptrs(list(fmaps)), _ptrs(list(gs)), _ptrs(gts), pdb.data_ptr(),
         _ptrs(pdws), (ctypes.c_int * n)(*splits), dx0.data_ptr(), _ptrs(dws),
@@ -422,6 +478,35 @@ def _cin_chain_bwd_cuda(x0c, ws, gs, fmaps, units, d, act):
     if err != 0:
         raise RuntimeError(f"K2 (cin_chain_bwd) launch failed: CUDA error {err}")
     BWD_LAUNCHES += 1
+    return dx0, tuple(dws), tuple(dbs)
+
+
+def _cin_chain_bwd_recompute_cuda(x0c, ws, bs, gs, units, d, act):
+    global RECOMPUTE_LAUNCHES
+    _check_cuda_args(x0c, ws, bs, units, d, act)
+    _check_k2_args(x0c, ws, gs, units, d, act)
+    h0, bd = x0c.shape
+    n = len(units)
+    cfgs = _layer_cfgs(h0, units)
+    dev = x0c.device
+    splits, wts, gts, pdb, pdws, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
+    w_bf = _k1_weights(cfgs, ws)
+    b_c = [b.contiguous() for b in bs]
+    # phase 0's scratch: each non-final layer's feed rows (f32) and one bit
+    # per fmap element (fmap > 0), alive only for this call
+    feeds = [torch.empty((c.feed, bd), dtype=torch.float32, device=dev) if c.feed else None
+             for c in cfgs]
+    signs = [torch.empty((c.o, bd // 32), dtype=torch.int32, device=dev) for c in cfgs]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _k2_recompute()(
+        x0c.data_ptr(), h0, bd, d, n, (ctypes.c_int * n)(*units),
+        _ptrs(w_bf), _ptrs(b_c), _ptrs(wts), _ptrs(feeds), _ptrs(signs), _ptrs(list(gs)),
+        _ptrs(gts), pdb.data_ptr(), _ptrs(pdws), (ctypes.c_int * n)(*splits),
+        dx0.data_ptr(), _ptrs(dws), _ptrs(dbs), _ACT_CODES[act], stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K2 (cin_chain_bwd_recompute) launch failed: CUDA error {err}")
+    RECOMPUTE_LAUNCHES += 1
     return dx0, tuple(dws), tuple(dbs)
 
 
@@ -454,9 +539,20 @@ def cin_chain_bwd(x0c, ws, bs, gs, fmaps, units, d, act="leaky_relu"):
     return cin_chain_bwd_reference(x0c, ws, bs, gs, fmaps, units, d, act)
 
 
+def cin_chain_bwd_recompute(x0c, ws, bs, gs, units, d, act="leaky_relu"):
+    """The chain backward without saved fmaps: K2's recompute form on a
+    CUDA tensor, its plain version on a CPU tensor. Takes the forward's
+    inputs and the pooled cotangents; returns what ``cin_chain_bwd``
+    returns."""
+    units = tuple(units)
+    if _on(x0c, "cin_chain_bwd_recompute") == "cuda":
+        return _cin_chain_bwd_recompute_cuda(x0c, list(ws), list(bs), list(gs), units, d, act)
+    return cin_chain_bwd_recompute_reference(x0c, ws, bs, gs, units, d, act)
+
+
 class _ChainFm(torch.autograd.Function):
-    """K1 with saved fmaps forward, K2 backward (the reference's
-    ``_chain_fm`` custom_vjp in its CHAIN_SAVE_FMAPS form)."""
+    """K1 with saved fmaps forward, K2's save form backward (the
+    reference's ``_chain_fm`` custom_vjp in its CHAIN_SAVE_FMAPS form)."""
 
     @staticmethod
     def forward(ctx, x0c, units, d, act, *params):
@@ -478,6 +574,29 @@ class _ChainFm(torch.autograd.Function):
         return (dx0, None, None, None, *dws, *dbs)
 
 
+class _ChainFmRecompute(torch.autograd.Function):
+    """K1 without fmaps forward, keeping x0c and the params (the
+    reference's residuals); K2's recompute form backward."""
+
+    @staticmethod
+    def forward(ctx, x0c, units, d, act, *params):
+        n = len(units)
+        out = cin_chain_fwd(x0c, params[:n], params[n:], units, d, act)
+        ctx.cfg = (units, d, act)
+        ctx.save_for_backward(x0c, *params)
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        units, d, act = ctx.cfg
+        n = len(units)
+        saved = ctx.saved_tensors
+        x0c, ws, bs = saved[0], saved[1:1 + n], saved[1 + n:]
+        gs = [g.contiguous() for g in grads]
+        dx0, dws, dbs = cin_chain_bwd_recompute(x0c, ws, bs, gs, units, d, act)
+        return (dx0, None, None, None, *dws, *dbs)
+
+
 def cin_chain_fm(x0c, ws, bs, units, d, act="leaky_relu"):
     """Fused whole-chain CIN in field-major layout, differentiable.
 
@@ -485,12 +604,15 @@ def cin_chain_fm(x0c, ws, bs, units, d, act="leaky_relu"):
     the reference row order h*Hk+m, units = cross_layer_units, d =
     embedding size, act in {identity, relu, leaky_relu}. Returns a tuple
     of per-layer pooled direct-connect blocks, each batch-major (B, F_i)
-    f32. When a gradient is needed, K1 saves the fmaps and the backward
-    runs K2 (their twins on a CPU tensor); otherwise the no-save forward.
+    f32. When a gradient is needed, by ``CHAIN_SAVE_FMAPS``: K1 saves the
+    fmaps and the backward runs K2's save form, or K1 saves nothing and
+    the backward runs K2's recompute form (their twins on a CPU tensor);
+    otherwise the no-save forward.
     """
     units = tuple(units)
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x0c, *ws, *bs)
     ):
-        return _ChainFm.apply(x0c, units, d, act, *ws, *bs)
+        fn = _ChainFm if CHAIN_SAVE_FMAPS else _ChainFmRecompute
+        return fn.apply(x0c, units, d, act, *ws, *bs)
     return cin_chain_fwd(x0c, ws, bs, units, d, act)

@@ -53,17 +53,60 @@ MAX_HK = 128
 MAX_O = 512
 
 
-def cin_interact(x0t, xkt, w, dtype=torch.bfloat16):
-    """x0t (B, D, H0), xkt (B, D, Hk), w (H0*Hk, O) -> (B, D, O) f32."""
+def _batch_major_z(x0t, xkt, dtype):
+    """z (B, D, H0*Hk): the product of two ``dtype`` tensors rounds to
+    ``dtype``, like the reference's z."""
     b, d, h0 = x0t.shape
-    hk = xkt.shape[2]
-    # the product of two bf16 tensors rounds to bf16, like the reference's z
-    z = (x0t.to(dtype)[..., :, None] * xkt.to(dtype)[..., None, :]).reshape(
-        b, d, h0 * hk
+    return (x0t.to(dtype)[..., :, None] * xkt.to(dtype)[..., None, :]).reshape(
+        b, d, h0 * xkt.shape[2]
     )
-    # f32 operands holding the rounded values: a bf16 matmul would round
-    # its output to bf16, which is not the reference's f32 accumulation
-    return torch.matmul(z.float(), w.to(dtype).float())
+
+
+class _InteractBf16(torch.autograd.Function):
+    """The bf16 batch-major interaction with the backward that XLA's
+    autodiff derives from the reference's einsum (the vjp's jaxpr): every
+    sum runs in f32 and these results round to bf16, where the reference's
+    convert_element_type ops stand:
+
+    - dW = bf16(z^T . g), the cotangent of W's bf16 cast;
+    - dz = bf16(g . bf16(W)^T);
+    - dxk[m] = bf16(sum_h dz[h, m] * bf16(x0[h])) and dx0[h] =
+      bf16(sum_m dz[h, m] * bf16(xk[m])), the cotangents of the inputs'
+      bf16 casts, returned widened to f32.
+    """
+
+    @staticmethod
+    def forward(ctx, x0t, xkt, w):
+        bf = torch.bfloat16
+        x0b, xkb, wb = x0t.to(bf), xkt.to(bf), w.to(bf)
+        z = _batch_major_z(x0b, xkb, bf)
+        ctx.save_for_backward(x0b, xkb, z, wb)
+        # f32 operands holding the rounded values: a bf16 matmul would
+        # round its output to bf16, not the reference's f32 accumulation
+        return torch.matmul(z.float(), wb.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        x0b, xkb, z, wb = ctx.saved_tensors
+        bf = torch.bfloat16
+        b, d, h0 = x0b.shape
+        hk = xkb.shape[2]
+        g = g.float()
+        dw = torch.matmul(z.reshape(b * d, -1).float().t(), g.reshape(b * d, -1))
+        dz = torch.matmul(g, wb.float().t()).to(bf).float().reshape(b, d, h0, hk)
+        dxk = (dz * x0b.float()[..., :, None]).sum(2)
+        dx0 = (dz * xkb.float()[..., None, :]).sum(3)
+        return (dx0.to(bf).float(), dxk.to(bf).float(), dw.to(bf).float())
+
+
+def cin_interact(x0t, xkt, w, dtype=torch.bfloat16):
+    """x0t (B, D, H0), xkt (B, D, Hk), w (H0*Hk, O) -> (B, D, O) f32.
+
+    In bf16 (the default) the gradient rounds where the reference's does
+    (``_InteractBf16``); in f32 plain autograd is already exact."""
+    if dtype == torch.bfloat16:
+        return _InteractBf16.apply(x0t, xkt, w)
+    return torch.matmul(_batch_major_z(x0t, xkt, dtype).float(), w.to(dtype).float())
 
 
 # -- the field-major switch ---------------------------------------------------

@@ -12,10 +12,19 @@ the cotangent rows into that order and then, by ``grad_kernel``:
   ``"scatter"`` and ``"auto"`` add the sorted rows with ``index_add_``,
   the counterpart of the reference's sorted-hint scatter.
 - ``embedding_lookup_multi`` (same-shape tables, reference
-  ``_lookup_multi``, :738-901) and the stacked-storage
-  ``packed_lookup_stacked_split`` (:970-1034): one batched sort, then K3
-  (``segment_matmul_from_sorted_batched``) once over all tables when
-  ``_segmat_multi_active`` holds, else per-table ``index_add_``.
+  ``_lookup_multi``, :738-901) and the stacked-storage lookups
+  (``packed_lookup_stacked_split`` with per-table packed rows, and
+  ``packed_lookup_stacked`` from one (T, V, C) concat, :904-1034): one
+  batched sort, then K3 (``segment_matmul_from_sorted_batched``) once over
+  all tables when ``_segmat_multi_active`` holds, else per-table
+  ``index_add_``.
+- ``packed_lookup_grouped`` (the split lookup, :1037-1175, under
+  ``split_lookup``): per same-shape group, the table rows and each vector
+  column are gathered apart, with no (V, k + n_vec) packed matrix; the
+  backward sorts once and then runs K7
+  (``segment_matmul_from_sorted_batched_vk``, row-major table grads) under
+  ``SEGMAT_VK_OUT``, else K3 with the table grads as (V, k) views of its
+  (k, V) rows, else per-table ``index_add_``.
 
 With the fused backward off (the default on the CPU, as the reference's
 is off there) a lookup is ``index_select`` under plain autograd.
@@ -24,8 +33,7 @@ The contexts are read when the forward runs, as the reference reads them
 while tracing: autograd runs a CUDA backward on a thread of its own, where
 this module's thread-local contexts are not set.
 
-``QuantTable`` tables, the split-lookup and dedup contexts and the
-one-concat stacked form (``STACKED_SPLIT_CONCAT = False``) are not ported.
+``QuantTable`` tables and the dedup exchange are not ported.
 """
 
 from __future__ import annotations
@@ -36,7 +44,11 @@ import threading
 
 import torch
 
-from .segment_matmul import segment_matmul_from_sorted, segment_matmul_from_sorted_batched
+from .segment_matmul import (
+    segment_matmul_from_sorted,
+    segment_matmul_from_sorted_batched,
+    segment_matmul_from_sorted_batched_vk,
+)
 
 _state = threading.local()
 
@@ -87,6 +99,52 @@ def grad_kernel(kind: str):
 
 def _grad_kernel() -> str:
     return getattr(_state, "grad_kernel", "auto")
+
+
+# "auto" for the split packed lookup (reference :124-135): off, as the
+# reference's is off on its TPU, where the split form measured slower
+# than concat-then-gather. "on" forces it, "off" the concat.
+SPLIT_LOOKUP_AUTO_TPU = False
+
+
+@contextlib.contextmanager
+def split_lookup(kind: str):
+    """How layers/packed.py assembles packed [table | vec...] rows: "auto"
+    (default, ``SPLIT_LOOKUP_AUTO_TPU`` on CUDA), "on" (per-part gathers,
+    no (V, k + m) packed concat: ``packed_lookup_grouped``) or "off"
+    (concat, then one gather)."""
+    assert kind in ("auto", "on", "off"), kind
+    prev = getattr(_state, "split_lookup", "auto")
+    _state.split_lookup = kind
+    try:
+        yield
+    finally:
+        _state.split_lookup = prev
+
+
+def _split_lookup_active(device) -> bool:
+    mode = getattr(_state, "split_lookup", "auto")
+    if mode == "on":
+        return True
+    if mode == "off":
+        return False
+    return SPLIT_LOOKUP_AUTO_TPU and torch.device(device).type == "cuda"
+
+
+# The split lookup's backward takes K7 (row-major table grads) when True
+# and the batch is at most SEGMAT_SEGMENT_N rows; K3 and (V, k) views of
+# its rows otherwise. False is the reference's default (:726-735).
+SEGMAT_VK_OUT = False
+
+# The reference's row limit of one segmat call (:162-168), a TPU VMEM
+# bound. K3 takes any N in one launch here; the constant is kept only for
+# the split backward's routing rule above.
+SEGMAT_SEGMENT_N = 32_768
+
+# Stacked storage builds per-table packed rows from slices of the stack
+# (True, the reference's default, :1024-1027) or one (T, V, k + 1) concat
+# (False, ``packed_lookup_stacked``).
+STACKED_SPLIT_CONCAT = True
 
 
 def _segmat_multi_active(c: int, device) -> bool:
@@ -227,6 +285,28 @@ def embedding_lookup_grouped(tables, ids_list) -> list:
     return out
 
 
+def _stacked_flat_ids(ids_mat, v: int):
+    """(T, N) per-table ids -> row indices into a (T*V, ...) stack."""
+    t = ids_mat.shape[0]
+    return (ids_mat.long() + v * torch.arange(t, device=ids_mat.device)[:, None]).reshape(-1)
+
+
+def _stacked_packed_grad(ids_mat, grad, v: int, segmat: bool):
+    """The (T, V, C) grad of stacked packed rows from their (T, N, C)
+    cotangents: one batched sort, then one K3 launch, the cotangents
+    permuted straight into its transposed (T, C, V) layout and its output
+    returned as a (T, V, C) view, or per-table ``index_add_``."""
+    t, n, c = grad.shape
+    sids, order = _sorted_order(ids_mat)
+    if segmat:
+        sg_t = torch.gather(grad.transpose(1, 2), 2, order[:, None, :].expand(t, c, n))
+        grads = segment_matmul_from_sorted_batched(sids.contiguous(), sg_t.contiguous(), v)
+        return grads.transpose(1, 2)
+    return torch.stack([
+        _scatter_sorted_rows(sids[i], grad[i].index_select(0, order[i]), v) for i in range(t)
+    ])
+
+
 class _StackedGatherSplit(torch.autograd.Function):
     """Per-table [stack[i] | w_cols[i]] rows; the reference's
     ``_stacked_gather_split`` custom_vjp (:970-1021)."""
@@ -234,7 +314,7 @@ class _StackedGatherSplit(torch.autograd.Function):
     @staticmethod
     def forward(ctx, stack, w_cols, ids_mat):
         t, v, k = stack.shape
-        flat = (ids_mat.long() + v * torch.arange(t, device=ids_mat.device)[:, None]).reshape(-1)
+        flat = _stacked_flat_ids(ids_mat, v)
         rows = torch.cat([
             stack.reshape(t * v, k).index_select(0, flat),
             w_cols.reshape(t * v).index_select(0, flat)[:, None],
@@ -247,18 +327,8 @@ class _StackedGatherSplit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (ids_mat,) = ctx.saved_tensors
-        t, v, k = ctx.shape
-        n = ids_mat.shape[1]
-        sids, order = _sorted_order(ids_mat)  # one batched sort for all tables
-        if ctx.segmat:
-            # the cotangents permuted straight into K3's transposed (T, C, N)
-            # layout, one K3 launch
-            sg_t = torch.gather(grad.transpose(1, 2), 2, order[:, None, :].expand(t, k + 1, n))
-            grads = segment_matmul_from_sorted_batched(sids.contiguous(), sg_t.contiguous(), v)
-            return grads[:, :k, :].transpose(1, 2), grads[:, k, :], None
-        d_packed = torch.stack([
-            _scatter_sorted_rows(sids[i], grad[i].index_select(0, order[i]), v) for i in range(t)
-        ])  # (T, V, C)
+        _, v, k = ctx.shape
+        d_packed = _stacked_packed_grad(ids_mat, grad, v, ctx.segmat)  # (T, V, k + 1)
         return d_packed[:, :, :k], d_packed[:, :, k], None
 
 
@@ -270,3 +340,126 @@ def packed_lookup_stacked_split(stack, w_cols, ids_list) -> list:
     ``_segmat_multi_active``)."""
     ids_mat = torch.stack([i.reshape(-1) for i in ids_list])
     return list(_StackedGatherSplit.apply(stack, w_cols, ids_mat).unbind(0))
+
+
+class _StackedGather(torch.autograd.Function):
+    """Per-table rows of one (T, V, C) packed stack; the reference's
+    ``_stacked_gather`` custom_vjp (:904-956). The backward is
+    ``_StackedGatherSplit``'s, and its (T, V, C) grad reaches the stack
+    unsplit."""
+
+    @staticmethod
+    def forward(ctx, packed, ids_mat):
+        t, v, c = packed.shape
+        rows = packed.reshape(t * v, c).index_select(0, _stacked_flat_ids(ids_mat, v))
+        ctx.save_for_backward(ids_mat)
+        ctx.v = v
+        ctx.segmat = _segmat_multi_active(c, ids_mat.device)
+        return rows.reshape(t, ids_mat.shape[1], c)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids_mat,) = ctx.saved_tensors
+        return _stacked_packed_grad(ids_mat, grad, ctx.v, ctx.segmat), None
+
+
+def packed_lookup_stacked(packed, ids_list) -> list:
+    """Stacked-storage packed lookup from one (T, V, C) packed stack (the
+    one-concat form, ``STACKED_SPLIT_CONCAT = False``): T (N, C) row
+    tensors, one batched sort / permute / K3 backward."""
+    ids_mat = torch.stack([i.reshape(-1) for i in ids_list])
+    return list(_StackedGather.apply(packed, ids_mat).unbind(0))
+
+
+class _LookupMultiSplit(torch.autograd.Function):
+    """Same-shape tables and their vector columns gathered apart, giving the
+    (N, k + n_vec) rows a [table | vec...] concat-then-gather would; the
+    reference's ``_lookup_multi_split`` custom_vjp (:1037-1130). The
+    backward sorts once, permutes the packed cotangents into (T, k_eff, N)
+    and then, by the route read in the forward: K7 ("vk": the table grads
+    row-major), K3 ("segmat": the table grads as (V, k) views of its (k, V)
+    rows, the vector grads free row slices), or per-table ``index_add_`` of
+    the packed rows ("scatter")."""
+
+    @staticmethod
+    def forward(ctx, ids_mat, n_tables, n_vec, *tensors):
+        tables, vecs = tensors[:n_tables], tensors[n_tables:]
+        v, k = tables[0].shape
+        n = ids_mat.shape[1]
+        rows = []
+        for i, (table, ids) in enumerate(zip(tables, ids_mat)):
+            parts = [table.index_select(0, ids)]
+            parts += [vec.index_select(0, ids)[:, None] for vec in vecs[i * n_vec:(i + 1) * n_vec]]
+            rows.append(torch.cat(parts, dim=1))
+        ctx.save_for_backward(ids_mat)
+        ctx.shape = (n_tables, v, k, n_vec)
+        if not _segmat_multi_active(k + n_vec, ids_mat.device):
+            ctx.route = "scatter"
+        elif SEGMAT_VK_OUT and n <= SEGMAT_SEGMENT_N:
+            ctx.route = "vk"
+        else:
+            ctx.route = "segmat"
+        return tuple(rows)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        (ids_mat,) = ctx.saved_tensors
+        t, v, k, n_vec = ctx.shape
+        k_eff = k + n_vec
+        n = ids_mat.shape[1]
+        sids, order = _sorted_order(ids_mat)
+        if ctx.route == "scatter":
+            packed = [_scatter_sorted_rows(sids[i], g.index_select(0, order[i]), v)
+                      for i, g in enumerate(gs)]  # (V, k_eff) each
+            table_grads = [g[:, :k] for g in packed]
+            vec_grads = [g[:, k + j] for g in packed for j in range(n_vec)]
+            return (None, None, None, *table_grads, *vec_grads)
+        g_t = torch.stack(gs).transpose(1, 2)  # (T, k_eff, N)
+        sg_t = torch.gather(g_t, 2, order[:, None, :].expand(t, k_eff, n)).contiguous()
+        sids = sids.contiguous()
+        if ctx.route == "vk":
+            emb, vec = segment_matmul_from_sorted_batched_vk(sids, sg_t, v, k, n_vec)
+            table_grads = list(emb.unbind(0))
+            vec_grads = [vec[i, j] for i in range(t) for j in range(n_vec)]
+        else:
+            grads = segment_matmul_from_sorted_batched(sids, sg_t, v)  # (T, k_eff, V)
+            table_grads = [grads[i, :k].t() for i in range(t)]
+            vec_grads = [grads[i, k + j] for i in range(t) for j in range(n_vec)]
+        return (None, None, None, *table_grads, *vec_grads)
+
+
+def packed_lookup_grouped(tables: list, vecs: list, ids_list: list) -> list:
+    """Packed [table | vec...] rows across features without building the
+    per-feature packed matrices (reference :1133-1175).
+
+    ``tables``: per-feature (V, k) tables; ``vecs``: per-feature tuples of
+    (V,) vector columns (bias and/or the linear w slice, the same number
+    for every feature); ``ids_list``: per-feature ids (any shape). Returns
+    per-feature (*ids.shape, k + n_vec) rows, as a concat-then-gather
+    gives them. Same-shape groups share one ``_LookupMultiSplit``;
+    singletons, and every feature when the fused backward is off, fall
+    back to the concat and ``embedding_lookup``."""
+    assert len(tables) == len(vecs) == len(ids_list)
+
+    def concat_fallback(p):
+        packed = torch.cat([tables[p]] + [v[:, None] for v in vecs[p]], dim=1)
+        return embedding_lookup(packed, ids_list[p])
+
+    by_shape = collections.defaultdict(list)
+    for pos, (t, i) in enumerate(zip(tables, ids_list)):
+        by_shape[(tuple(t.shape), tuple(i.shape), len(vecs[pos]))].append(pos)
+    out: list = [None] * len(tables)
+    for positions in by_shape.values():
+        if len(positions) == 1 or not _fused_active(tables[positions[0]].device):
+            for p in positions:
+                out[p] = concat_fallback(p)
+            continue
+        n_vec = len(vecs[positions[0]])
+        ids_mat = torch.stack([ids_list[p].reshape(-1) for p in positions])
+        rows = _LookupMultiSplit.apply(
+            ids_mat, len(positions), n_vec, *(tables[p] for p in positions),
+            *(v for p in positions for v in vecs[p]))
+        k_eff = tables[positions[0]].shape[1] + n_vec
+        for p, r in zip(positions, rows):
+            out[p] = r.reshape(*ids_list[p].shape, k_eff)
+    return out

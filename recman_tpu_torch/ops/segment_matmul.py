@@ -21,6 +21,15 @@ cotangent rows permuted into that order, (N, C), give the dense grad
 ``segment_matmul_from_sorted`` launches K6 (``csrc/segment_matmul.cu``,
 beside K3) on a CUDA tensor and runs ``segment_matmul_rows_reference`` on
 a CPU tensor.
+
+K7, batched, row-major table output. Counterpart of
+``_segment_matmul_from_sorted_batched_vk`` (:609-723), the kernel of the
+split packed lookup's backward under ``SEGMAT_VK_OUT``: K3's inputs, with
+the cotangent rows split into k_emb table rows and n_vec vector rows,
+give the table grads (T, V, k_emb) row-major and the vector grads (T,
+n_vec, V). ``segment_matmul_from_sorted_batched_vk`` launches K7
+(``csrc/segment_matmul.cu``) on a CUDA tensor and runs
+``segment_matmul_vk_reference`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -31,10 +40,14 @@ import torch
 
 from .cuda_build import load
 
-# Launches of K3 and of K6, each counted where its wrapper launches it
+# Launches of K3, K6 and K7, each counted where its wrapper launches it
 # (and nowhere else); callers reset them to 0 to count one run's launches.
 LAUNCHES = 0
 ROWS_LAUNCHES = 0
+VK_LAUNCHES = 0
+
+# k_emb + n_vec that K7 takes (its shared-memory tile, csrc/segment_matmul.cu)
+MAX_VK_ROWS = 96
 
 
 def segment_matmul_reference(sids, sg_t, vocab_size: int):
@@ -150,3 +163,57 @@ def segment_matmul_from_sorted(sids, sg, vocab_size: int):
     if sg.device.type == "cpu":
         return segment_matmul_rows_reference(sids, sg, vocab_size)
     raise ValueError(f"segment_matmul_from_sorted: no path for device {sg.device}")
+
+
+def segment_matmul_vk_reference(sids, sg_t, vocab_size: int, k_emb: int, n_vec: int):
+    """Plain PyTorch version of K7 (the CPU path and K7's oracle): K3's
+    prefix-sum twin, its first k_emb rows transposed to row-major."""
+    out = segment_matmul_reference(sids, sg_t, vocab_size)  # (T, k_emb + n_vec, V)
+    return out[:, :k_emb].transpose(1, 2).contiguous(), out[:, k_emb:].contiguous()
+
+
+def _k7():
+    fn = load("segment_matmul").segment_matmul_sorted_batched_vk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return fn
+
+
+def _segment_matmul_vk_cuda(sids, sg_t, vocab_size, k_emb, n_vec):
+    global VK_LAUNCHES
+    if sids.dtype != torch.int32 or sids.dim() != 2 or not sids.is_contiguous():
+        raise ValueError("K7 takes sids as a contiguous (T, N) int32 tensor")
+    if sg_t.dtype != torch.float32 or sg_t.dim() != 3 or not sg_t.is_contiguous():
+        raise ValueError("K7 takes the cotangents as a contiguous (T, C, N) float32 tensor")
+    t, c, n = sg_t.shape
+    if tuple(sids.shape) != (t, n) or sids.device != sg_t.device:
+        raise ValueError(f"K7: sids {tuple(sids.shape)} on {sids.device} do not match "
+                         f"cotangents {tuple(sg_t.shape)} on {sg_t.device}")
+    if k_emb < 1 or n_vec < 0 or c != k_emb + n_vec or c > MAX_VK_ROWS:
+        raise ValueError(f"K7 takes 1 <= k_emb, 0 <= n_vec, k_emb + n_vec = C <= "
+                         f"{MAX_VK_ROWS}; got k_emb={k_emb}, n_vec={n_vec}, C={c}")
+    if not 1 <= t <= 65535 or min(n, vocab_size) < 1 or t * c * vocab_size >= 2**62:
+        raise ValueError(f"K7 takes 1 <= T <= 65535 and nonempty N, V; got T={t}, N={n}, "
+                         f"V={vocab_size}")
+    emb = torch.empty((t, vocab_size, k_emb), dtype=torch.float32, device=sg_t.device)
+    vec = torch.empty((t, n_vec, vocab_size), dtype=torch.float32, device=sg_t.device)
+    stream = torch.cuda.current_stream(sg_t.device).cuda_stream
+    err = _k7()(sids.data_ptr(), sg_t.data_ptr(), emb.data_ptr(),
+                vec.data_ptr() if n_vec else None, t, k_emb, n_vec, n, vocab_size, stream)
+    if err != 0:
+        raise RuntimeError(f"K7 (segment_matmul_vk) launch failed: CUDA error {err}")
+    VK_LAUNCHES += 1
+    return emb, vec
+
+
+def segment_matmul_from_sorted_batched_vk(sids, sg_t, vocab_size: int, k_emb: int,
+                                          n_vec: int):
+    """(T, N) sorted ids + (T, k_emb + n_vec, N) permuted cotangents ->
+    ((T, V, k_emb) table grads, (T, n_vec, V) vector grads). Launches K7
+    for a CUDA tensor (raising on what it does not take) and runs the plain
+    version for a CPU tensor."""
+    if sg_t.is_cuda:
+        return _segment_matmul_vk_cuda(sids, sg_t, vocab_size, k_emb, n_vec)
+    if sg_t.device.type == "cpu":
+        return segment_matmul_vk_reference(sids, sg_t, vocab_size, k_emb, n_vec)
+    raise ValueError(f"segment_matmul_from_sorted_batched_vk: no path for device {sg_t.device}")

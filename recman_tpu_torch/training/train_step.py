@@ -16,8 +16,10 @@ runs the loss inside ``ops.embedding.stacked_tables``, so the lookups'
 backward (one K3 launch) reaches the leaf unsplit and Adam updates the
 tables as one tensor.
 
-The optimizer is Adam written with plain PyTorch ops (the reference
-leaves it to XLA): optax's ``scale_by_adam`` exactly, then -lr.
+The optimizers are the reference's menu (``create_optimizer``) written
+with plain PyTorch ops (the reference leaves them to optax and XLA), each
+rounding where optax rounds; every one takes a float or a schedule
+(``training/lr_schedule.py``) as its learning rate.
 """
 
 from __future__ import annotations
@@ -32,54 +34,242 @@ from ..device import resolve_device
 from ..ops.embedding import stacked_tables
 
 
+class MaskedNode(NamedTuple):
+    """optax's MaskedNode: the entry of a param that a partitioned
+    optimizer (``MultiTransform``) leaves to another of its transforms."""
+
+
+MASKED = MaskedNode()
+
+
+def _tmap(fn, tree, *rest):
+    """fn over the tensor entries of param-keyed dicts, MASKED passed
+    through (jax.tree.map over a tree holding optax MaskedNodes)."""
+    return {k: MASKED if v is MASKED else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
+def _zero_count() -> torch.Tensor:
+    """An optimizer's int32 step count. It lives on the CPU whatever the
+    params' device: a schedule reads it on the host every step, which a
+    count on the card would make wait for the card, and the bias
+    corrections computed from it enter the card's kernels as scalars."""
+    return torch.zeros((), dtype=torch.int32)
+
+
+def _f32(x, count) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=count.device)
+
+
+def _lr_scale(learning_rate, count: torch.Tensor):
+    """optax.scale_by_learning_rate's factor, -lr: a schedule is read at
+    the transform's count before it increments (so the first update of a
+    warmup from 0 is exactly 0), as a float32 value."""
+    if callable(learning_rate):
+        return -_f32(float(learning_rate(int(count))), count)
+    return -learning_rate
+
+
+def _scale(updates: dict, factor) -> dict:
+    """updates * factor, a tensor factor cast to each update's dtype (optax
+    scale / scale_by_schedule)."""
+    if isinstance(factor, torch.Tensor):
+        return _tmap(lambda u: factor.to(u.dtype) * u, updates)
+    return _tmap(lambda u: factor * u, updates)
+
+
+def _weak(x: float, t: torch.Tensor):
+    """A Python scalar as jnp takes it beside a tensor of another float
+    dtype: rounded to that dtype (a float stays a Python float for f32,
+    where PyTorch rounds it the same way)."""
+    return x if t.dtype == torch.float32 else torch.tensor(x, dtype=t.dtype, device=t.device)
+
+
+def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """1 - decay ** count in float32 (optax.tree.bias_correction)."""
+    return 1 - _f32(decay, count) ** count
+
+
 class AdamState(NamedTuple):
     """optax's ``ScaleByAdamState``: an int32 step count and the first and
-    second moments, param-shaped dicts."""
+    second moments, param-shaped dicts. The count is also the schedule's:
+    both start at 0 and increment once an update."""
 
     count: torch.Tensor
     mu: dict
     nu: dict
 
 
-# optax.adam's defaults, fixed: scale_by_adam(b1, b2, eps, eps_root)
+# optax.adam's defaults: scale_by_adam(b1, b2, eps, eps_root)
 B1 = 0.9
 B2 = 0.999
 EPS = 1e-8
 EPS_ROOT = 0.0
 
 
-class Adam:
-    """optax.adam(learning_rate) with its defaults (B1, B2, EPS, EPS_ROOT
-    above), bias correction by the int32 count, and the update
-    -lr * m_hat / (sqrt(v_hat + eps_root) + eps). Each line rounds where
-    optax's does, in the params' dtype."""
+def _scale_by_adam(grads, state: AdamState, b1, b2, eps, eps_root, mu_dtype):
+    """optax.scale_by_adam: (updates, new state). mu is updated in the
+    gradients' dtype and stored in ``mu_dtype`` only afterwards. With a
+    bf16 mu, b1 * mu is a bf16 product of bf16(b1), as jnp takes a Python
+    scalar in the array's dtype."""
+    mu = _tmap(lambda g, m: (1 - b1) * g + _weak(b1, m) * m, grads, state.mu)
+    nu = _tmap(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state.nu)
+    count = state.count + 1
+    bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
+    updates = _tmap(lambda m, v: (m / bc1.to(m.dtype)) / (torch.sqrt(v / bc2.to(v.dtype) + eps_root)
+                                                          + eps), mu, nu)
+    if mu_dtype is not None:
+        mu = _tmap(lambda m: m.to(mu_dtype), mu)
+    return updates, AdamState(count, mu, nu)
 
-    def __init__(self, learning_rate):
+
+class Adam:
+    """optax.adam(learning_rate, b1, b2, eps, eps_root, mu_dtype):
+    scale_by_adam (bias correction by the int32 count, update m_hat /
+    (sqrt(v_hat + eps_root) + eps)) then -lr, with ``learning_rate`` a
+    float or a schedule. ``mu_dtype=torch.bfloat16`` stores the first
+    moment in bf16 (optax's ``mu_dtype``). Each line rounds where optax's
+    does, in the params' dtype."""
+
+    def __init__(self, learning_rate, b1=B1, b2=B2, eps=EPS, eps_root=EPS_ROOT, mu_dtype=None):
         self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps, self.eps_root = b1, b2, eps, eps_root
+        self.mu_dtype = mu_dtype
 
     def init(self, params: dict) -> AdamState:
-        device = next(iter(params.values())).device
         return AdamState(
-            count=torch.zeros((), dtype=torch.int32, device=device),
-            mu={k: torch.zeros_like(v) for k, v in params.items()},
-            nu={k: torch.zeros_like(v) for k, v in params.items()},
+            count=_zero_count(),
+            mu=_tmap(lambda v: torch.zeros_like(v, dtype=self.mu_dtype or v.dtype), params),
+            nu=_tmap(torch.zeros_like, params),
         )
 
     def update(self, grads: dict, state: AdamState, params=None):
         """(grads, state) -> (updates, new state), as optax's update_fn."""
         del params
-        mu = {k: (1 - B1) * g + B1 * state.mu[k] for k, g in grads.items()}
-        nu = {k: (1 - B2) * (g * g) + B2 * state.nu[k] for k, g in grads.items()}
-        count = state.count + 1
-        one = torch.ones((), dtype=torch.float32, device=count.device)
-        bc1 = 1 - (one * B1) ** count
-        bc2 = 1 - (one * B2) ** count
-        step = -self.learning_rate
-        updates = {
-            k: (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2 + EPS_ROOT) + EPS) * step
-            for k in grads
-        }
-        return updates, AdamState(count, mu, nu)
+        lr = _lr_scale(self.learning_rate, state.count)
+        updates, state = _scale_by_adam(grads, state, self.b1, self.b2, self.eps,
+                                        self.eps_root, self.mu_dtype)
+        return _scale(updates, lr), state
+
+
+class CountState(NamedTuple):
+    """The schedule's int32 count and the transform's param-shaped state
+    (adagrad's sum of squares, momentum's trace; None for plain sgd)."""
+
+    count: torch.Tensor
+    acc: dict | None
+
+
+class Adagrad:
+    """optax.adagrad(learning_rate, initial_accumulator_value=0.1,
+    eps=1e-7): scale_by_rss then -lr. The sum of squares starts at the
+    initial value; the update is g * rsqrt(sum + eps) where sum > 0."""
+
+    def __init__(self, learning_rate, initial_accumulator_value=0.1, eps=1e-7):
+        self.learning_rate = learning_rate
+        self.initial, self.eps = initial_accumulator_value, eps
+
+    def init(self, params: dict) -> CountState:
+        return CountState(_zero_count(),
+                          _tmap(lambda v: torch.full_like(v, self.initial), params))
+
+    def update(self, grads: dict, state: CountState, params=None):
+        del params
+        lr = _lr_scale(self.learning_rate, state.count)
+        acc = _tmap(lambda g, t: g * g + t, grads, state.acc)
+        updates = _tmap(lambda t, g: torch.where(t > 0, torch.rsqrt(t + self.eps), 0.0) * g,
+                        acc, grads)
+        return _scale(updates, lr), CountState(state.count + 1, acc)
+
+
+class Sgd:
+    """optax.sgd(learning_rate, momentum): with a momentum, the trace g +
+    momentum * trace (optax.trace, not Nesterov) is the update; then -lr."""
+
+    def __init__(self, learning_rate, momentum=None):
+        self.learning_rate = learning_rate
+        self.momentum = momentum
+
+    def init(self, params: dict) -> CountState:
+        trace = None if self.momentum is None else _tmap(torch.zeros_like, params)
+        return CountState(_zero_count(), trace)
+
+    def update(self, grads: dict, state: CountState, params=None):
+        del params
+        lr = _lr_scale(self.learning_rate, state.count)
+        trace = None
+        if self.momentum is not None:
+            trace = _tmap(lambda g, t: g + self.momentum * t, grads, state.acc)
+            grads = trace
+        return _scale(grads, lr), CountState(state.count + 1, trace)
+
+
+class Lamb:
+    """optax.lamb(learning_rate, b1=0.9, b2=0.999, eps=1e-6, eps_root=0,
+    weight_decay=0): scale_by_adam, + weight_decay * param, the trust
+    ratio ||param|| / ||update|| per leaf (1 where either norm is 0), then
+    -lr. Under stacked storage the leaf is the whole (T, V, k) stack, as
+    in the reference."""
+
+    def __init__(self, learning_rate, b1=B1, b2=B2, eps=1e-6, eps_root=0.0, weight_decay=0.0):
+        self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps, self.eps_root = b1, b2, eps, eps_root
+        self.weight_decay = weight_decay
+
+    def init(self, params: dict) -> AdamState:
+        return Adam(self.learning_rate).init(params)
+
+    def update(self, grads: dict, state: AdamState, params=None):
+        if params is None:
+            raise ValueError("Lamb.update needs the params (trust ratio, weight decay)")
+        lr = _lr_scale(self.learning_rate, state.count)
+        updates, state = _scale_by_adam(grads, state, self.b1, self.b2, self.eps,
+                                        self.eps_root, None)
+        updates = _tmap(lambda u, p: u + self.weight_decay * p, updates, params)
+
+        def trust(u, p):
+            p_norm = torch.linalg.vector_norm(p)
+            u_norm = torch.linalg.vector_norm(u)
+            ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
+            return u * ratio
+
+        return _scale(_tmap(trust, updates, params), lr), state
+
+
+class MultiTransformState(NamedTuple):
+    """optax's MultiTransformState: one inner state per label, each over
+    the whole param dict with MASKED where another label's params sit."""
+
+    inner_states: dict
+
+
+class MultiTransform:
+    """optax.multi_transform: each param goes to the transform of its label
+    (``label_fn(params)`` -> {name: label}, read from the updates at every
+    update, as optax reads it)."""
+
+    def __init__(self, transforms: dict, label_fn):
+        self.transforms = transforms
+        self.label_fn = label_fn
+
+    def _masked(self, tree: dict, labels: dict, label) -> dict:
+        return {k: v if labels[k] == label else MASKED for k, v in tree.items()}
+
+    def init(self, params: dict) -> MultiTransformState:
+        labels = self.label_fn(params)
+        return MultiTransformState({
+            name: t.init(self._masked(params, labels, name))
+            for name, t in self.transforms.items()
+        })
+
+    def update(self, grads: dict, state: MultiTransformState, params=None):
+        labels = self.label_fn(grads)
+        updates, inner = {}, {}
+        for name, t in self.transforms.items():
+            sub_params = None if params is None else self._masked(params, labels, name)
+            u, inner[name] = t.update(self._masked(grads, labels, name),
+                                      state.inner_states[name], sub_params)
+            updates.update({k: v for k, v in u.items() if v is not MASKED})
+        return updates, MultiTransformState(inner)
 
 
 def apply_updates(params: dict, updates: dict) -> dict:
@@ -88,15 +278,30 @@ def apply_updates(params: dict, updates: dict) -> dict:
 
 
 def create_optimizer(optimizer, learning_rate):
-    """Name -> optimizer. Only "adam" is ported; an optimizer object passes
-    through."""
+    """Name -> optimizer (the reference's menu, :26-57): adam, adam_bf16m
+    (Adam with a bf16 first moment), adagrad, gd / sgd, momentum (sgd with
+    0.9), lamb, rowwise_adam. ``learning_rate`` is a float or a schedule.
+    An optimizer object passes through."""
     if not isinstance(optimizer, str):
         return optimizer
-    if optimizer.lower() == "adam":
+    name = optimizer.lower()
+    if name == "adam":
         return Adam(learning_rate)
-    raise NotImplementedError(
-        f"optimizer {optimizer!r} not ported yet (ROADMAP.md queue 1, item 8)"
-    )
+    if name == "adam_bf16m":
+        return Adam(learning_rate, mu_dtype=torch.bfloat16)
+    if name == "adagrad":
+        return Adagrad(learning_rate)
+    if name in ("gd", "sgd"):
+        return Sgd(learning_rate)
+    if name == "momentum":
+        return Sgd(learning_rate, momentum=0.9)
+    if name == "lamb":
+        return Lamb(learning_rate)
+    if name == "rowwise_adam":
+        from .rowwise_adam import rowwise_adam
+
+        return rowwise_adam(learning_rate)
+    raise ValueError(f"unknown optimizer {optimizer!r}")
 
 
 class TrainState(NamedTuple):
@@ -104,7 +309,7 @@ class TrainState(NamedTuple):
     the params' device."""
 
     params: dict
-    opt_state: AdamState
+    opt_state: NamedTuple
     step: int
     generator: torch.Generator | None
 
@@ -324,9 +529,16 @@ def stack_table_params(model, params) -> tuple[dict, tuple] | None:
     if not names:
         return None
     prefix = model.embeddings.prefix
-    keys = {f"{prefix}{n}_feat_embed" for n in names}
-    out = {k: v for k, v in params.items() if k not in keys}
-    out[STACKED_KEY] = torch.stack([params[f"{prefix}{n}_feat_embed"] for n in names])
+    keys = [f"{prefix}{n}_feat_embed" for n in names]
+    for k in keys:
+        if params[k] is MASKED:
+            # the reference's jnp.stack fails on optax's MaskedNode here
+            raise TypeError(
+                f"{k} is masked out of this state: a partitioned optimizer "
+                "(rowwise_adam, lamb_partitioned) has no stacked-storage form, "
+                "as in the reference (ROADMAP.md section 3)")
+    out = {k: v for k, v in params.items() if k not in set(keys)}
+    out[STACKED_KEY] = torch.stack([params[k] for k in keys])
     return out, names
 
 
@@ -344,15 +556,31 @@ def unstack_table_params(model, params) -> dict:
     return out
 
 
+def _map_param_shaped(tree, param_keys: frozenset, fn):
+    """``fn`` on every dict whose key set is ``param_keys``: the
+    param-shaped trees inside an optimizer state (Adam's mu and nu,
+    adagrad's sum of squares, ...); other nodes recurse (reference
+    :266-285)."""
+    if isinstance(tree, dict):
+        if frozenset(tree) == param_keys:
+            return fn(tree)
+        return {k: _map_param_shaped(v, param_keys, fn) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):  # NamedTuple states
+        return type(tree)(*(_map_param_shaped(getattr(tree, f), param_keys, fn)
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_param_shaped(v, param_keys, fn) for v in tree)
+    return tree
+
+
 def stack_train_state(model, state: TrainState) -> TrainState:
-    """Per-table -> stacked storage for the params and Adam's moments.
-    Pure reshaping."""
+    """Per-table -> stacked storage for the params and every param-shaped
+    tree of the optimizer state. Pure reshaping."""
     res = stack_table_params(model, state.params)
     if res is None:
         return state
-    opt = state.opt_state
-    opt = AdamState(opt.count, stack_table_params(model, opt.mu)[0],
-                    stack_table_params(model, opt.nu)[0])
+    opt = _map_param_shaped(state.opt_state, frozenset(state.params),
+                            lambda d: stack_table_params(model, d)[0])
     return TrainState(res[0], opt, state.step, state.generator)
 
 
@@ -360,8 +588,7 @@ def unstack_train_state(model, state: TrainState) -> TrainState:
     """Inverse of ``stack_train_state`` (a no-op on per-table states)."""
     if STACKED_KEY not in state.params:
         return state
-    opt = state.opt_state
-    opt = AdamState(opt.count, unstack_table_params(model, opt.mu),
-                    unstack_table_params(model, opt.nu))
+    opt = _map_param_shaped(state.opt_state, frozenset(state.params),
+                            lambda d: unstack_table_params(model, d))
     return TrainState(unstack_table_params(model, state.params), opt, state.step,
                       state.generator)

@@ -67,9 +67,12 @@ def _not_ported(what: str, item: int):
 
 
 class Trainer:
-    """Drives a model. ``hparams`` needs learning_rate/optimizer; everything
-    model-specific lives in the model object. ``device``: default CUDA
-    (raises without a GPU); pass ``device="cpu"`` for the plain path.
+    """Drives a model. ``hparams`` needs learning_rate (a float or a
+    schedule, ``training.lr_schedule``) and optimizer (a name of
+    ``create_optimizer``'s menu or an optimizer object), as the
+    reference's; everything model-specific lives in the model object.
+    ``device``: default CUDA (raises without a GPU); pass ``device="cpu"``
+    for the plain path.
 
     ``steps_per_dispatch``: > 1 groups consecutive steps
     (``make_train_step_unrolled``, or the stacked step when

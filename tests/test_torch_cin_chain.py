@@ -269,3 +269,78 @@ def test_bench_geometry_is_in_k2_range():
 
 def test_widest_k1_geometry_is_in_k2_range():
     assert torch_chain.k2_unsupported_reason(39, (256, 128), 8, 1024) is None
+
+
+# -- K2's recompute form (CHAIN_SAVE_FMAPS = False) -----------------------------
+
+RECOMPUTE_CASES = BWD_CASES[:3] + BWD_CASES[-1:]
+
+
+@pytest.mark.parametrize("case", RECOMPUTE_CASES, ids=_case_id)
+def test_plain_recompute_matches_jax_interpret_without_fmaps(case):
+    """The recompute form's twin against the interpreted ``_chain_bwd_pallas``
+    with no fmaps (which rebuilds them in its kernel) to 1e-3 of max|ref|,
+    and bit-equal to the save form's twin on K1's twin's fmaps."""
+    h0, units, b, d, act = case
+    x0c, ws, bs = _inputs(h0, units, b, d, seed=len(units) + d + 1)
+    gs = _cotangents(h0, units, b, seed=8)
+    ref = jax_chain._chain_bwd_pallas(jnp.asarray(x0c), [jnp.asarray(w) for w in ws],
+                                      [jnp.asarray(v) for v in bs], [jnp.asarray(g) for g in gs],
+                                      units, d, act, interpret=True, fmaps=())
+    T = torch.from_numpy
+    args = (T(x0c), [T(w) for w in ws], [T(v) for v in bs], [T(g) for g in gs])
+    before = torch_chain.RECOMPUTE_LAUNCHES
+    got = torch_chain.cin_chain_bwd_recompute(*args, units, d, act)
+    assert torch_chain.RECOMPUTE_LAUNCHES == before  # the CPU runs the twin
+    for r, g in zip([ref[0], *ref[1], *ref[2]], [got[0], *got[1], *got[2]]):
+        assert g.shape == r.shape and _rel_err(r, g) <= 1e-3
+    fmaps = torch_chain.cin_chain_fm_reference(*args[:3], units, d, act, save=True)[len(units):]
+    saved = torch_chain.cin_chain_bwd(*args, fmaps, units, d, act)
+    assert all(torch.equal(a, c) for a, c in zip([saved[0], *saved[1], *saved[2]],
+                                                 [got[0], *got[1], *got[2]]))
+
+
+@pytest.mark.parametrize("save", [True, False])
+def test_chain_save_fmaps_flag_picks_the_form(save, monkeypatch):
+    """``CHAIN_SAVE_FMAPS`` is read when the forward runs: True keeps the
+    fmaps for K2's save form, False only x0c and the params (the
+    reference's residuals) for the recompute form; the gradients are the
+    same bits."""
+    h0, units, b, d = F, (8, 8, 6), B, D
+    x0c, ws, bs = _inputs(h0, units, b, d, seed=3)
+    gs = [torch.from_numpy(g) for g in _cotangents(h0, units, b, seed=4)]
+    grads = []
+    for flag in (True, save):
+        monkeypatch.setattr(torch_chain, "CHAIN_SAVE_FMAPS", flag)
+        leaves = [torch.from_numpy(a.copy()).requires_grad_() for a in (x0c, *ws, *bs)]
+        pooled = torch_chain.cin_chain_fm(leaves[0], leaves[1:4], leaves[4:], units, d)
+        monkeypatch.setattr(torch_chain, "CHAIN_SAVE_FMAPS", not flag)  # read in the forward
+        fn = pooled[0].grad_fn
+        assert type(fn).__name__ == ("_ChainFmBackward" if flag else "_ChainFmRecomputeBackward")
+        assert len(fn.saved_tensors) == 1 + len(units) * (1 if flag else 2) + (
+            len(units) if flag else 0)
+        torch.autograd.backward(pooled, gs)
+        grads.append([t.grad for t in leaves])
+    assert all(torch.equal(a, c) for a, c in zip(*grads))
+
+
+def test_the_chain_ignores_cin_remat(monkeypatch):
+    """As in the reference (recman_tpu/layers/cin.py:199-219), ``remat``
+    leaves the chain as it is: the save form with saved fmaps, never the
+    recompute form."""
+    from recman_tpu_torch.layers import CIN
+
+    calls = {"save": 0, "recompute": 0}
+    for key, fn in (("save", torch_chain._ChainFm), ("recompute", torch_chain._ChainFmRecompute)):
+        monkeypatch.setattr(fn, "apply", classmethod(
+            lambda cls, *a, _k=key, _real=fn.apply: calls.__setitem__(_k, calls[_k] + 1) or _real(*a)))
+    grads = []
+    for remat in (False, True):
+        cin = CIN(5, (6, 4), "relu", (1, 1, 1), remat=remat)
+        p = {k: v.requires_grad_() for k, v in
+             cin.init(torch.Generator().manual_seed(0), device="cpu").items()}
+        x = torch.randn((32, 5, 4), generator=torch.Generator().manual_seed(1))  # B*D 128
+        cin.apply(p, x, training=True).square().sum().backward()
+        grads.append({k: v.grad for k, v in p.items()})
+    assert calls == {"save": 2, "recompute": 0}
+    assert all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0])

@@ -16,8 +16,14 @@ Tolerances, per tensor, of its largest element:
   and g on both sides, f32 sums in another order; K5 bit-equal on two
   calls (no atomics).
 - The CIN layer's per-layer path, card against CPU: 1e-4 forward.
-- K3 and K6 1e-5, and exact zeros where no id falls: f32 sums of the same
-  terms in another order.
+- K2's recompute form: bit-equal to the save form (its phase 0 rebuilds
+  the fmaps with K1's own code), and 1e-3 of its plain version (K2's
+  twin on the plain forward's fmaps, or on K1's where the two differ in
+  the sign of an element: a derivative read on the other side of 0; such
+  elements at most 1e-5 of them, or one, each within 1e-5 of max|ref| of
+  0), at every batch.
+- K3, K6 and K7 1e-5, and exact zeros where no id falls: f32 sums of the
+  same terms in another order; K7 bit-equal to K3 (the same sums).
 - One stacked train step, GPU against CPU: loss 1e-5 relative, every
   gradient 1e-3 (the K2 rounding above).
 """
@@ -178,6 +184,76 @@ def test_k2_is_deterministic(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a[1] + a[2], b[1] + b[2]))
 
 
+@pytest.mark.parametrize("h0,units,b,d", CHAIN_CASES + [(26, (100, 100), 65_536, 16)])
+@pytest.mark.parametrize("act", ACTS)
+def test_k2_recompute_is_bit_equal_to_the_save_form(cuda, h0, units, b, d, act):
+    if b == 65_536 and act != "leaky_relu":
+        pytest.skip("the large-batch geometry runs its model's activation only")
+    x0c, ws, bs = _inputs(h0, units, b, d, 17, cuda)
+    n = len(units)
+    out = cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act, save=True)
+    gen = torch.Generator().manual_seed(6)
+    gs = [torch.randn(p.shape, generator=gen).to(cuda) for p in out[:n]]
+    saved = cin_chain.cin_chain_bwd(x0c, ws, bs, gs, out[n:], units, d, act)
+    before = (cin_chain.RECOMPUTE_LAUNCHES, cin_chain.LAUNCHES, cin_chain.BWD_LAUNCHES)
+    got = cin_chain.cin_chain_bwd_recompute(x0c, ws, bs, gs, units, d, act)
+    torch.cuda.synchronize()
+    assert (cin_chain.RECOMPUTE_LAUNCHES, cin_chain.LAUNCHES, cin_chain.BWD_LAUNCHES) == (
+        before[0] + 1, before[1], before[2])
+    assert torch.equal(saved[0], got[0])
+    assert all(torch.equal(x, y) for x, y in zip(saved[1] + saved[2], got[1] + got[2]))
+    # the plain version rebuilds the fmaps with K1's twin. K1's fmaps (the
+    # bits the kernel rebuilds) are held to the twin's first; where a
+    # pre-activation lies within the f32 sum-order difference of 0 the two
+    # read the derivative on the two sides of 0, which moves that column's
+    # gpre by 0.8 of a term: such elements are few and next to 0, and where
+    # there is one the backward is held to K2's twin on K1's fmaps
+    twin = cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True)[n:]
+    flips = _sign_flips(twin, out[n:])
+    ref = cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, out[n:] if flips else twin,
+                                            units, d, act)
+    _close(ref[0], got[0], 1e-3)
+    for r, g in zip(ref[1] + ref[2], got[1] + got[2]):
+        _close(r, g, 1e-3)
+
+
+def _sign_flips(twin, fmaps):
+    """K1's fmaps within 1e-3 of the twin's; the elements of other sign at
+    most 1e-5 of them (or one), each where the twin is within 1e-5 of its
+    max|ref| of 0. Returns their count."""
+    flips = numel = 0
+    for t, f in zip(twin, fmaps):
+        _close(t, f, 1e-3)
+        flip = (t > 0) != (f > 0)
+        if flip.any():
+            assert t[flip].abs().max().item() <= 1e-5 * t.abs().max().item()
+        flips, numel = flips + int(flip.sum()), numel + t.numel()
+    assert flips <= max(1, 1e-5 * numel)
+    return flips
+
+
+def test_chain_recompute_form_on_card(cuda, monkeypatch):
+    """cin_chain_fm under CHAIN_SAVE_FMAPS = False: K1 without fmaps and
+    K2's recompute form, whose gradients are the save form's bits."""
+    units = (100, 100)
+    x0c, ws, bs = _inputs(26, units, 1024, 16, 4, cuda)
+    grads, counts = [], []
+    for save in (True, False):
+        monkeypatch.setattr(cin_chain, "CHAIN_SAVE_FMAPS", save)
+        leaves = [t.clone().requires_grad_() for t in (x0c, *ws, *bs)]
+        before = (cin_chain.LAUNCHES, cin_chain.SAVE_LAUNCHES, cin_chain.BWD_LAUNCHES,
+                  cin_chain.RECOMPUTE_LAUNCHES)
+        out = cin_chain.cin_chain_fm(leaves[0], leaves[1:3], leaves[3:], units, 16)
+        sum((o.square() * (i + 1)).sum() for i, o in enumerate(out)).backward()
+        torch.cuda.synchronize()
+        counts.append(tuple(a - b for a, b in zip(
+            (cin_chain.LAUNCHES, cin_chain.SAVE_LAUNCHES, cin_chain.BWD_LAUNCHES,
+             cin_chain.RECOMPUTE_LAUNCHES), before)))
+        grads.append([t.grad for t in leaves])
+    assert counts == [(1, 1, 1, 0), (1, 0, 0, 1)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
 def _sorted_case(t, c, n, v, seed, device):
     rs = np.random.RandomState(seed)
     ids = np.minimum(rs.zipf(1.2, size=(t, n)) + 1, v - 1).astype(np.int32)
@@ -197,6 +273,38 @@ def test_k3_matches_plain_version(cuda, t, c, n, v):
     ref = segment_matmul.segment_matmul_reference(sids, sg, v)
     _close(ref, got, 1e-5)
     assert torch.equal(got == 0, ref == 0)
+
+
+@pytest.mark.parametrize("t,k_emb,n_vec,n,v", [(3, 4, 1, 70, 50), (4, 16, 2, 512, 1001),
+                                               (2, 3, 0, 5000, 7), (1, 95, 1, 300, 700),
+                                               (26, 16, 1, 8192, 100_001)])
+def test_k7_matches_plain_version_and_k3(cuda, t, k_emb, n_vec, n, v):
+    sids, sg = _sorted_case(t, k_emb + n_vec, n, v, t + n + 1, cuda)
+    before = segment_matmul.VK_LAUNCHES
+    emb, vec = segment_matmul.segment_matmul_from_sorted_batched_vk(sids, sg, v, k_emb, n_vec)
+    again = segment_matmul.segment_matmul_from_sorted_batched_vk(sids, sg, v, k_emb, n_vec)
+    torch.cuda.synchronize()
+    assert segment_matmul.VK_LAUNCHES == before + 2
+    assert emb.shape == (t, v, k_emb) and vec.shape == (t, n_vec, v)
+    ref_emb, ref_vec = segment_matmul.segment_matmul_vk_reference(sids, sg, v, k_emb, n_vec)
+    for r, g in ((ref_emb, emb), (ref_vec, vec)):
+        if r.numel():
+            _close(r, g, 1e-5)
+        assert torch.equal(g == 0, r == 0)
+    assert torch.equal(emb, again[0]) and torch.equal(vec, again[1])
+    k3 = segment_matmul.segment_matmul_from_sorted_batched(sids, sg, v)
+    assert torch.equal(k3[:, :k_emb].transpose(1, 2), emb) and torch.equal(k3[:, k_emb:], vec)
+
+
+def test_k7_wrapper_raises_on_what_it_does_not_take(cuda):
+    sids, sg = _sorted_case(2, 17, 64, 100, 0, cuda)
+    with pytest.raises(ValueError, match="k_emb"):
+        segment_matmul.segment_matmul_from_sorted_batched_vk(sids, sg, 100, 16, 2)
+    with pytest.raises(ValueError, match="int32"):
+        segment_matmul.segment_matmul_from_sorted_batched_vk(sids.long(), sg, 100, 16, 1)
+    wide = torch.zeros((2, 97, 64), device=cuda)
+    with pytest.raises(ValueError, match="96"):
+        segment_matmul.segment_matmul_from_sorted_batched_vk(sids, wide, 100, 96, 1)
 
 
 def test_cin_with_live_dropout_takes_k4_and_k5_on_cuda_in_training(cuda):
@@ -452,3 +560,29 @@ def test_cin_remat_on_card_launches_k4_twice_a_layer(cuda):
         grads.append({k: v.grad for k, v in p.items()})
     for k in grads[0]:
         assert torch.equal(grads[0][k], grads[1][k])
+
+
+@pytest.mark.parametrize("name", ["adam", "adam_bf16m", "adagrad", "momentum", "lamb",
+                                  "rowwise_adam"])
+def test_optimizer_with_a_schedule_on_card_matches_cpu(cuda, name):
+    """Each optimizer with a warmup-plus-cosine schedule on CUDA params: the
+    count stays on the CPU (the schedule is read on the host without
+    waiting for the card), and 3 updates match the CPU's to 1e-5 of
+    max|ref| (sqrt, rsqrt and norms round apart on the two devices)."""
+    from recman_tpu_torch.training import apply_updates, create_optimizer, warmup_schedule
+
+    gen = torch.Generator().manual_seed(9)
+    params = {"t_feat_embed": torch.randn(40, 4, generator=gen), "w": torch.randn(6, 3, generator=gen),
+              "v": torch.randn(3, generator=gen)}
+    grads = [{k: torch.randn(v.shape, generator=gen) for k, v in params.items()} for _ in range(3)]
+    out = []
+    for dev in ("cpu", cuda):
+        opt = create_optimizer(name, warmup_schedule(1e-2, 1, 3, decay="cosine"))
+        p = {k: v.to(dev) for k, v in params.items()}
+        st = opt.init(p)
+        for g in grads:
+            u, st = opt.update({k: v.to(dev) for k, v in g.items()}, st, p)
+            p = apply_updates(p, u)
+        out.append(p)
+    for k in params:
+        _close(out[0][k], out[1][k].cpu(), 1e-5)

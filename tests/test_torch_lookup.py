@@ -1,13 +1,17 @@
-"""K6's plain twin (recman_tpu_torch/ops/segment_matmul.py) and the
-lookups' custom backward (recman_tpu_torch/ops/embedding.py) against the
-JAX package on the CPU.
+"""K6's and K7's plain twins (recman_tpu_torch/ops/segment_matmul.py) and
+the lookups' custom backward (recman_tpu_torch/ops/embedding.py) against
+the JAX package on the CPU.
 
-The reference side of K6 is ``_segment_matmul_from_sorted`` run in Pallas
-interpret mode; the lookups run under ``fused_grad(True)`` and the same
-``grad_kernel`` on both sides. Tolerance 1e-6 of the largest grad: both
-sides sum the same f32 cotangents per id in another order (the twin
-exactly, through float64 prefix sums); rows no id falls in are exactly 0
-on both.
+The reference side of K6 and K7 is ``_segment_matmul_from_sorted`` and
+``_segment_matmul_from_sorted_batched_vk`` run in Pallas interpret mode;
+the lookups run under ``fused_grad(True)`` and the same ``grad_kernel``
+(and ``SEGMAT_VK_OUT``) on both sides. Tolerance 1e-6 of the largest grad
+(K7's twin 1e-5: the interpreted kernel sums a tile's ids through f32
+one-hot products): both sides sum the same f32 cotangents per id in
+another order (the twin exactly, through float64 prefix sums); rows no id
+falls in are exactly 0 on both. xDeepFM under ``split_lookup("on")``
+against ``"off"``: the reference's own bounds (tests/test_ops.py), loss
+1e-6 relative, gradients 1e-4 relative and 1e-6 absolute.
 """
 
 import numpy as np
@@ -24,10 +28,10 @@ from recman_tpu_torch.ops import segment_matmul
 TOL = 1e-6
 
 
-def _close(got, ref):
+def _close(got, ref, tol=TOL):
     ref = np.asarray(ref)
     assert got.shape == ref.shape and got.dtype == np.float32
-    assert np.abs(got - ref).max() <= TOL * np.abs(ref).max()
+    assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
     np.testing.assert_array_equal(got == 0, ref == 0)
 
 
@@ -236,3 +240,173 @@ def test_the_route_is_fixed_when_the_forward_runs(monkeypatch):
     worker.join()
     assert len(calls) == 1 and calls[0] != threading.get_ident()
     assert table.grad[3].tolist() == [2.0] * 9 and table.grad[7].tolist() == [1.0] * 9
+
+
+# -- K7 and the split lookup ----------------------------------------------------
+
+K7_CASES = [  # (T, k_emb, n_vec, N, V)
+    (3, 4, 1, 70, 50),
+    (2, 16, 1, 300, 1001),   # the bench's k_emb and n_vec
+    (2, 5, 2, 129, 33),      # bias and w columns; N not a multiple of 8
+    (1, 3, 0, 40, 9),        # no vector columns
+]
+
+
+@pytest.mark.parametrize("t,k_emb,n_vec,n,v", K7_CASES)
+def test_k7_twin_matches_jax_interpret(t, k_emb, n_vec, n, v):
+    rs = np.random.RandomState(n + v)
+    ids = np.minimum(rs.zipf(1.3, (t, n)) - 1, v - 1)
+    ids[:, :3] = v - 1  # the last id, at a tile edge
+    sids = np.sort(ids, axis=1).astype(np.int32)
+    sg_t = rs.randn(t, k_emb + n_vec, n).astype(np.float32)
+    ref_emb, ref_vec = jax_emb._segment_matmul_from_sorted_batched_vk(
+        jnp.asarray(sids), jnp.asarray(sg_t), v, k_emb, n_vec, interpret=True)
+    before = segment_matmul.VK_LAUNCHES
+    emb, vec = segment_matmul.segment_matmul_from_sorted_batched_vk(
+        torch.from_numpy(sids), torch.from_numpy(sg_t), v, k_emb, n_vec)
+    assert segment_matmul.VK_LAUNCHES == before  # the CPU runs the twin
+    _close(emb.numpy(), ref_emb, 1e-5)
+    if n_vec:
+        _close(vec.numpy(), ref_vec, 1e-5)
+    assert vec.shape == (t, n_vec, v)
+    for i in range(t):
+        assert (emb[i, np.setdiff1d(np.arange(v), sids[i])] == 0).all()
+
+
+def _split_case(rs):
+    """Two same-shape (40, 5) tables, a singleton (25, 5), each with a w
+    column and a bias column, and 64 Zipf ids each."""
+    shapes = [(40, 5), (40, 5), (25, 5)]
+    tables = [rs.randn(*sh).astype(np.float32) for sh in shapes]
+    vecs = [tuple(rs.randn(sh[0]).astype(np.float32) for _ in range(2)) for sh in shapes]
+    ids = [np.minimum(rs.zipf(1.3, 64), sh[0] - 1) for sh in shapes]
+    cots = [rs.randn(64, 7).astype(np.float32) for _ in shapes]
+    return tables, vecs, ids, cots
+
+
+ROUTES = {"vk": ("segmat", True), "segmat": ("segmat", False), "scatter": ("scatter", False)}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_packed_lookup_grouped_matches_jax(route, monkeypatch):
+    """Rows and every table and vector gradient of the split lookup on
+    each backward route (K7's twin, K3's twin, per-table scatters) against
+    the reference's ``packed_lookup_grouped`` on the same route."""
+    kind, vk = ROUTES[route]
+    monkeypatch.setattr(jax_emb, "SEGMAT_VK_OUT", vk)
+    monkeypatch.setattr(torch_emb, "SEGMAT_VK_OUT", vk)
+    tables, vecs, ids, cots = _split_case(np.random.RandomState(21))
+
+    def jloss(ts, vs):
+        rows = jax_emb.packed_lookup_grouped(list(ts), list(vs), [jnp.asarray(i) for i in ids])
+        return sum(jnp.sum(r * c) for r, c in zip(rows, cots)), rows
+
+    with jax_emb.fused_grad(True), jax_emb.grad_kernel(kind):
+        (_, jrows), (gt, gv) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+            [jnp.asarray(t) for t in tables], [tuple(jnp.asarray(x) for x in v) for v in vecs])
+    ts = [torch.from_numpy(t).requires_grad_() for t in tables]
+    vs = [tuple(torch.from_numpy(x).requires_grad_() for x in v) for v in vecs]
+    calls = {"vk": 0, "segmat": 0}
+    for name, key in (("segment_matmul_from_sorted_batched_vk", "vk"),
+                      ("segment_matmul_from_sorted_batched", "segmat")):
+        real = getattr(torch_emb, name)
+        monkeypatch.setattr(torch_emb, name,
+                            lambda *a, _r=real, _k=key: calls.__setitem__(_k, calls[_k] + 1) or _r(*a))
+    with torch_emb.fused_grad(True), torch_emb.grad_kernel(kind):
+        rows = torch_emb.packed_lookup_grouped(ts, vs, [torch.from_numpy(i) for i in ids])
+    sum((r * torch.from_numpy(c)).sum() for r, c in zip(rows, cots)).backward()
+    assert calls == {"vk": int(route == "vk"), "segmat": int(route == "segmat")}
+    for r, jr, t in zip(rows, jrows, tables):
+        np.testing.assert_array_equal(r.detach().numpy(), np.asarray(jr))
+    for t, ref in zip(ts, gt):
+        _close(t.grad.numpy(), ref)
+    for v, refs in zip(vs, gv):
+        for x, ref in zip(v, refs):
+            _close(x.grad.numpy(), ref)
+
+
+@pytest.mark.parametrize("kind", ["segmat", "scatter"])
+def test_one_concat_stacked_lookup_matches_the_split_concat(kind):
+    """The one-concat stacked form (``packed_lookup_stacked`` over a (T, V,
+    k + 1) concat, ``STACKED_SPLIT_CONCAT = False``) gives the split-concat
+    form's rows and gradients, bit for bit, and the reference's."""
+    rs = np.random.RandomState(10)
+    t, v, k, n = 3, 30, 4, 50
+    stack = rs.randn(t, v, k).astype(np.float32)
+    w_cols = rs.randn(t, v).astype(np.float32)
+    ids = [rs.randint(0, v, n).astype(np.int32) for _ in range(t)]
+    cot = rs.randn(t, n, k + 1).astype(np.float32)
+
+    def jloss(s, w):
+        packed = jnp.concatenate([s, w[:, :, None]], axis=2)
+        rows = jax_emb.packed_lookup_stacked(packed, [jnp.asarray(i) for i in ids])
+        return sum(jnp.sum(r * c) for r, c in zip(rows, cot))
+
+    with jax_emb.fused_grad(True), jax_emb.grad_kernel(kind):
+        refs = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(stack), jnp.asarray(w_cols))
+    grads, all_rows = [], []
+    for one_concat in (True, False):
+        s_t = torch.from_numpy(stack.copy()).requires_grad_()
+        w_t = torch.from_numpy(w_cols.copy()).requires_grad_()
+        with torch_emb.grad_kernel(kind):
+            id_list = [torch.from_numpy(i) for i in ids]
+            if one_concat:
+                rows = torch_emb.packed_lookup_stacked(torch.cat([s_t, w_t[:, :, None]], 2), id_list)
+            else:
+                rows = torch_emb.packed_lookup_stacked_split(s_t, w_t, id_list)
+            sum((r * torch.from_numpy(c)).sum() for r, c in zip(rows, cot)).backward()
+        grads.append((s_t.grad, w_t.grad))
+        all_rows.append(torch.stack(rows).detach())
+    assert torch.equal(all_rows[0], all_rows[1])
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+    _close(grads[0][0].numpy(), refs[0])
+    _close(grads[0][1].numpy(), refs[1])
+
+
+@pytest.fixture
+def port_synthetic(synthetic_df):
+    """The reference's synthetic schema built with the port's features: two
+    same-shape sparse tables, a singleton and a multi-valued field."""
+    from recman_tpu_torch.features import FeatureSet, MultiValCsvFeat, SparseFeat
+    from recman_tpu_torch.models import XDeepFM
+
+    df = synthetic_df
+    fs = FeatureSet()
+    for name in ("USER_ID", "CLASS_ID", "CATEGORY"):
+        fs[name] = SparseFeat(name, feat_size=len(np.unique(df[name].values)))
+    fs["HISTORICAL_CATEGORIES"] = MultiValCsvFeat("HISTORICAL_CATEGORIES", tags=("a", "b", "c", "d"))
+    fs.initialize(df)
+    batch = {k: torch.as_tensor(v) for k, v in fs.transform(df, y=df["LABEL"].values).items()}
+    return XDeepFM(fs), batch
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_xdeepfm_split_lookup_matches_concat(port_synthetic, route, monkeypatch):
+    """The whole model's loss and gradients under ``split_lookup("on")``
+    against ``"off"``, as tests/test_ops.py holds the reference, on each
+    backward route of the split form."""
+    model, batch = port_synthetic
+    kind, vk = ROUTES[route]
+    monkeypatch.setattr(torch_emb, "SEGMAT_VK_OUT", vk)
+    params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    results = []
+    for mode in ("on", "off"):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        with torch_emb.fused_grad(True), torch_emb.grad_kernel(kind), torch_emb.split_lookup(mode):
+            loss = model.loss(leaves, batch, training=False)
+        loss.backward()
+        results.append((loss.item(), {k: v.grad for k, v in leaves.items()}))
+    (l_split, g_split), (l_concat, g_concat) = results
+    assert l_split == pytest.approx(l_concat, rel=1e-6)
+    for name in g_concat:
+        np.testing.assert_allclose(g_split[name].numpy(), g_concat[name].numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+
+
+def test_split_lookup_auto_is_off_as_in_the_reference():
+    assert not torch_emb.SPLIT_LOOKUP_AUTO_TPU and not torch_emb.SEGMAT_VK_OUT
+    assert not torch_emb._split_lookup_active("cpu")
+    with torch_emb.split_lookup("on"):
+        assert torch_emb._split_lookup_active("cpu")
+        with torch_emb.split_lookup("off"):
+            assert not torch_emb._split_lookup_active("cpu")

@@ -17,6 +17,10 @@ JAX package on the CPU.
   its gradient, so a gradient near 0 whose last bits differ (CIN's bf16
   roundings, sums in another order) can move a param the other way; more
   steps compound it.
+- The large-batch slice: ``Trainer.fit`` with ``large_batch_schedule``
+  (warmup from 0, then cosine) and Adam on a small Criteo-shaped set
+  against JAX's ``Trainer`` with the reference's schedule, the same
+  bounds; both examples of the slice end to end at a few hundred rows.
 """
 
 import sys
@@ -223,3 +227,109 @@ def test_example_runs_on_the_cpu(tmp_path):
                                   device="cpu")
     assert finder.best_model.device.type == "cpu"
     assert 0.0 < logloss < 1.0 and 0.0 < auc < 1.0
+
+
+# -- the large-batch slice ------------------------------------------------------
+
+LB_HP = {"embedding_size": 8, "cin_cross_layer_units": (8, 8), "cin_dropout": (1, 1, 1),
+         "deep_hidden_units": (16, 16), "deep_dropout": (1.0, 1.0, 1.0)}
+LB_ROWS, LB_BATCH = 600, 128
+
+
+def test_fit_with_large_batch_schedule_matches_jax_trainer():
+    """Warmup (2 steps from 0) then cosine over the epoch's 5 steps, the
+    learning rate linearly scaled from base batch 32, Adam; on the kernels'
+    route (the port's K1/K2/K3 twins, JAX's Pallas chain and segment sums
+    interpreted), where both sides round alike."""
+    from recman_tpu.data import create_criteo_features as jax_criteo_features
+    from recman_tpu.data import synthetic_criteo_arrays as jax_criteo_arrays
+    from recman_tpu.training import large_batch_schedule as jax_schedule
+    from recman_tpu_torch.data import create_criteo_features, synthetic_criteo_arrays
+    from recman_tpu_torch.training import large_batch_schedule
+
+    steps = LB_ROWS // LB_BATCH + 1
+    data_j = jax_criteo_arrays(LB_ROWS, num_buckets=50, seed=3)
+    data_t = synthetic_criteo_arrays(LB_ROWS, num_buckets=50, seed=3)
+    jhp = dict(LB_HP, learning_rate=jax_schedule(1e-3, LB_BATCH, 32, 2, steps))
+    jt = JaxTrainer(JaxXDeepFM(jax_criteo_features(num_buckets=50), jhp), jhp,
+                    metrics=(JaxLogLoss(),), epoch=1, batch_size=LB_BATCH, random_seed=2019)
+    params = {k: np.asarray(v) for k, v in jt.state.params.items()}
+    x_j = {k: v for k, v in data_j.items() if k != "y"}
+    with _contexts("kernels", jax_emb.fused_grad(True), jax_cin_interact.pallas_cin(True),
+                   jax_emb.grad_kernel("segmat")):
+        jt.fit(data_j, data_j["y"], random_seed_for_mini_batch=False)
+        jax_preds = jt.predict(x_j)
+    thp = dict(LB_HP, learning_rate=large_batch_schedule(1e-3, LB_BATCH, 32, 2, steps))
+    tt = Trainer(XDeepFM(create_criteo_features(num_buckets=50), thp), thp,
+                 metrics=(LogLoss(),), epoch=1, batch_size=LB_BATCH, random_seed=2019,
+                 device="cpu")
+    p = params_from_jax(params, device="cpu")
+    tt.state = tt.state._replace(params=p, opt_state=tt.optimizer.init(p))
+    with _contexts("kernels", torch_emb.fused_grad(True), torch_emb.grad_kernel("segmat")):
+        tt.fit(data_t, data_t["y"], random_seed_for_mini_batch=False)
+        preds = tt.predict({k: v for k, v in data_t.items() if k != "y"})
+    assert tt.state.step == steps and int(tt.state.opt_state.count) == steps
+    assert abs(tt.last_mean_loss - jt.last_mean_loss) <= LOSS_REL * abs(jt.last_mean_loss)
+    np.testing.assert_allclose(preds, jax_preds, rtol=0, atol=PRED_ABS)
+
+
+def test_trainer_takes_a_schedule_and_an_optimizer_object(ml, tmp_path, monkeypatch):
+    """``hparams["learning_rate"]`` may be a schedule and
+    ``hparams["optimizer"]`` an optimizer object, as in the reference; the
+    TensorBoard hparams registration takes both."""
+    from recman_tpu_torch.obs import TensorBoardLogger
+    from recman_tpu_torch.training import create_optimizer, warmup_schedule
+
+    schedule = warmup_schedule(1e-2, 2, 5, decay="cosine")
+    opt = create_optimizer("lamb", schedule)
+    trainer = _small_trainer(ml, hp={"learning_rate": schedule, "optimizer": opt})
+    assert trainer.optimizer is opt
+    for tbx in (True, False):
+        if not tbx:
+            monkeypatch.setitem(sys.modules, "tensorboardX", None)  # the JSONL fallback
+        tb = TensorBoardLogger(sess_num=0, log_dir=str(tmp_path / str(tbx)), run_name="run")
+        tb.configure_hparams(trainer.hparams, trainer.metrics)
+        tb.close()
+    _, xtr, ytr, _ = ml["port"]
+    trainer.fit(xtr, ytr, random_seed_for_mini_batch=False)
+    assert np.isfinite(trainer.last_mean_loss) and int(trainer.state.opt_state.count) == 5
+
+
+def test_criteo_large_batch_example_runs_on_the_cpu():
+    from recman_tpu_torch.examples.criteo_large_batch import main
+
+    trainer, (logloss, auc) = main(batch_size=LB_BATCH, rows=LB_ROWS, num_buckets=50,
+                                   device="cpu")
+    split = int(LB_ROWS * 0.95)
+    assert trainer.device.type == "cpu" and trainer.state.step == split // LB_BATCH + 1
+    assert callable(trainer.optimizer.learning_rate)
+    assert np.isfinite(logloss) and 0.0 <= auc <= 1.0
+
+
+def test_criteo_example_large_batch_recipe(monkeypatch):
+    """``large_batch=True``: batch 65,536 in place of the default 4096, a
+    sqrt-scaled peak from base batch 8192, warmup min(12, max(steps // 10,
+    1)) then cosine (recorded from the Trainer the example builds); then
+    end to end at a batch above 4096, which the recipe keeps."""
+    from recman_tpu_torch.examples import criteo_xdeepfm
+    from recman_tpu_torch.training import sqrt_scaled_lr, warmup_schedule
+
+    seen = {}
+
+    class Recording(Trainer):
+        def __init__(self, model, hparams, **kw):
+            seen.update(batch_size=kw["batch_size"], optimizer=hparams["optimizer"])
+            raise StopIteration
+
+    monkeypatch.setattr(criteo_xdeepfm, "Trainer", Recording)
+    with pytest.raises(StopIteration):
+        criteo_xdeepfm.main(rows=400, num_buckets=50, large_batch=True, device="cpu")
+    assert seen["batch_size"] == 65_536
+    ref = warmup_schedule(sqrt_scaled_lr(0.001, 65_536, 8192), 1, 1, decay="cosine")
+    assert [seen["optimizer"].learning_rate(c) for c in range(4)] == [ref(c) for c in range(4)]
+    monkeypatch.undo()
+    trainer, (logloss, auc) = criteo_xdeepfm.main(rows=400, num_buckets=50, batch_size=4608,
+                                                  embedding_size=8, large_batch=True,
+                                                  device="cpu")
+    assert trainer.batch_size == 4608 and trainer.state.step == 1
+    assert np.isfinite(logloss) and 0.0 <= auc <= 1.0

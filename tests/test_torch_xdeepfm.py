@@ -242,13 +242,16 @@ class TestScope:
             params_from_jax({"x": np.zeros(2, np.float32)})
 
     def test_training_raises(self, synthetic_df):
-        """Training is ported; what it does not take yet raises: an
-        optimizer other than Adam."""
+        """Training is ported with the reference's whole optimizer menu
+        (tests/test_torch_optim.py holds each to optax); a name outside it
+        raises, as in the reference."""
         from recman_tpu_torch.training import create_optimizer
 
-        for name in ("adagrad", "lamb", "rowwise_adam"):
-            with pytest.raises(NotImplementedError, match="not ported yet"):
-                create_optimizer(name, 1e-3)
+        for name in ("adam", "adam_bf16m", "adagrad", "gd", "sgd", "momentum", "lamb",
+                     "rowwise_adam"):
+            assert hasattr(create_optimizer(name, 1e-3), "update")
+        with pytest.raises(ValueError, match="unknown optimizer"):
+            create_optimizer("adadelta", 1e-3)
 
     def test_training_mode_with_unit_keeps_matches_eval(self, synthetic_df):
         """With every keep at 1, training=True gives the predictions of
