@@ -53,8 +53,9 @@ The kernels phase also holds K6 (segment_matmul.cu's row-major form)
 against its twin at ML-100K's genres geometry and at one Criteo table,
 and K4 (cin_interact_fwd.cu) and K5 (cin_interact_bwd.cu), one CIN
 layer's forward and backward, against their twins at the xDeepFM paper's
-Criteo layers (B 4096, D 10; layer 0 and layers 1-2) and at a small
-geometry with a tail tile; K5 must be bit-equal on two calls.
+Criteo layers (B 4096, D 10; layer 0, layers 1-2 and a final layer of
+257 maps) and at a small geometry with a tail tile; K4 and K5 must be
+bit-equal on two calls.
 
 6. the per-layer CIN path at ``xdeepfm_paper_criteo``, the xDeepFM paper's
    Criteo setting (arXiv:1803.05170 section 4.1.3): k 10, CIN (200, 200,
@@ -162,11 +163,14 @@ PARITY_STEPS = 8
 PARITY_PRED_ABS = 5e-3
 ANCHOR_LOGLOSS = (0.575, 0.615)  # bench.py:251
 ANCHOR_AUC = (0.718, 0.748)
-# K4 and K5 at the paper's Criteo layers (H0, Hk, O, B*D) and at a small
+# K4 and K5 at the paper's Criteo layers (H0, Hk, O, B*D), at the final
+# layer of 257 maps that the per-layer route sends them, and at a small
 # geometry with a tail tile (B*D neither a multiple of 128 nor of 4)
 INTERACT_GEOMETRIES = {"paper layer 0": (26, 26, 200, 4096 * 10),
                        "paper layers 1-2": (26, 100, 200, 4096 * 10),
+                       "final layer 257": (26, 100, 257, 4096 * 10),
                        "small tail": (7, 5, 9, 301)}
+INTERACT_RECORD = "paper layers 1-2"  # the geometry of the kernels line
 K4_TOL = 1e-3  # of max|ref|: same bf16 roundings of z and W, f32 sum order differs
 K5_TOL = 1e-3  # of max|ref| per output: the same, with g rounded to bf16
 # xdeepfm_paper_criteo: the xDeepFM paper's Criteo setting (section 4.1.3)
@@ -592,9 +596,9 @@ def interact_bound_ms(x0c, xkc, w, outs, passes):
 
 def phase_interact_kernels(device):
     """K4 and K5 against their twins at every geometry of
-    INTERACT_GEOMETRIES, K5 bit-equal on two calls; then timed at the
-    paper's layers beside the twins, their bounds and the library's
-    contraction alone. Returns the records of layers 1-2's shape."""
+    INTERACT_GEOMETRIES, K4 and K5 bit-equal on two calls; then timed at
+    the full-width geometries beside the twins, their bounds and the
+    library's contraction alone. Returns the records of INTERACT_RECORD."""
     import torch
 
     from recman_tpu_torch.ops import cin_interact
@@ -607,6 +611,7 @@ def phase_interact_kernels(device):
         w = (torch.randn((h0 * hk, o), generator=g) * (2.0 / (h0 * hk + o)) ** 0.5).to(device)
         cot = torch.randn((o, bd), generator=g).to(device)
         got = cin_interact.cin_interact_fwd(x0c, xkc, w)
+        got_again = cin_interact.cin_interact_fwd(x0c, xkc, w)
         grads = cin_interact.cin_interact_bwd(x0c, xkc, w, cot)
         again = cin_interact.cin_interact_bwd(x0c, xkc, w, cot)
         torch.cuda.synchronize()
@@ -614,11 +619,12 @@ def phase_interact_kernels(device):
         e4 = max_rel_err([ref], [got], K4_TOL, f"K4 {label}")
         ref_b = cin_interact.cin_interact_fm_bwd_reference(x0c, xkc, w, cot)
         e5 = max_rel_err(ref_b, grads, K5_TOL, f"K5 {label}")
+        check(torch.equal(got, got_again), f"K4 {label}: two calls differ")
         check(all(torch.equal(a, b) for a, b in zip(grads, again)), f"K5 {label}: two calls differ")
         log(f"K4/K5 vs plain [{label} H0={h0} Hk={hk} O={o} B*D={bd}]: max|d| {e4:.3e} / "
             f"{e5:.3e}; max|ref| pre {ref.abs().max().item():.4g}, dx0 "
             f"{ref_b[0].abs().max().item():.4g}, dxk {ref_b[1].abs().max().item():.4g}, dW "
-            f"{ref_b[2].abs().max().item():.4g}; K5 bit-equal on two calls")
+            f"{ref_b[2].abs().max().item():.4g}; K4 and K5 bit-equal on two calls")
         if label == "small tail":
             continue
         z = (x0c.to(torch.bfloat16)[:, None, :] * xkc.to(torch.bfloat16)[None, :, :]).reshape(
@@ -644,6 +650,8 @@ def phase_interact_kernels(device):
             f"(the two bf16 matmuls alone) {times['K5 library']:.4f} ms, bound {b5:.4f} ms "
             f"({by5}; {f5 / 1e9:.2f} GFLOP, {m5 / 1e6:.2f} MB), "
             f"{f5 / times['K5'] / 1e9:.1f} TFLOP/s achieved")
+        if label != INTERACT_RECORD:
+            continue
         rec["K4"] = {"max_abs_err": e4, "ms": times["K4"], "plain_ms": times["K4 plain"],
                      "bound_ms": b4, "bound_by": by4, "library_ms": times["K4 library"]}
         rec["K5"] = {"max_abs_err": e5, "ms": times["K5"], "plain_ms": times["K5 plain"],

@@ -1,4 +1,4 @@
-// K5: one CIN layer's interaction backward, field-major.
+// K5: one CIN layer's interaction backward, field-major, on the tensor cores.
 //
 // Replaces the TPU kernel recman_tpu/ops/cin_interact.py:_bwd_kernel
 // (launched from _pallas_bwd). Bound to PyTorch through a plain C
@@ -18,295 +18,423 @@
 // (H0 = 26, Hk = 100, O = 200, B*D = 40,960) u and dW each take 42.6
 // GFLOP of bf16 products, 85.2 GFLOP in all: 86 us at the 989 TFLOP/s
 // bf16 tensor-core peak. The bytes (g 32.8 MB, x0c and xkc in, dx0 and
-// dxk out, 41.0 MB, W and dW 4.2 MB) take 23 us at 3.35 TB/s.
+// dxk out, 41.0 MB, W and dW 4.2 MB) take 23 us at 3.35 TB/s. So both
+// products go to the tensor cores: mma.sync.m16n8k16 with bf16 operands
+// and f32 sums (tensor_core.cuh), operands staged with cp.async.
+// Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W: 0.70 ms at
+// that layer (122 TFLOP/s), phase 1 0.41 ms of it. What holds
+// it above the bound is shared memory and latency, not the tensor pipe:
+// mma.sync takes both operands from registers, so every fragment is
+// ldmatrix'ed (phase 1: W_h by each of the 8 column groups, about 0.65
+// ldmatrix.x4 a product), and a warp's loads and products of a k-step
+// run in order. wgmma, reading B from shared memory, is the next step.
 //
-// Design (simple and deterministic first; tensor cores are later work),
-// K2's phases with one layer:
-// - The TPU kernel carries dW in VMEM across its sequential grid. Blocks
-//   on the card run in no order, so the work splits into phases with no
-//   atomics, each sum in a fixed order, and two calls are bit-equal:
-//   1. cin_interact_bwd_cols: everything except dW is local to a column.
-//      A block owns 128 columns: it stages bf16(g) (O x 128) and xk
-//      (Hk x 128) in shared memory and writes bf16(g) transposed, (B*D,
-//      O_pad), for phase 2. u for the whole layer is X x 128 f32, too big
-//      for shared memory, so it is formed one field h at a time (Hk rows,
-//      W walked in chunks of maps sized to fit) and folded at once into
-//      dx0[h] (an in-order sum over the warps) and the dxk registers.
-//      Warp w owns rows [8w, 8w+8) of u and of dxk, each lane 4
-//      consecutive columns.
-//   2. cin_interact_bwd_dw: dW = z . gb^T over all B*D columns. A block
-//      owns 128 rows and 128 maps of dW and one split of the columns; it
-//      rebuilds its z rows from x0 and xk, 64 columns at a time, and
-//      writes a partial dW per split.
-//   3. cin_interact_bwd_reduce: dW = the sum of the split partials, in
-//      split order.
-// - The products run on the CUDA cores in f32. Every product is of two
-//   bf16 values, or an f32 product the reference also forms in f32, so
-//   only the order of the f32 sums differs from the plain version.
-// - Columns past B*D (the tail tile) read 0 and are not stored.
+// Design. The TPU kernel carries dW in VMEM across its sequential grid.
+// Blocks on the card run in no order, so the work splits into three
+// launches with no atomics, each sum in a fixed order, and two calls are
+// bit-equal:
+// 1. cin_interact_bwd_cols: everything but dW is local to a column. A
+//    block owns 128 columns and runs 16 warps: 8 groups of 16 columns,
+//    each split in two halves of Hk's n8 tiles, so that u, dxk and xk of a
+//    thread fit its 128 registers. The block stages bf16(g) for its
+//    columns once (O x 128 bf16, 51 KB at O 200, 131 KB at O 512) and
+//    writes it, bf16(x0) and bf16(xk) to a (O + H0 + Hk, B*D rounded up to
+//    64) bf16 scratch for phase 2. For each field h it forms u_h^T
+//    (columns x Hk8) = gb^T (columns x O16) . W_h^T (O16 x Hk8): M the
+//    columns, N = Hk rounded up to 8, K = O rounded up to 16. A (gb^T)
+//    comes from the staged g through ldmatrix.trans; B (W_h) streams
+//    through a 3-stage cp.async ring of the wrapper's layout Wp[h*Hk8 +
+//    m][o] = bf16(W[h*Hk+m, o]), a whole field a stage where shared memory
+//    allows (O 200 at Hk 100), else the widest slice of a multiple of 64
+//    maps that fits. A k-step loads
+//    all its fragments before its products, so the loads overlap. The fold
+//    runs on the accumulator fragments, in f32: dx0[h, n] is an in-thread
+//    sum over the thread's m, a shuffle sum over the 4 threads that share
+//    the column, and the sum of the two halves' partials in shared memory,
+//    in that order; dxk[m, n] += u * x0[h, n] stays in registers, in the
+//    same fragment layout, across every h and is stored once.
+// 2. cin_interact_bwd_dw: dW = z . gb^T. M = the X rows of dW, N = the
+//    maps, K = B*D. A block owns 128 rows x 128 maps and one split of the
+//    columns; 8 warps as 4 (rows) x 2 (maps), each 32 x 64. Each 64-column
+//    slice of the x0 rows its z rows need, of xk, and of gb's 128 maps
+//    streams through a 3-stage cp.async ring; every thread builds its A
+//    fragment of z in registers from two 32-bit loads and one bf16x2
+//    multiply, with its rows' (h, m) offsets computed once per block (no
+//    divide in the loop); B comes through ldmatrix. Each split writes its
+//    own partial dW.
+// 3. cin_interact_bwd_reduce: dW = the sum of the split partials, in
+//    split order.
+// - Padding reads zero: W's rows past Hk and maps past O, g's maps past O
+//   and columns past B*D, the scratch's columns past B*D. Rows and maps
+//   past X and O and columns past B*D are not stored.
 //
 // Geometry taken (the wrapper checks and raises outside it): any H0 >= 1
 // and B*D >= 1, 1 <= Hk <= 128, 1 <= O <= 512.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kTileN = 128;   // B*D columns per block of phase 1
-constexpr int kRows = 8;      // rows of u per warp
-constexpr int kMinWarps = 4;
-constexpr int kGStride = 132; // bf16 per gb row in shared memory
-constexpr int kTileR = 128;   // dW rows per block of phase 2
-constexpr int kChunk = 64;    // columns per step of phase 2
-constexpr int kStage = kChunk + 1;
-constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+constexpr int kThreads = 256;
+constexpr int kStages = 3;
+constexpr int kSlice = 64;           // phase 2's columns a stage; phase 1's W slices are multiples
+constexpr int kStride = kSlice + 8;  // bf16 per staged row of phase 2: 144 B, ldmatrix without conflicts
+// phase 1
+constexpr int kCols = 128;           // B*D columns per block
+constexpr int kColsThreads = 512;    // 16 warps: 8 groups of 16 columns x 2 halves of Hk
+constexpr int kGStride = kCols + 8;  // bf16 per staged gb row
+// phase 2
+constexpr int kDwRows = 128;         // dW rows per block
+constexpr int kDwMaps = 128;         // dW maps per block
+constexpr int kMaxSmem = 232448;     // bytes of shared memory a block may use
+
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 struct ColsArgs {
   const float* x0;             // (h0, bd) f32
   const float* xk;             // (hk, bd) f32
-  const __nv_bfloat16* wt;     // (h0, o, hk_pad) bf16: [h][o][m] = W[h*hk+m, o]
+  const __nv_bfloat16* wp;     // (h0*hk8, o64) bf16: [h*hk8 + m][o] = bf16(W[h*hk+m, o])
   const float* g;              // (o, bd) f32
-  __nv_bfloat16* gt;           // (bd, o_pad) bf16: bf16(g) transposed
+  __nv_bfloat16* gb;           // (o, bdp) bf16 scratch: bf16(g)
+  __nv_bfloat16* x0b;          // (h0, bdp) bf16 scratch: bf16(x0)
+  __nv_bfloat16* xkb;          // (hk, bdp) bf16 scratch: bf16(xk)
   float* dx0;                  // (h0, bd) f32
   float* dxk;                  // (hk, bd) f32
-  int h0, hk, hk_pad, o, o_pad, bd, nwarps, o_chunk;
+  int h0, hk, hk8, o, o16, o64, bd, bdp;
+  int sw;                      // maps per W slice of the ring, a multiple of 64
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// 4 consecutive f32 of a row from column col, 0 past bd.
-__device__ __forceinline__ float4 load4(const float* row, int col, int bd) {
-  if ((bd & 3) == 0 && col + 3 < bd) return *reinterpret_cast<const float4*>(row + col);
-  return make_float4(col < bd ? row[col] : 0.f, col + 1 < bd ? row[col + 1] : 0.f,
-                     col + 2 < bd ? row[col + 2] : 0.f, col + 3 < bd ? row[col + 3] : 0.f);
-}
-
-__device__ __forceinline__ void store4(float* row, int col, int bd, float4 v) {
-  if ((bd & 3) == 0 && col + 3 < bd) {
-    *reinterpret_cast<float4*>(row + col) = v;
-    return;
-  }
-  if (col < bd) row[col] = v.x;
-  if (col + 1 < bd) row[col + 1] = v.y;
-  if (col + 2 < bd) row[col + 2] = v.z;
-  if (col + 3 < bd) row[col + 3] = v.w;
-}
-
-__global__ void __launch_bounds__(512) cin_interact_bwd_cols(const ColsArgs a) {
-  extern __shared__ float4 smem4[];
-  float* xks = reinterpret_cast<float*>(smem4);  // hk x 128, f32
-  float* red = xks + a.hk * kTileN;              // nwarps x 128: partial dx0 sums
-  __nv_bfloat16* wts =                           // o_chunk x hk_pad: a chunk of one field's W
-      reinterpret_cast<__nv_bfloat16*>(red + a.nwarps * kTileN);
-  __nv_bfloat16* gps = wts + a.o_chunk * a.hk_pad;  // o x kGStride: bf16(g)
+// NTW: n8 tiles of u a warp holds, at least half of hk8 / 8
+template <int NTW>
+__global__ void __launch_bounds__(kColsThreads, 1) cin_interact_bwd_cols(const ColsArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem);  // o16 x kGStride: gb[o][n]
+  float* red = reinterpret_cast<float*>(gs + a.o16 * kGStride);  // 2 x 2 x kCols: dx0 halves
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(red + 4 * kCols);  // kStages x hk8 x ws_stride
 
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n0 = lane * 4;
-  const int col0 = blockIdx.x * kTileN;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int col0 = blockIdx.x * kCols;
+  const int nt = a.hk8 / 8;
+  const int noc = (a.o16 + a.sw - 1) / a.sw;  // W slices per field
+  const int items = a.h0 * noc;
+  const int ws_stride = a.sw + 8;             // 16 mod 128 bytes: ldmatrix without conflicts
+  const int stage_elems = a.hk8 * ws_stride;
 
-  for (int i = tid; i < a.o * kTileN; i += nthreads) {
-    const int r = i >> 7, n = i & (kTileN - 1), col = col0 + n;
-    gps[r * kGStride + n] = __float2bfloat16_rn(col < a.bd ? a.g[(size_t)r * a.bd + col] : 0.0f);
+  auto load_w = [&](int t) {
+    const int h = t / noc, oc = t - h * noc;
+    const int pieces = min(a.sw, a.o16 - oc * a.sw) / 8;  // 16 B pieces of a row
+    __nv_bfloat16* dst = ring + (t % kStages) * stage_elems;
+    const __nv_bfloat16* src = a.wp + (size_t)h * a.hk8 * a.o64 + oc * a.sw;
+    for (int i = tid; i < a.hk8 * pieces; i += kColsThreads) {
+      const int r = i / pieces, p = (i - r * pieces) * 8;
+      tc::cp_async16(dst + r * ws_stride + p, src + (size_t)r * a.o64 + p);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < items) load_w(s);
+    tc::cp_async_commit();
   }
-  for (int i = tid; i < a.hk * kTileN; i += nthreads) {
-    const int m = i >> 7, n = i & (kTileN - 1), col = col0 + n;
-    xks[i] = col < a.bd ? a.xk[(size_t)m * a.bd + col] : 0.0f;
+
+  // bf16 copies: g to shared memory and the scratch, x0 and xk to the
+  // scratch; zero past O and B*D. Each thread keeps 4 loads of 16 bytes in
+  // flight before it stores.
+  const int g_quads = a.o16 * (kCols / 4);
+  for (int i0 = tid; i0 < g_quads; i0 += 4 * kColsThreads) {
+    float4 v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + e * kColsThreads, r = i >> 5;
+      v[e] = i < g_quads && r < a.o ? tc::load4(a.g + (size_t)r * a.bd, col0 + (i & 31) * 4, a.bd)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + e * kColsThreads, r = i >> 5, n = (i & 31) * 4;
+      if (i >= g_quads) break;
+      const uint2 b = tc::pack_bf16x4(v[e]);
+      *reinterpret_cast<uint2*>(gs + r * kGStride + n) = b;
+      if (r < a.o && col0 + n < a.bdp)
+        *reinterpret_cast<uint2*>(a.gb + (size_t)r * a.bdp + col0 + n) = b;
+    }
+  }
+  const int x_quads = (a.h0 + a.hk) * (kCols / 4);
+  for (int i0 = tid; i0 < x_quads; i0 += 4 * kColsThreads) {
+    float4 v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + e * kColsThreads, r = i >> 5;
+      const float* row = r < a.h0 ? a.x0 + (size_t)r * a.bd : a.xk + (size_t)(r - a.h0) * a.bd;
+      v[e] = i < x_quads ? tc::load4(row, col0 + (i & 31) * 4, a.bd)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + e * kColsThreads, r = i >> 5, col = col0 + (i & 31) * 4;
+      if (i >= x_quads) break;
+      if (col >= a.bdp) continue;
+      __nv_bfloat16* row = r < a.h0 ? a.x0b + (size_t)r * a.bdp : a.xkb + (size_t)(r - a.h0) * a.bdp;
+      *reinterpret_cast<uint2*>(row + col) = tc::pack_bf16x4(v[e]);
+    }
+  }
+
+  // warp = (half, column group): 16 columns, rows g and g + 8 of its
+  // fragments; half 0 holds u's n8 tiles [0, t0), half 1 [t0, nt)
+  const int half = warp >> 3;
+  const int wc = (warp & 7) * 16;
+  const int t0 = (nt + 1) / 2;
+  const int j0 = half ? t0 : 0;
+  const int ntw = half ? nt - t0 : t0;
+  const int ca = col0 + wc + g, cb = ca + 8;
+  const bool va = ca < a.bd, vb = cb < a.bd;
+  float xkr[NTW][4], dxk[NTW][4], u[NTW][4];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+    const int m = 8 * (j0 + j) + 2 * q;
+    const bool on = j < ntw;
+    xkr[j][0] = on && va && m < a.hk ? a.xk[(size_t)m * a.bd + ca] : 0.0f;
+    xkr[j][1] = on && va && m + 1 < a.hk ? a.xk[(size_t)(m + 1) * a.bd + ca] : 0.0f;
+    xkr[j][2] = on && vb && m < a.hk ? a.xk[(size_t)m * a.bd + cb] : 0.0f;
+    xkr[j][3] = on && vb && m + 1 < a.hk ? a.xk[(size_t)(m + 1) * a.bd + cb] : 0.0f;
+    dxk[j][0] = dxk[j][1] = dxk[j][2] = dxk[j][3] = 0.0f;
+  }
+  // ldmatrix addresses. A (.trans from gs[o][n]): lane l gives row o = 8 *
+  // (l / 16) + l % 8 and column 8 * ((l / 8) % 2) of the warp's 16. B (from
+  // the staged W_h[m][o]): row m = 8 * (l / 16) + l % 8, column 8 * ((l / 8) % 2).
+  const __nv_bfloat16* a_src = gs + (((lane >> 4) << 3) + (lane & 7)) * kGStride + wc +
+                               ((lane >> 3) & 1) * 8;
+  const int b_off = (8 * j0 + ((lane >> 4) << 3) + (lane & 7)) * ws_stride + ((lane >> 3) & 1) * 8;
+  const int b_off2 = (8 * j0 + (lane & 7)) * ws_stride + ((lane >> 3) & 1) * 8;  // the .x2 form
+  // dx0[h] = half 0's partial + half 1's, summed by half 0 once both are in
+  // red[h % 2] (after the next barrier)
+  auto dx0_store = [&](int h) {
+    if (half != 0 || q != 0) return;
+    const float* r = red + (h & 1) * 2 * kCols;
+    if (va) a.dx0[(size_t)h * a.bd + ca] = r[wc + g] + r[kCols + wc + g];
+    if (vb) a.dx0[(size_t)h * a.bd + cb] = r[wc + g + 8] + r[kCols + wc + g + 8];
+  };
+
+  int t = 0;
+  for (int h = 0; h < a.h0; ++h) {
+    const float x0_a = va ? a.x0[(size_t)h * a.bd + ca] : 0.0f;
+    const float x0_b = vb ? a.x0[(size_t)h * a.bd + cb] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) u[j][0] = u[j][1] = u[j][2] = u[j][3] = 0.0f;
+    for (int oc = 0; oc < noc; ++oc, ++t) {
+      tc::cp_async_wait<kStages - 2>();
+      __syncthreads();  // item t has landed; the stage item t - 1 used is free
+      if (oc == 0 && h > 0) dx0_store(h - 1);
+      if (t + kStages - 1 < items) load_w(t + kStages - 1);
+      tc::cp_async_commit();
+      const __nv_bfloat16* ws = ring + (t % kStages) * stage_elems;
+      const int steps = min(a.sw, a.o16 - oc * a.sw) / 16;
+      // every fragment of a k-step first, then its products: the loads
+      // overlap, and the tensor pipe gets the products back to back
+      auto load = [&](int ks, uint32_t (&af)[4], uint32_t (&bf)[NTW][2]) {
+        tc::ldmatrix_x4_trans(af, a_src + (oc * a.sw + ks * 16) * kGStride);
+#pragma unroll
+        for (int j = 0; j < NTW; j += 2) {
+          if (j + 1 < NTW && j + 1 < ntw) {
+            uint32_t r[4];
+            tc::ldmatrix_x4(r, ws + j * 8 * ws_stride + b_off + ks * 16);
+            bf[j][0] = r[0];
+            bf[j][1] = r[1];
+            bf[j + 1][0] = r[2];
+            bf[j + 1][1] = r[3];
+          } else if (j < ntw) {
+            tc::ldmatrix_x2(bf[j], ws + j * 8 * ws_stride + b_off2 + ks * 16);
+          }
+        }
+      };
+      auto products = [&](const uint32_t (&af)[4], const uint32_t (&bf)[NTW][2]) {
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+          if (j < ntw) tc::mma_bf16(u[j], af, bf[j]);
+      };
+      for (int ks = 0; ks < steps; ++ks) {
+        uint32_t af[4], bf[NTW][2];
+        load(ks, af, bf);
+        products(af, bf);
+      }
+    }
+    // fold field h: dx0 over m, dxk across h
+    float pa = 0.0f, pb = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      pa = fmaf(u[j][0], xkr[j][0], pa);
+      pa = fmaf(u[j][1], xkr[j][1], pa);
+      pb = fmaf(u[j][2], xkr[j][2], pb);
+      pb = fmaf(u[j][3], xkr[j][3], pb);
+      dxk[j][0] = fmaf(u[j][0], x0_a, dxk[j][0]);
+      dxk[j][1] = fmaf(u[j][1], x0_a, dxk[j][1]);
+      dxk[j][2] = fmaf(u[j][2], x0_b, dxk[j][2]);
+      dxk[j][3] = fmaf(u[j][3], x0_b, dxk[j][3]);
+    }
+    // the 4 threads of a column hold its 4 sets of m: a + b is b + a, so
+    // every lane gets the same bits
+    pa += __shfl_xor_sync(0xffffffffu, pa, 1);
+    pa += __shfl_xor_sync(0xffffffffu, pa, 2);
+    pb += __shfl_xor_sync(0xffffffffu, pb, 1);
+    pb += __shfl_xor_sync(0xffffffffu, pb, 2);
+    if (q == 0) {
+      float* r = red + (h & 1) * 2 * kCols + half * kCols;
+      r[wc + g] = pa;
+      r[wc + g + 8] = pb;
+    }
   }
   __syncthreads();
-
-  // bf16(g) transposed to (bd, o_pad) for the dW phase, padding maps 0
-  for (int i = tid; i < kTileN * (a.o_pad / 2); i += nthreads) {
-    const int n = i / (a.o_pad / 2), r = (i % (a.o_pad / 2)) * 2;
-    if (col0 + n >= a.bd) continue;
-    const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-    __nv_bfloat162 v;
-    v.x = r < a.o ? gps[r * kGStride + n] : zero;
-    v.y = r + 1 < a.o ? gps[(r + 1) * kGStride + n] : zero;
-    *reinterpret_cast<__nv_bfloat162*>(a.gt + (size_t)(col0 + n) * a.o_pad + r) = v;
-  }
-
-  const int m0 = warp * kRows;
-  const bool active = m0 < a.hk;                // warp-uniform
-  const int nact = (a.hk + kRows - 1) / kRows;  // warps that own rows
-  float dxk[kRows][4];
+  dx0_store(a.h0 - 1);
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) dxk[j][0] = dxk[j][1] = dxk[j][2] = dxk[j][3] = 0.0f;
-
-  for (int h = 0; h < a.h0; ++h) {
-    float acc[kRows][4];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-    for (int oc0 = 0; oc0 < a.o; oc0 += a.o_chunk) {
-      const int oc = min(a.o_chunk, a.o - oc0);
-      __syncthreads();  // the previous W chunk and the partial sums are consumed
-      const uint4* wsrc =
-          reinterpret_cast<const uint4*>(a.wt + ((size_t)h * a.o + oc0) * a.hk_pad);
-      uint4* wdst = reinterpret_cast<uint4*>(wts);
-      for (int i = tid; i < oc * a.hk_pad / 8; i += nthreads) wdst[i] = __ldg(wsrc + i);
-      __syncthreads();
-      if (active) {
-#pragma unroll 2
-        for (int r = 0; r < oc; ++r) {
-          const uint2 gu = *reinterpret_cast<const uint2*>(gps + (oc0 + r) * kGStride + n0);
-          const float gv[4] = {__uint_as_float(gu.x << 16), __uint_as_float(gu.x & 0xffff0000u),
-                               __uint_as_float(gu.y << 16), __uint_as_float(gu.y & 0xffff0000u)};
-          const uint4 wu = *reinterpret_cast<const uint4*>(wts + r * a.hk_pad + m0);
-          const float wv[kRows] = {
-              __uint_as_float(wu.x << 16), __uint_as_float(wu.x & 0xffff0000u),
-              __uint_as_float(wu.y << 16), __uint_as_float(wu.y & 0xffff0000u),
-              __uint_as_float(wu.z << 16), __uint_as_float(wu.z & 0xffff0000u),
-              __uint_as_float(wu.w << 16), __uint_as_float(wu.w & 0xffff0000u)};
-#pragma unroll
-          for (int j = 0; j < kRows; ++j) {
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[j][c] = fmaf(wv[j], gv[c], acc[j][c]);
-          }
-        }
-      }
+  for (int j = 0; j < NTW; ++j) {
+    const int m = 8 * (j0 + j) + 2 * q;
+    if (j >= ntw) break;
+    if (m < a.hk) {
+      if (va) a.dxk[(size_t)m * a.bd + ca] = dxk[j][0];
+      if (vb) a.dxk[(size_t)m * a.bd + cb] = dxk[j][2];
     }
-    if (active) {
-      // fold u's rows for field h into dxk (times x0[h]) and dx0[h] (times xk)
-      const float4 xv = load4(a.x0 + (size_t)h * a.bd, col0 + n0, a.bd);
-      const float x0v[4] = {xv.x, xv.y, xv.z, xv.w};
-      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        const int m = m0 + j;
-        if (m < a.hk) {
-          const float4 kv = *reinterpret_cast<const float4*>(xks + m * kTileN + n0);
-          const float xkv[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            dxk[j][c] = fmaf(acc[j][c], x0v[c], dxk[j][c]);
-            part[c] = fmaf(acc[j][c], xkv[c], part[c]);
-          }
-        }
-      }
-      *reinterpret_cast<float4*>(red + warp * kTileN + n0) =
-          make_float4(part[0], part[1], part[2], part[3]);
+    if (m + 1 < a.hk) {
+      if (va) a.dxk[(size_t)(m + 1) * a.bd + ca] = dxk[j][1];
+      if (vb) a.dxk[(size_t)(m + 1) * a.bd + cb] = dxk[j][3];
     }
-    __syncthreads();
-    for (int i = tid; i < kTileN; i += nthreads) {
-      float s = 0.0f;
-      for (int w = 0; w < nact; ++w) s += red[w * kTileN + i];
-      if (col0 + i < a.bd) a.dx0[(size_t)h * a.bd + col0 + i] = s;
-    }
-  }
-  if (!active) return;
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    const int m = m0 + j;
-    if (m >= a.hk) break;
-    store4(a.dxk + (size_t)m * a.bd, col0 + n0, a.bd,
-           make_float4(dxk[j][0], dxk[j][1], dxk[j][2], dxk[j][3]));
   }
 }
 
 struct DwArgs {
-  const float* x0;              // (h0, bd) f32
-  const float* xk;              // (hk, bd) f32
-  const __nv_bfloat16* gt;      // (bd, o_pad) bf16
-  float* pdw;                   // (splits, h0*hk, o) f32
-  int h0, hk, o, o_pad, bd, splits;
+  const __nv_bfloat16* x0b;    // (h0, bdp) bf16
+  const __nv_bfloat16* xkb;    // (hk, bdp) bf16
+  const __nv_bfloat16* gb;     // (o, bdp) bf16
+  float* pdw;                  // (splits, h0*hk, o) f32
+  int h0, hk, o, bdp, splits, nh_max;
 };
 
-__global__ void __launch_bounds__(256) cin_interact_bwd_dw(const DwArgs a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* zs = smem;                       // kChunk x kTileR: z[n][r]
-  float* gs = zs + kChunk * kTileR;       // kChunk x 128:    gb[n][o_base + o]
-  float* stage = gs + kChunk * kTileR;    // (nh + hk) x kStage: bf16(x0), bf16(xk)
+__global__ void __launch_bounds__(kThreads, 2) cin_interact_bwd_dw(const DwArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // a stage: x0 rows [0, nh_max), xk rows [nh_max, nh_max + hk), gb rows
+  // [nh_max + hk, nh_max + hk + 128), each kSlice columns
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int stage_elems = (a.nh_max + a.hk + kDwMaps) * kStride;
+  const int xk_row0 = a.nh_max, gb_row0 = a.nh_max + a.hk;
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
   const int k_rows = a.h0 * a.hk;
-  const int r_base = blockIdx.x * kTileR;
-  const int o_base = blockIdx.z * 128;
+  const int r_base = blockIdx.x * kDwRows;
+  const int o_base = blockIdx.z * kDwMaps;
   const int h_lo = r_base / a.hk;
-  const int h_hi = min(a.h0 - 1, (r_base + kTileR - 1) / a.hk);
-  const int nh = h_hi - h_lo + 1;
-  const int nchunks = (a.bd + kChunk - 1) / kChunk;
+  const int r_last = min(r_base + kDwRows, k_rows) - 1;
+  const int nh = r_last / a.hk - h_lo + 1;
+  const int nchunks = a.bdp / kSlice;
   const int c_begin = (int)((long long)nchunks * blockIdx.y / a.splits);
   const int c_end = (int)((long long)nchunks * (blockIdx.y + 1) / a.splits);
+  const int nc = c_end - c_begin;
 
-  // this thread's z row, fixed for the whole block
-  const int zr = tid & (kTileR - 1);
-  const int rr = r_base + zr;
-  const bool zvalid = rr < k_rows;
-  const int zh = zvalid ? rr / a.hk - h_lo : 0;
-  const int zm = zvalid ? rr % a.hk : 0;
-
-  // this thread's 8 x 8 outputs: rows {4rg..4rg+3, 64+4rg..}, maps {4og.., 64+4og..}
-  const int rg = tid >> 4, og = tid & 15;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int ch = c_begin; ch < c_end; ++ch) {
-    const int c0 = ch * kChunk;
-    __syncthreads();  // the previous chunk's tiles are consumed
-    for (int i = tid; i < (nh + a.hk) * kChunk; i += blockDim.x) {
-      const int row = i / kChunk, n = i % kChunk, col = c0 + n;
-      float v = 0.0f;
-      if (col < a.bd)
-        v = row < nh ? a.x0[(size_t)(h_lo + row) * a.bd + col]
-                     : a.xk[(size_t)(row - nh) * a.bd + col];
-      stage[row * kStage + n] = bf16_round(v);
-    }
-    for (int i = tid; i < kChunk * 16; i += blockDim.x) {
-      const int n = i / 16, q = (i % 16) * 8;
-      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-      if (c0 + n < a.bd && o_base + q < a.o_pad) {
-        const uint4 u = __ldg(reinterpret_cast<const uint4*>(
-            a.gt + (size_t)(c0 + n) * a.o_pad + o_base + q));
-        lo = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                         __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-        hi = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
-                         __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
+  auto load = [&](int i_c) {
+    const int col = (c_begin + i_c) * kSlice;
+    __nv_bfloat16* dst = ring + (i_c % kStages) * stage_elems;
+    const int rows = nh + a.hk + kDwMaps;
+    for (int i = tid; i < rows * 8; i += kThreads) {
+      const int rr = i >> 3, p = (i & 7) * 8;
+      if (rr < nh) {
+        tc::cp_async16(dst + rr * kStride + p, a.x0b + (size_t)(h_lo + rr) * a.bdp + col + p);
+      } else if (rr < nh + a.hk) {
+        const int m = rr - nh;
+        tc::cp_async16(dst + (xk_row0 + m) * kStride + p, a.xkb + (size_t)m * a.bdp + col + p);
+      } else {
+        const int r = rr - nh - a.hk, o = o_base + r;
+        tc::cp_async16(dst + (gb_row0 + r) * kStride + p,
+                       a.gb + (size_t)(o < a.o ? o : 0) * a.bdp + col + p, o < a.o ? 16 : 0);
       }
-      *reinterpret_cast<float4*>(gs + n * kTileR + q) = lo;
-      *reinterpret_cast<float4*>(gs + n * kTileR + q + 4) = hi;
     }
-    __syncthreads();
-    for (int n = tid >> 7; n < kChunk; n += 2)
-      zs[n * kTileR + zr] = zvalid
-          ? bf16_round(stage[zh * kStage + n] * stage[(nh + zm) * kStage + n])
-          : 0.0f;
-    __syncthreads();
-#pragma unroll 2
-    for (int n = 0; n < kChunk; ++n) {
-      const float4 za = *reinterpret_cast<const float4*>(zs + n * kTileR + rg * 4);
-      const float4 zb = *reinterpret_cast<const float4*>(zs + n * kTileR + 64 + rg * 4);
-      const float4 ga = *reinterpret_cast<const float4*>(gs + n * kTileR + og * 4);
-      const float4 gb = *reinterpret_cast<const float4*>(gs + n * kTileR + 64 + og * 4);
-      const float zv[8] = {za.x, za.y, za.z, za.w, zb.x, zb.y, zb.z, zb.w};
-      const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+  };
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nc) load(s);
+    tc::cp_async_commit();
+  }
+
+  // the thread's z rows r_base + wm*32 + 16i + 8e + g: offsets of their x0
+  // and xk rows in a stage (rows past X read row 0 and are not stored)
+  int zx0[2][2], zxk[2][2];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(zv[i], gv[j], acc[i][j]);
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = r_base + wm * 32 + 16 * i + 8 * e + g;
+      const int h = r < k_rows ? r / a.hk : h_lo, m = r < k_rows ? r - h * a.hk : 0;
+      zx0[i][e] = (h - h_lo) * kStride + 2 * q;
+      zxk[i][e] = (xk_row0 + m) * kStride + 2 * q;
+    }
+  // n8 tiles of this warp that hold a map below O (warp-uniform)
+  int ntv = (a.o - o_base - wn * 64 + 7) / 8;
+  ntv = ntv < 0 ? 0 : (ntv > 8 ? 8 : ntv);
+  const int b_off = (gb_row0 + wn * 64 + ((lane >> 4) << 3) + (lane & 7)) * kStride +
+                    ((lane >> 3) & 1) * 8;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+
+  for (int i_c = 0; i_c < nc; ++i_c) {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice i_c has landed; the stage slice i_c - 1 used is free
+    if (i_c + kStages - 1 < nc) load(i_c + kStages - 1);
+    tc::cp_async_commit();
+    const __nv_bfloat16* st = ring + (i_c % kStages) * stage_elems;
+    if (ntv == 0) continue;
+#pragma unroll
+    for (int ks = 0; ks < kSlice / 16; ++ks) {
+      const int k = ks * 16;
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            af[i][2 * kh + e] =
+                tc::mul_bf16x2(*reinterpret_cast<const uint32_t*>(st + zx0[i][e] + k + 8 * kh),
+                               *reinterpret_cast<const uint32_t*>(st + zxk[i][e] + k + 8 * kh));
+      uint32_t bf[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        if (j < ntv) {
+          uint32_t r[4];
+          tc::ldmatrix_x4(r, st + b_off + j * 8 * kStride + k);
+          bf[j][0] = r[0];
+          bf[j][1] = r[1];
+          bf[j + 1][0] = r[2];
+          bf[j + 1][1] = r[3];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < ntv)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) tc::mma_bf16(acc[i][j], af[i], bf[j]);
     }
   }
+  tc::cp_async_wait<0>();
 
   float* dst = a.pdw + (size_t)blockIdx.y * k_rows * a.o;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = r_base + (i < 4 ? rg * 4 + i : 64 + rg * 4 + i - 4);
-    if (r >= k_rows) continue;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int oc = o_base + (j < 4 ? og * 4 + j : 64 + og * 4 + j - 4);
-      if (oc < a.o) dst[(size_t)r * a.o + oc] = acc[i][j];
+    for (int e = 0; e < 2; ++e) {
+      const int r = r_base + wm * 32 + 16 * i + 8 * e + g;
+      if (r >= k_rows) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int o = o_base + wn * 64 + j * 8 + 2 * q;
+        if (o < a.o) dst[(size_t)r * a.o + o] = acc[i][j][2 * e];
+        if (o + 1 < a.o) dst[(size_t)r * a.o + o + 1] = acc[i][j][2 * e + 1];
+      }
     }
-  }
 }
 
 // dw[i] = sum over splits of pdw[s][i], in split order.
@@ -318,23 +446,23 @@ __global__ void cin_interact_bwd_reduce(const float* pdw, int splits, int n_dw, 
   dw[i] = s;
 }
 
-int round8(int x) { return (x + 7) / 8 * 8; }
-
-// Shared memory of a phase-1 block, in bytes, with W walked in chunks of
-// o_chunk maps.
-int cols_smem_bytes(int hk, int o, int o_chunk, int nwarps) {
-  return (hk * kTileN + nwarps * kTileN) * (int)sizeof(float) +
-         (o_chunk * round8(hk) + o * kGStride) * (int)sizeof(__nv_bfloat16);
-}
-
-// Column splits of phase 2: enough (row tile, map tile, split) blocks for
-// two per SM, each split a whole number of column chunks.
+// Column splits of phase 2: as many (row tile, map tile, split) blocks as
+// two a SM can hold at once, each split a whole number of column slices.
 int dw_splits(int k_rows, int o, int bd, int sms) {
-  const int tiles = ((k_rows + kTileR - 1) / kTileR) * ((o + 127) / 128);
-  int s = (2 * sms + tiles - 1) / tiles;
-  const int nchunks = (bd + kChunk - 1) / kChunk;
+  const int tiles = ((k_rows + kDwRows - 1) / kDwRows) * ((o + kDwMaps - 1) / kDwMaps);
+  int s = 2 * sms / tiles;
+  const int nchunks = round_up(bd, kSlice) / kSlice;
   if (s > nchunks) s = nchunks;
   return s < 1 ? 1 : s;
+}
+
+template <int NT>
+cudaError_t launch_cols(const ColsArgs& a, int smem, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(cin_interact_bwd_cols<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cin_interact_bwd_cols<NT><<<(a.bd + kCols - 1) / kCols, kColsThreads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -346,14 +474,15 @@ extern "C" int cin_interact_bwd_splits(int h0, int hk, int o, int bd, int sms) {
 }
 
 // Launches K5 on `stream`: phases 1, 2 and 3. x0 (h0, bd) f32, xk (hk,
-// bd) f32, wt (h0, o, roundup8(hk)) bf16 with wt[h][o][m] = W[h*hk + m, o]
-// and padding 0, g (o, bd) f32. Scratch: gt (bd, roundup8(o)) bf16, pdw
-// (splits, h0*hk, o) f32 with splits from cin_interact_bwd_splits. Out:
-// dx0 (h0, bd), dxk (hk, bd), dw (h0*hk, o), all f32. Returns
-// cudaGetLastError() after the launches (or cudaErrorInvalidValue for a
-// geometry outside the kernel's range).
-extern "C" int cin_interact_bwd(const void* x0, const void* xk, const void* wt, const void* g,
-                                void* gt, void* pdw, int splits, void* dx0, void* dxk,
+// bd) f32, wp (h0*hk8, o64) bf16 with hk8 = roundup8(hk), o64 =
+// roundup64(o), wp[h*hk8 + m][o] = bf16(W[h*hk + m, o]) and padding 0, g
+// (o, bd) f32. Scratch: sb (o + h0 + hk, roundup64(bd)) bf16, pdw (splits,
+// h0*hk, o) f32 with splits from cin_interact_bwd_splits. Out: dx0 (h0,
+// bd), dxk (hk, bd), dw (h0*hk, o), all f32. Returns cudaGetLastError()
+// after the launches (or cudaErrorInvalidValue for a geometry outside the
+// kernel's range).
+extern "C" int cin_interact_bwd(const void* x0, const void* xk, const void* wp, const void* g,
+                                void* sb, void* pdw, int splits, void* dx0, void* dxk,
                                 void* dw, int h0, int hk, int o, int bd, void* stream) {
   if (h0 < 1 || hk < 1 || hk > 128 || o < 1 || o > 512 || bd < 1 || splits < 1)
     return (int)cudaErrorInvalidValue;
@@ -361,50 +490,53 @@ extern "C" int cin_interact_bwd(const void* x0, const void* xk, const void* wt, 
   ColsArgs a;
   a.x0 = static_cast<const float*>(x0);
   a.xk = static_cast<const float*>(xk);
-  a.wt = static_cast<const __nv_bfloat16*>(wt);
+  a.wp = static_cast<const __nv_bfloat16*>(wp);
   a.g = static_cast<const float*>(g);
-  a.gt = static_cast<__nv_bfloat16*>(gt);
-  a.dx0 = static_cast<float*>(dx0);
-  a.dxk = static_cast<float*>(dxk);
   a.h0 = h0;
   a.hk = hk;
-  a.hk_pad = round8(hk);
+  a.hk8 = round_up(hk, 8);
   a.o = o;
-  a.o_pad = round8(o);
+  a.o16 = round_up(o, 16);
+  a.o64 = round_up(o, kSlice);
   a.bd = bd;
-  a.nwarps = (hk + kRows - 1) / kRows;
-  if (a.nwarps < kMinWarps) a.nwarps = kMinWarps;
-  a.o_chunk = a.o_pad;
-  while (a.o_chunk > 8 && cols_smem_bytes(hk, o, a.o_chunk, a.nwarps) > kMaxSmem)
-    a.o_chunk -= 8;
-  const int smem1 = cols_smem_bytes(hk, o, a.o_chunk, a.nwarps);
-  if (smem1 > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      cin_interact_bwd_cols, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
-  if (err != cudaSuccess) return (int)err;
-  cin_interact_bwd_cols<<<(bd + kTileN - 1) / kTileN, 32 * a.nwarps, smem1, st>>>(a);
-  err = cudaGetLastError();
+  a.bdp = round_up(bd, kSlice);
+  a.gb = static_cast<__nv_bfloat16*>(sb);
+  a.x0b = a.gb + (size_t)o * a.bdp;
+  a.xkb = a.x0b + (size_t)h0 * a.bdp;
+  a.dx0 = static_cast<float*>(dx0);
+  a.dxk = static_cast<float*>(dxk);
+  // the widest W slice that fits beside the staged g
+  auto cols_smem = [&](int sw) {
+    return (a.o16 * kGStride + kStages * a.hk8 * (sw + 8)) * 2 + 4 * kCols * 4;
+  };
+  a.sw = a.o64;
+  while (a.sw > kSlice && cols_smem(a.sw) > kMaxSmem) a.sw -= kSlice;
+  const int smem1 = cols_smem(a.sw);
+  const int ntw = (a.hk8 / 8 + 1) / 2;
+  cudaError_t err = ntw <= 2 ? launch_cols<2>(a, smem1, st)
+                  : ntw <= 4 ? launch_cols<4>(a, smem1, st)
+                  : ntw <= 7 ? launch_cols<7>(a, smem1, st)
+                             : launch_cols<8>(a, smem1, st);
   if (err != cudaSuccess) return (int)err;
 
   DwArgs b;
-  b.x0 = a.x0;
-  b.xk = a.xk;
-  b.gt = a.gt;
+  b.x0b = a.x0b;
+  b.xkb = a.xkb;
+  b.gb = a.gb;
   b.pdw = static_cast<float*>(pdw);
   b.h0 = h0;
   b.hk = hk;
   b.o = o;
-  b.o_pad = a.o_pad;
-  b.bd = bd;
+  b.bdp = a.bdp;
   b.splits = splits;
+  b.nh_max = (kDwRows - 1) / hk + 2 < h0 ? (kDwRows - 1) / hk + 2 : h0;
   const int k_rows = h0 * hk;
-  const int nh_max = (kTileR / hk + 2 < h0) ? kTileR / hk + 2 : h0;
-  const int smem2 = (2 * kChunk * kTileR + (nh_max + hk) * kStage) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(cin_interact_bwd_dw,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
+  const int smem2 = kStages * (b.nh_max + hk + kDwMaps) * kStride * 2;
+  err = cudaFuncSetAttribute(cin_interact_bwd_dw, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem2);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((k_rows + kTileR - 1) / kTileR, splits, (o + 127) / 128);
-  cin_interact_bwd_dw<<<grid, 256, smem2, st>>>(b);
+  const dim3 grid((k_rows + kDwRows - 1) / kDwRows, splits, (o + kDwMaps - 1) / kDwMaps);
+  cin_interact_bwd_dw<<<grid, kThreads, smem2, st>>>(b);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_dw = k_rows * o;

@@ -1,4 +1,4 @@
-// K4: one CIN layer's interaction forward, field-major.
+// K4: one CIN layer's interaction forward, field-major, on the tensor cores.
 //
 // Replaces the TPU kernel recman_tpu/ops/cin_interact.py:_fwd_kernel
 // (launched from _pallas_fwd). Bound to PyTorch through a plain C
@@ -16,161 +16,267 @@
 // (H0 = 26, Hk = 100, O = 200, B*D = 40,960) the contraction is 42.6
 // GFLOP of bf16 products, 43 us at the 989 TFLOP/s bf16 tensor-core peak;
 // the bytes (x0c and xkc in, 4.3 + 16.4 MB, the (O, B*D) f32 output 32.8
-// MB) take 16 us at 3.35 TB/s.
+// MB) take 16 us at 3.35 TB/s. So the products go to the tensor cores:
+// mma.sync.m16n8k16 with bf16 operands and f32 sums (tensor_core.cuh).
+// Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W: 0.33 ms at
+// that layer (128 TFLOP/s). What holds it above the bound is latency, not
+// the tensor pipe: each k-step's B fragments wait on their shared-memory
+// loads and multiply, its A fragments on ldmatrix, and the two map tiles
+// of O 200 build the same z twice. wgmma is the next step.
 //
-// Design (simple first, like K1's layer loop without its pooling, so D is
-// free; tensor cores are later work):
-// - A block owns 128 columns and a tile of up to 256 maps (blockIdx.y);
-//   warp w computes maps [8w, 8w+8) of the tile for all 128 columns, each
-//   lane an 8 x 4 f32 accumulator (4 consecutive columns).
-// - The contraction walks the X = H0*Hk rows of z and W in chunks of 32:
-//   the block builds the chunk's z rows (32 x 128, from x0 and xk in
-//   device memory, L1-resident across chunks) and widens the chunk's W
-//   rows (32 x the tile's maps) to f32 in shared memory; every warp reads
-//   both. The products run on the CUDA cores: z and W are bf16 values, so
-//   every product is exact in f32 and only the order of the f32 sums
-//   differs from the plain PyTorch version.
-// - Columns past B*D (the tail tile) build z = 0 and are not stored.
+// Design: one product pre (O x B*D) = bf16(W)^T (O x X) . z (X x B*D).
+// - The wrapper lays bf16(W) out as Wt (O, Kp): Wt[o][h*Hk8 + m] =
+//   bf16(W[h*Hk+m, o]), Hk8 = Hk rounded up to 8, zero padding, Kp a
+//   multiple of 64. With Hk8 a multiple of 8, every 8 consecutive rows of
+//   the padded z belong to one field h, so the loop knows (h, m) from two
+//   counters and never divides.
+// - A block owns 128 maps x 128 columns; 8 warps as 2 (maps) x 4
+//   (columns), each warp 64 maps x 32 columns: 4 x 4 m16n8 tiles, 64 f32
+//   accumulators a thread.
+// - The A operand, Wt's k-slices of 64 (128 maps x 64, bf16), streams
+//   through a ring of 3 stages with cp.async, two slices in flight while
+//   one multiplies; ldmatrix reads the fragments. Rows past O read zeros
+//   (cp.async zero-fill). Wt is 1.1 MB, so it stays in L2 for all blocks.
+// - The B operand z is never stored. At the block's start xk and x0 of
+//   its columns are staged once in shared memory as bf16, transposed
+//   (column-major, m contiguous); each thread then builds its B fragment
+//   straight into registers: one 32-bit load of (xk[m], xk[m+1]), one of
+//   x0[h], and one bf16x2 multiply. Padding m past Hk reads zero.
+// - The epilogue stages each half of the output tile (64 maps x 128
+//   columns, f32) in the ring's shared memory and stores (O, B*D) rows
+//   coalesced, 16 bytes a thread. Maps past O and columns past B*D (the
+//   tail tile) are not stored.
+// - Each output element is owned by one thread of one block and summed in
+//   a fixed order: no atomics, and two calls are bit-equal. Fields beyond
+//   64 (shared memory holds x0 for 64 fields) run as further launches on
+//   the same stream that add to the output in field order.
 //
 // Geometry taken (the wrapper checks and raises outside it): any H0 >= 1
 // and B*D >= 1, 1 <= Hk <= 128, 1 <= O <= 512.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kTileN = 128;        // B*D columns per block
-constexpr int kMapsPerWarp = 8;
-constexpr int kMaxTileO = 256;     // maps per block
-constexpr int kChunk = 32;         // rows of z and W per step
+constexpr int kThreads = 256;
+constexpr int kBM = 128;            // maps per block
+constexpr int kBN = 128;            // B*D columns per block
+constexpr int kBK = 64;             // padded z rows per ring stage
+constexpr int kStages = 3;
+constexpr int kWStride = kBK + 8;   // bf16 per staged W row: 144 B, ldmatrix without conflicts
+constexpr int kOutStride = kBN + 8; // f32 per staged output row
+constexpr int kH0Chunk = 64;        // fields per launch
 
 struct FwdArgs {
-  const float* x0;                 // (h0, bd) f32
-  const float* xk;                 // (hk, bd) f32
-  const __nv_bfloat16* w;          // (h0*hk, o_pad) bf16, row h*hk+m
-  float* out;                      // (o, bd) f32
-  int h0, hk, o, o_pad, bd, tile_o;
+  const float* x0;             // (h0c, bd) f32: this launch's fields
+  const float* xk;             // (hk, bd) f32
+  const __nv_bfloat16* wt;     // (o, kp) bf16, at this launch's first field's column
+  float* out;                  // (o, bd) f32
+  int h0c, hk, hk8, o, bd, kp;
+  int xs, x0st;                // bf16 per staged column of xk and of x0
+  int accumulate;              // add to out (the fields of an earlier launch)
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__global__ void __launch_bounds__(1024) cin_interact_fwd_kernel(const FwdArgs a) {
-  extern __shared__ float4 smem4[];
-  float* zs = reinterpret_cast<float*>(smem4);  // kChunk x 128
-  float* ws = zs + kChunk * kTileN;             // kChunk x tile_o
+__global__ void __launch_bounds__(kThreads, 2) cin_interact_fwd_kernel(const FwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // kStages x kBM x kWStride
+  __nv_bfloat16* xks = ring + kStages * kBM * kWStride;           // kBN x xs: [n][m]
+  __nv_bfloat16* x0s = xks + kBN * a.xs;                          // kBN x x0st: [n][h]
+  float* outs = reinterpret_cast<float*>(smem);                   // 64 x kOutStride, after the loop
 
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n0 = lane * 4;
-  const int col0 = blockIdx.x * kTileN;
-  const int o_base = blockIdx.y * a.tile_o;
-  const int m0 = warp * kMapsPerWarp;         // first map of this warp in the tile
-  const bool active = o_base + m0 < a.o;      // warp-uniform
-  const int x_rows = a.h0 * a.hk;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int col0 = blockIdx.x * kBN;
+  const int o_base = blockIdx.y * kBM;
+  const int kz = a.h0c * a.hk8;  // padded z rows of this launch
+  const int nchunks = (kz + kBK - 1) / kBK;
+  const int nsteps = (kz + 15) / 16;
 
-  float acc[kMapsPerWarp][4];
-#pragma unroll
-  for (int j = 0; j < kMapsPerWarp; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-
-  for (int xc = 0; xc < x_rows; xc += kChunk) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < kChunk * kTileN; i += nthreads) {
-      const int x = xc + (i >> 7), col = col0 + (i & (kTileN - 1));
-      float v = 0.0f;
-      if (x < x_rows && col < a.bd) {
-        const int h = x / a.hk, m = x - h * a.hk;
-        v = bf16_round(bf16_round(a.x0[(size_t)h * a.bd + col]) *
-                       bf16_round(a.xk[(size_t)m * a.bd + col]));
-      }
-      zs[i] = v;
+  auto load_w = [&](int c) {
+    __nv_bfloat16* dst = ring + (c % kStages) * kBM * kWStride;
+    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
+      const int r = i >> 3, p = (i & 7) * 8, o = o_base + r;
+      const __nv_bfloat16* src = a.wt + (size_t)(o < a.o ? o : 0) * a.kp + c * kBK + p;
+      tc::cp_async16(dst + r * kWStride + p, src, o < a.o ? 16 : 0);
     }
-    const int q = a.tile_o / 8;  // 16-byte pieces of a W row in the tile
-    for (int i = tid; i < kChunk * q; i += nthreads) {
-      const int r = i / q, c = (i - r * q) * 8;
-      const int x = xc + r;
-      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-      if (x < x_rows && o_base + c < a.o_pad) {
-        const uint4 u = __ldg(reinterpret_cast<const uint4*>(a.w + (size_t)x * a.o_pad + o_base + c));
-        lo = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                         __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-        hi = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
-                         __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nchunks) load_w(s);
+    tc::cp_async_commit();
+  }
+
+  // xk (rows [0, hk8)) and x0 (rows [hk8, hk8 + h0c)) of the block's
+  // columns, bf16, column-major; zero past Hk and B*D. Each thread keeps 4
+  // loads of 16 bytes in flight before it stores.
+  const int quads = (a.hk8 + a.h0c) * (kBN / 4);
+  for (int i0 = tid; i0 < quads; i0 += 4 * kThreads) {
+    float4 v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + e * kThreads, r = i >> 5, col = col0 + (i & 31) * 4;
+      v[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < quads && r < a.hk) v[e] = tc::load4(a.xk + (size_t)r * a.bd, col, a.bd);
+      else if (i < quads && r >= a.hk8) v[e] = tc::load4(a.x0 + (size_t)(r - a.hk8) * a.bd, col, a.bd);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + e * kThreads, r = i >> 5, n = (i & 31) * 4;
+      if (i >= quads) break;
+      __nv_bfloat16* dst = r < a.hk8 ? xks + n * a.xs + r : x0s + n * a.x0st + (r - a.hk8);
+      const int st = r < a.hk8 ? a.xs : a.x0st;
+      dst[0] = __float2bfloat16_rn(v[e].x);
+      dst[st] = __float2bfloat16_rn(v[e].y);
+      dst[2 * st] = __float2bfloat16_rn(v[e].z);
+      dst[3 * st] = __float2bfloat16_rn(v[e].w);
+    }
+  }
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+
+  // m16 tiles of this warp that hold a map below O (warp-uniform)
+  int mt = (a.o - o_base - wm * 64 + 15) / 16;
+  mt = mt < 0 ? 0 : (mt > 4 ? 4 : mt);
+  // this thread's B columns n = wn*32 + 8j + g, as offsets into xks and x0s
+  const __nv_bfloat16* xkc = xks + (wn * 32 + g) * a.xs + 2 * q;
+  const __nv_bfloat16* x0c = x0s + (wn * 32 + g) * a.x0st;
+  // (field, row) of the first padded z row of the current k16 step
+  int h_lo = 0, m_lo = 0;
+
+  for (int c = 0; c < nchunks; ++c) {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk c has landed; the stage chunk c - 1 used is free
+    if (c + kStages - 1 < nchunks) load_w(c + kStages - 1);
+    tc::cp_async_commit();
+    const __nv_bfloat16* ws = ring + (c % kStages) * kBM * kWStride;
+    const int steps = nsteps - c * 4 < 4 ? nsteps - c * 4 : 4;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if (ks >= steps) break;
+      int h_hi = h_lo, m_hi = m_lo + 8;
+      if (m_hi == a.hk8) {
+        m_hi = 0;
+        ++h_hi;
       }
-      float4* dst = reinterpret_cast<float4*>(ws + r * a.tile_o + c);
-      dst[0] = lo;
-      dst[1] = hi;
+      // z rows [k0, k0+8) are field h_lo, [k0+8, k0+16) field h_hi; past
+      // this launch's fields they are zero
+      uint32_t b[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int off = j * 8;
+        b[j][0] = h_lo < a.h0c
+            ? tc::mul_bf16x2(tc::dup_bf16(x0c[off * a.x0st + h_lo]),
+                             *reinterpret_cast<const uint32_t*>(xkc + off * a.xs + m_lo))
+            : 0u;
+        b[j][1] = h_hi < a.h0c
+            ? tc::mul_bf16x2(tc::dup_bf16(x0c[off * a.x0st + h_hi]),
+                             *reinterpret_cast<const uint32_t*>(xkc + off * a.xs + m_hi))
+            : 0u;
+      }
+      h_lo = h_hi;
+      m_lo = m_hi + 8;
+      if (m_lo == a.hk8) {
+        m_lo = 0;
+        ++h_lo;
+      }
+      // every A fragment first, then the products back to back
+      uint32_t af[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < mt)
+          tc::ldmatrix_x4(af[i], ws + (wm * 64 + i * 16 + (lane & 15)) * kWStride + ks * 16 +
+                                     (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < mt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tc::mma_bf16(acc[i][j], af[i], b[j]);
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the output
+
+  const bool vec = (a.bd & 3) == 0;
+  for (int half = 0; half < 2; ++half) {
+    if (wm == half) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float* p = outs + (i * 16 + g) * kOutStride + wn * 32 + j * 8 + 2 * q;
+          *reinterpret_cast<float2*>(p) = make_float2(acc[i][j][0], acc[i][j][1]);
+          *reinterpret_cast<float2*>(p + 8 * kOutStride) = make_float2(acc[i][j][2], acc[i][j][3]);
+        }
     }
     __syncthreads();
-    if (active) {
-      const int rows = min(kChunk, x_rows - xc);
-#pragma unroll 2
-      for (int r = 0; r < rows; ++r) {
-        const float4 z = *reinterpret_cast<const float4*>(zs + r * kTileN + n0);
-        const float4 wa = *reinterpret_cast<const float4*>(ws + r * a.tile_o + m0);
-        const float4 wb = *reinterpret_cast<const float4*>(ws + r * a.tile_o + m0 + 4);
-        const float wv[kMapsPerWarp] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-        for (int j = 0; j < kMapsPerWarp; ++j) {
-          acc[j][0] = fmaf(wv[j], z.x, acc[j][0]);
-          acc[j][1] = fmaf(wv[j], z.y, acc[j][1]);
-          acc[j][2] = fmaf(wv[j], z.z, acc[j][2]);
-          acc[j][3] = fmaf(wv[j], z.w, acc[j][3]);
+    for (int i = tid; i < 64 * (kBN / 4); i += kThreads) {
+      const int r = i >> 5, c4 = (i & 31) * 4;
+      const int o = o_base + half * 64 + r, col = col0 + c4;
+      if (o >= a.o || col >= a.bd) continue;
+      float4 v = *reinterpret_cast<const float4*>(outs + r * kOutStride + c4);
+      float* dst = a.out + (size_t)o * a.bd + col;
+      if (vec) {
+        if (a.accumulate) {
+          const float4 p = *reinterpret_cast<const float4*>(dst);
+          v = make_float4(p.x + v.x, p.y + v.y, p.z + v.z, p.w + v.w);
         }
+        *reinterpret_cast<float4*>(dst) = v;
+      } else {
+        const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (col + k < a.bd) dst[k] = a.accumulate ? dst[k] + e[k] : e[k];
       }
     }
-  }
-
-  if (!active) return;
-  const int col = col0 + n0;
-  const bool vec = (a.bd & 3) == 0 && col + 3 < a.bd;
-#pragma unroll
-  for (int j = 0; j < kMapsPerWarp; ++j) {
-    const int o = o_base + m0 + j;
-    if (o >= a.o) break;  // warp-uniform
-    float* dst = a.out + (size_t)o * a.bd + col;
-    if (vec) {
-      *reinterpret_cast<float4*>(dst) = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (col + c < a.bd) dst[c] = acc[j][c];
-    }
+    __syncthreads();
   }
 }
+
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 }  // namespace
 
-// Launches K4 on `stream`. x0 (h0, bd) f32, xk (hk, bd) f32, w (h0*hk,
-// o_pad) bf16 with o_pad = roundup(o, 8) and padding columns zero, out
-// (o, bd) f32. Returns cudaGetLastError() after the launch (or
+// Launches K4 on `stream`. x0 (h0, bd) f32, xk (hk, bd) f32, wt (o, kp)
+// bf16 with kp = roundup64(h0 * hk8) and wt[o][h*hk8 + m] =
+// bf16(W[h*hk + m, o]), hk8 = roundup8(hk), padding zero; out (o, bd)
+// f32. Returns cudaGetLastError() after the launches (or
 // cudaErrorInvalidValue for a geometry outside the kernel's range).
-extern "C" int cin_interact_fwd(const void* x0, const void* xk, const void* w, void* out,
+extern "C" int cin_interact_fwd(const void* x0, const void* xk, const void* wt, void* out,
                                 int h0, int hk, int o, int bd, void* stream) {
   if (h0 < 1 || hk < 1 || hk > 128 || o < 1 || o > 512 || bd < 1)
     return (int)cudaErrorInvalidValue;
   FwdArgs a;
-  a.x0 = static_cast<const float*>(x0);
   a.xk = static_cast<const float*>(xk);
-  a.w = static_cast<const __nv_bfloat16*>(w);
   a.out = static_cast<float*>(out);
-  a.h0 = h0;
   a.hk = hk;
+  a.hk8 = round_up(hk, 8);
   a.o = o;
-  a.o_pad = (o + 7) / 8 * 8;
   a.bd = bd;
-  a.tile_o = a.o_pad < kMaxTileO ? a.o_pad : kMaxTileO;
-  const int smem = (kChunk * kTileN + kChunk * a.tile_o) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      cin_interact_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((bd + kTileN - 1) / kTileN, (o + a.tile_o - 1) / a.tile_o);
-  const int threads = 32 * (a.tile_o / kMapsPerWarp);
-  cin_interact_fwd_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  a.kp = round_up(h0 * a.hk8, kBK);
+  // 32-bit B loads from 8 columns x 4 rows hit 32 banks when a staged
+  // column is 8 mod 64 bf16; 16-bit x0 loads from 8 columns when it is 2 mod 4
+  a.xs = round_up(a.hk8 - 8, 64) + 8;
+  const dim3 grid((bd + kBN - 1) / kBN, (o + kBM - 1) / kBM);
+  for (int hb = 0; hb < h0; hb += kH0Chunk) {
+    a.h0c = h0 - hb < kH0Chunk ? h0 - hb : kH0Chunk;
+    a.x0st = round_up(a.h0c, 2);
+    if (a.x0st % 4 == 0) a.x0st += 2;
+    a.x0 = static_cast<const float*>(x0) + (size_t)hb * bd;
+    a.wt = static_cast<const __nv_bfloat16*>(wt) + (size_t)hb * a.hk8;
+    a.accumulate = hb > 0;
+    const int smem = (kStages * kBM * kWStride + kBN * (a.xs + a.x0st)) * 2;
+    cudaError_t err = cudaFuncSetAttribute(
+        cin_interact_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    cin_interact_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

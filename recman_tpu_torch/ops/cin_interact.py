@@ -22,8 +22,10 @@ to bf16 as the multiplicands and f32 sums, as in the reference.
 
 The reference's W repacking (``_pack_w``, ``_pack_dims``) and tile choice
 (``_pick_tile``) follow the TPU's VMEM and sublane layout and are not
-ported: the kernels take W in the reference row order h*Hk+m (the wrapper
-builds a bf16 copy per call) and return dW in that order.
+ported. The kernels run on the tensor cores and take bf16(W) in layouts of
+their own, with Hk padded to 8 so that 8 rows of z never straddle two
+fields (``k4_weight_layout``, ``k5_weight_layout``: one bf16 copy per
+call); K5 returns dW in the reference row order h*Hk+m.
 
 ``pallas_cin`` and ``pallas_cin_active`` are the reference's thread-local
 switch of the field-major path (:297-329), named as there.
@@ -203,6 +205,32 @@ def _check(name, x0c, xkc, w, g=None):
         raise ValueError(f"{name} cotangent: got {tuple(g.shape)}, expected ({o}, {bd})")
 
 
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def k4_weight_layout(w, h0: int, hk: int):
+    """bf16(W) as K4 reads it: Wt (O, Kp) bf16 with Wt[o, h*Hk8 + m] =
+    bf16(W[h*Hk + m, o]), Hk8 = Hk rounded up to 8, Kp = H0*Hk8 rounded up
+    to 64, padding zero."""
+    o = w.shape[1]
+    hk8 = _round8(hk)
+    wt = torch.zeros((o, _round_up(h0 * hk8, 64)), dtype=torch.bfloat16, device=w.device)
+    wt[:, : h0 * hk8].view(o, h0, hk8)[:, :, :hk] = w.view(h0, hk, o).permute(2, 0, 1)
+    return wt
+
+
+def k5_weight_layout(w, h0: int, hk: int):
+    """bf16(W) as K5 reads it: Wp (H0*Hk8, O64) bf16 with Wp[h*Hk8 + m, o] =
+    bf16(W[h*Hk + m, o]), Hk8 = Hk rounded up to 8, O64 = O rounded up to
+    64, padding zero."""
+    o = w.shape[1]
+    hk8 = _round8(hk)
+    wp = torch.zeros((h0 * hk8, _round_up(o, 64)), dtype=torch.bfloat16, device=w.device)
+    wp.view(h0, hk8, -1)[:, :hk, :o] = w.view(h0, hk, o)
+    return wp
+
+
 def _fn(source, symbol, argtypes):
     fn = getattr(load(source), symbol)
     fn.restype = ctypes.c_int
@@ -220,10 +248,7 @@ def _cin_interact_fwd_cuda(x0c, xkc, w):
     hk = xkc.shape[0]
     o = w.shape[1]
     fn = _fn("cin_interact_fwd", "cin_interact_fwd", [_P, _P, _P, _P, _I, _I, _I, _I, _P])
-    # W to bf16 once per call, columns zero-padded to a multiple of 8 so
-    # the kernel reads each row in 16-byte pieces
-    w_bf = torch.zeros((w.shape[0], _round8(o)), dtype=torch.bfloat16, device=w.device)
-    w_bf[:, :o] = w
+    w_bf = k4_weight_layout(w, h0, hk)
     out = torch.empty((o, bd), dtype=torch.float32, device=x0c.device)
     err = fn(x0c.data_ptr(), xkc.data_ptr(), w_bf.data_ptr(), out.data_ptr(), h0, hk, o, bd,
              torch.cuda.current_stream(x0c.device).cuda_stream)
@@ -250,17 +275,15 @@ def _cin_interact_bwd_cuda(x0c, xkc, w, g):
     splits = k5_splits(h0, hk, o, bd, dev)
     fn = _fn("cin_interact_bwd", "cin_interact_bwd",
              [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P])
-    # W to bf16 once per call in the layout phase 1 walks: per field h the
-    # (O, Hk) block W[h*Hk + m, o] transposed, Hk zero-padded to 8
-    wt = torch.zeros((h0, o, _round8(hk)), dtype=torch.bfloat16, device=dev)
-    wt[:, :, :hk] = w.reshape(h0, hk, o).transpose(1, 2)
-    # scratch: bf16(g) transposed to (B*D, O_pad); per-split partial dW
-    gt = torch.empty((bd, _round8(o)), dtype=torch.bfloat16, device=dev)
+    wp = k5_weight_layout(w, h0, hk)
+    # scratch: bf16(g), bf16(x0c) and bf16(xkc) for the dW phase, B*D
+    # rounded up to 64; per-split partial dW
+    sb = torch.empty((o + h0 + hk, _round_up(bd, 64)), dtype=torch.bfloat16, device=dev)
     pdw = torch.empty((splits, h0 * hk, o), dtype=torch.float32, device=dev)
     dx0 = torch.empty_like(x0c)
     dxk = torch.empty_like(xkc)
     dw = torch.empty((h0 * hk, o), dtype=torch.float32, device=dev)
-    err = fn(x0c.data_ptr(), xkc.data_ptr(), wt.data_ptr(), g.data_ptr(), gt.data_ptr(),
+    err = fn(x0c.data_ptr(), xkc.data_ptr(), wp.data_ptr(), g.data_ptr(), sb.data_ptr(),
              pdw.data_ptr(), splits, dx0.data_ptr(), dxk.data_ptr(), dw.data_ptr(),
              h0, hk, o, bd, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

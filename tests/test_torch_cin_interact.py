@@ -106,6 +106,38 @@ def test_k5_twin_matches_jax_interpret(h0, hk, o, bd, shared):
         assert _rel(ref, got) <= BWD_TOL
 
 
+# (H0, Hk, O): Hk a multiple of 8 or not, O a multiple of 64 or not, H0
+# past K4's 64 fields a launch
+LAYOUT_CASES = [(5, 3, 8), (26, 100, 200), (3, 13, 264), (2, 128, 512), (130, 1, 4)]
+
+
+@pytest.mark.parametrize("h0,hk,o", LAYOUT_CASES)
+def test_k4_weight_layout_reads_back_bf16_w(h0, hk, o):
+    """K4's W layout (O, Kp): column h*Hk8 + m of row o is bf16(W[h*Hk+m,
+    o]); padding rows of a field and columns past H0*Hk8 are zero."""
+    w = T(_interact_inputs(h0, hk, o, 1, seed=h0 + o)[2])
+    wt = torch_ci.k4_weight_layout(w, h0, hk)
+    hk8 = -(-hk // 8) * 8
+    assert wt.dtype == torch.bfloat16 and wt.shape == (o, -(-h0 * hk8 // 64) * 64)
+    fields = wt[:, : h0 * hk8].reshape(o, h0, hk8)
+    back = fields[:, :, :hk].permute(1, 2, 0).reshape(h0 * hk, o)
+    assert torch.equal(back, w.to(torch.bfloat16))
+    assert not fields[:, :, hk:].any() and not wt[:, h0 * hk8:].any()
+
+
+@pytest.mark.parametrize("h0,hk,o", LAYOUT_CASES)
+def test_k5_weight_layout_reads_back_bf16_w(h0, hk, o):
+    """K5's W layout (H0*Hk8, O64): row h*Hk8 + m is bf16(W[h*Hk+m]); the
+    padding rows of a field and the columns past O are zero."""
+    w = T(_interact_inputs(h0, hk, o, 1, seed=h0 + o + 1)[2])
+    wp = torch_ci.k5_weight_layout(w, h0, hk)
+    hk8 = -(-hk // 8) * 8
+    assert wp.dtype == torch.bfloat16 and wp.shape == (h0 * hk8, -(-o // 64) * 64)
+    fields = wp.reshape(h0, hk8, -1)
+    assert torch.equal(fields[:, :hk, :o].reshape(h0 * hk, o), w.to(torch.bfloat16))
+    assert not fields[:, hk:].any() and not wp[:, o:].any()
+
+
 @pytest.mark.parametrize("shared", [False, True])
 def test_cin_interact_fm_grads_match_jax_grad(shared):
     """The autograd Function (K4's twin forward, K5's twin backward)

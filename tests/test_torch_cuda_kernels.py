@@ -497,22 +497,28 @@ INTERACT_CASES = [
     (26, 100, 300, 1000),     # two map tiles in K4
     (3, 128, 512, 130),       # the widest fan-in and maps
     (130, 1, 4, 200),         # H0 over 128, Hk 1
+    (5, 13, 40, 999),         # Hk neither a multiple of 8 nor of 16
+    (26, 100, 257, 40_960),   # the per-layer route's final layer of 257 maps
+    (26, 100, 264, 4_096),    # O 264: two map tiles, and a second n8 tile run
+    (26, 100, 200, 40),       # B*D under one column tile
 ]
 
 
 @pytest.mark.parametrize("h0,hk,o,bd", INTERACT_CASES)
 def test_k4_and_k5_match_plain_versions(cuda, h0, hk, o, bd):
     """K4 and K5 against their twins, 1e-3 of each output's largest
-    element (the same bf16 roundings, f32 sums in another order); K5
-    bit-equal on two calls."""
+    element (the same bf16 roundings, f32 sums in another order); K4 and
+    K5 bit-equal on two calls."""
     x0c, xkc, w, g = _interact_inputs(h0, hk, o, bd, h0 + hk + o, cuda)
     before = (cin_interact.LAUNCHES, cin_interact.BWD_LAUNCHES)
     got = cin_interact.cin_interact_fwd(x0c, xkc, w)
+    got_again = cin_interact.cin_interact_fwd(x0c, xkc, w)
     grads = cin_interact.cin_interact_bwd(x0c, xkc, w, g)
     again = cin_interact.cin_interact_bwd(x0c, xkc, w, g)
     torch.cuda.synchronize()
-    assert (cin_interact.LAUNCHES - before[0], cin_interact.BWD_LAUNCHES - before[1]) == (1, 2)
+    assert (cin_interact.LAUNCHES - before[0], cin_interact.BWD_LAUNCHES - before[1]) == (2, 2)
     _close(cin_interact.cin_interact_fm_reference(x0c, xkc, w), got, 1e-3)
+    assert torch.equal(got, got_again)
     for r, a, b in zip(cin_interact.cin_interact_fm_bwd_reference(x0c, xkc, w, g), grads, again):
         _close(r, a, 1e-3)
         assert torch.equal(a, b)
