@@ -20,7 +20,11 @@ Phases, each failing the script (non-zero exit) when it fails:
    full-width forward's fmaps, K2's recompute form (the same source; bit-
    equal to the save form, at batch 8192 and at 65,536), K3 and K7
    (segment_matmul.cu; K7 beside index_add_ into a (T*V, k_eff) buffer)
-   on the sorted ids of 8192 synthetic Criteo rows.
+   on the sorted ids of 8192 synthetic Criteo rows. K1 and K2 are timed
+   beside the bare bf16 contractions they do (torch.matmul on prebuilt
+   operands), K2 profiled by phase; the chain is held layer by layer to
+   the twin run on K1's own fmaps, and end to end to FEED_TOL, and K1's
+   layer 0 is read against an exact f64 sum beside the twin.
 3. the serving slice end to end: full-width xDeepFM (26 hashed fields x
    100,000 buckets, k=16, CIN (100, 100), DNN (400, 400)) with random
    params from a seed, Predictor(batch_size=8192).predict on 65,536
@@ -291,6 +295,65 @@ def chain_bwd_recompute_bound_ms(x0c, ws, bs, gs, grads):
     return (*bound(flops, moved), flops, moved)
 
 
+def chain_library_ms(x0c, ws, fmaps, units, parts, reps=10):
+    """The bare bf16 contractions of the chain's kernels, one PyTorch call
+    each on prebuilt operands: per layer torch.matmul(W^T, z) for K1
+    ("fwd"), torch.matmul(W, gpre) and torch.matmul(z, gpre^T) for K2
+    ("bwd"), timed together. z is built from x0c and the fmaps beforehand;
+    gpre stands in as bf16 of the layer's fmap, of gpre's shape (a dense
+    product's time does not depend on its values). No PyTorch call builds
+    z or gpre, so this is the contraction alone."""
+    import torch
+
+    h0 = x0c.shape[0]
+    x0b = x0c.to(torch.bfloat16)
+    ops, hk = [], h0
+    for i, (w, o) in enumerate(zip(ws, units)):
+        xk = x0c if i == 0 else fmaps[i - 1][:hk]
+        z = (x0b[:, None, :] * xk.to(torch.bfloat16)[None, :, :]).reshape(h0 * hk, -1)
+        ops.append((w.to(torch.bfloat16), z, fmaps[i].to(torch.bfloat16)))
+        hk = o // 2
+
+    def run():
+        for wb, z, gp in ops:
+            if "fwd" in parts:
+                torch.matmul(wb.t(), z)
+            if "bwd" in parts:
+                torch.matmul(wb, gp)
+                torch.matmul(z, gp.t())
+
+    ms = cuda_time_ms(run, reps=reps)
+    del ops
+    return ms
+
+
+def k1_layer0_error(x0c, ws, bs, act, got, twin):
+    """Mean and max |fmap_0 - exact| over max|exact| for K1 and for its
+    twin, the exact sum in f64 (z and W are bf16 values, so every product
+    is exact). Logs them; K1's feed rows round to bf16, so its error against
+    the exact sum sets how often a feed element lands on the other side of
+    a rounding from the twin's."""
+    import torch
+
+    from recman_tpu_torch.ops import cin_chain
+
+    h0 = x0c.shape[0]
+    x0b = x0c.to(torch.bfloat16)
+    z0 = (x0b[:, None, :] * x0b[None, :, :]).reshape(h0 * h0, -1).double()
+    exact = cin_chain._act(act, ws[0].to(torch.bfloat16).double().t() @ z0
+                           + bs[0].double()[:, None])
+    del z0
+    scale = exact.abs().max().item()
+    errs = [((f.double() - exact).abs().mean().item() / scale,
+             (f.double() - exact).abs().max().item() / scale) for f in (got, twin)]
+    feed = exact.shape[0] // 2
+    ex_b = exact[:feed].float().to(torch.bfloat16)
+    other = [int((f[:feed].to(torch.bfloat16) != ex_b).sum()) for f in (got, twin)]
+    log(f"K1 layer 0 against the exact f64 sum: mean|d|/max {errs[0][0]:.3e}, max {errs[0][1]:.3e} "
+        f"(twin: {errs[1][0]:.3e}, {errs[1][1]:.3e}); feed elements whose bf16 rounding differs "
+        f"from the exact sum's: {other[0]} (twin {other[1]}) of {ex_b.numel()}")
+
+
 def sign_flips(refs, gots, tol, what, near_tol=FLIP_ABS):
     """``gots`` against ``refs`` (pre-activations, or fmaps after a
     piecewise-linear activation) to tol of max|ref|, and the elements of
@@ -317,34 +380,58 @@ def sign_flips(refs, gots, tol, what, near_tol=FLIP_ABS):
     return flips
 
 
-def check_recompute(x0c, ws, bs, gs, units, d, act, fmaps, got, what):
-    """K2's recompute form against its twin (K1's twin rebuilds the fmaps,
-    K2's twin runs on them) to K2_TOL of max|ref|. K1's fmaps (``fmaps``,
-    the bits the kernel rebuilds) are first held to the twin's to K1_TOL,
-    with their sign differences bounded by ``sign_flips``. At such an
-    element K1 and its twin read the activation's derivative on the two
-    sides of 0, which moves that column's gpre by 0.8 of a term and its
-    dx0 with it; so when there is one, the kernel is held to K2's twin on
-    K1's fmaps instead. Returns (max|d|, sign differences)."""
+def k1_twins(x0c, ws, bs, units, d, act, fmaps, what):
+    """K1's twin on K1's own input, layer by layer: layer i+1 of the twin
+    takes the feed rows of K1's fmaps[i] (``cin_chain_fm_reference``'s
+    ``feeds``). Returns its pooled blocks and fmaps, to which K1 is held at
+    K1_TOL. First K1's fmaps are held to the twin run end to end at
+    FEED_TOL: where sums in another order straddle a bf16 rounding of a
+    feed element, the two round it to neighbouring bf16 values, which the
+    next layer's products carry; the count of such elements is logged."""
     import torch
 
     from recman_tpu_torch.ops import cin_chain
 
     n = len(units)
-    twin = cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True)[n:]
+    e2e = cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True)[n:]
+    apart = sum(int((f[: o // 2].to(torch.bfloat16) != t[: o // 2].to(torch.bfloat16)).sum())
+                for f, t, o in zip(fmaps[:-1], e2e[:-1], units[:-1]))
+    err = max_rel_err(e2e, fmaps, FEED_TOL, f"{what}: K1's fmaps against the twin end to end")
+    scale = max(t.abs().max().item() for t in e2e)
+    log(f"{what}: K1's fmaps against the twin end to end: max|d| {err / scale:.3e} of max|ref|; "
+        f"feed elements rounded to another bf16 value than the twin's: {apart} of "
+        f"{sum(o // 2 for o in units[:-1]) * x0c.shape[1]}")
+    del e2e
+    return cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True, feeds=fmaps)
+
+
+def check_recompute(x0c, ws, bs, gs, units, d, act, fmaps, got, what):
+    """K2's recompute form against K2's twin on K1's fmaps (``fmaps``, the
+    bits the kernel rebuilds) to K2_TOL of max|ref|. Those fmaps are first
+    held to K1's twin on K1's own input (``k1_twins``) to K1_TOL, with
+    their sign differences bounded by ``sign_flips``. The twin's own fmaps
+    are not K2's input: they can round a feed element to the neighbouring
+    bf16 value, and at an element of other sign read the activation's
+    derivative on the other side of 0, which moves that column's gpre by
+    0.8 of a term. Returns (max|d|, sign differences)."""
+    import torch
+
+    from recman_tpu_torch.ops import cin_chain
+
+    n = len(units)
+    twin = k1_twins(x0c, ws, bs, units, d, act, fmaps, what)[n:]
     flips = sign_flips(twin, fmaps, K1_TOL, f"{what}: K1's fmaps")
-    if flips:
-        ref = cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, fmaps, units, d, act)
-    else:
-        ref = cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, twin, units, d, act)
     del twin
+    ref = cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, fmaps, units, d, act)
     err = max_rel_err([ref[0], *ref[1], *ref[2]], [got[0], *got[1], *got[2]], K2_TOL, what)
     torch.cuda.synchronize()
     return err, flips
 
 
-def time_k2_recompute(x0c, ws, bs, gs, units, d, act, err, label):
-    """K2's recompute form timed beside its twin and its bound."""
+def time_k2_recompute(x0c, ws, bs, gs, units, d, act, err, label, fmaps):
+    """K2's recompute form timed beside its twin, its bound and the bare
+    contractions it does (K1's and K2's, ``chain_library_ms`` on K1's
+    ``fmaps``), then profiled by kernel."""
     from recman_tpu_torch.ops import cin_chain
 
     got = cin_chain.cin_chain_bwd_recompute(x0c, ws, bs, gs, units, d, act)
@@ -352,12 +439,16 @@ def time_k2_recompute(x0c, ws, bs, gs, units, d, act, err, label):
                       reps=10)
     plain_ms = cuda_time_ms(lambda: cin_chain.cin_chain_bwd_recompute_reference(
         x0c, ws, bs, gs, units, d, act), warmup=1, reps=5)
+    lib_ms = chain_library_ms(x0c, ws, fmaps, units, ("fwd", "bwd"))
     bnd, by, flops, moved = chain_bwd_recompute_bound_ms(x0c, ws, bs, gs, got)
     log(f"K2 recompute {label} (B*D={x0c.shape[1]}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library (the three bf16 matmuls a layer alone) {lib_ms:.4f} ms, "
         f"bound {bnd:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.2f} MB), "
         f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+    profile_device(lambda: cin_chain.cin_chain_bwd_recompute(x0c, ws, bs, gs, units, d, act), ms,
+                   f"K2 recompute calls {label} (its phases by kernel)", n=3)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-            "library_ms": None}
+            "library_ms": lib_ms}
 
 
 def k2_recompute_large_batch(device):
@@ -382,14 +473,24 @@ def k2_recompute_large_batch(device):
           "K2 recompute at B 65,536: not bit-equal to K2 save")
     err, flips = check_recompute(x0c, ws, bs, gs, units, d, "leaky_relu", out[n:], got,
                                  "K2 recompute at B 65,536")
-    rec = time_k2_recompute(x0c, ws, bs, gs, units, d, "leaky_relu", err, f"B {b}")
+    rec = time_k2_recompute(x0c, ws, bs, gs, units, d, "leaky_relu", err, f"B {b}", out[n:])
     k1s_ms = cuda_time_ms(lambda: cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, "leaky_relu",
                                                           save=True), reps=10)
     k2_ms = cuda_time_ms(lambda: cin_chain.cin_chain_bwd(x0c, ws, bs, gs, out[n:], units, d,
                                                          "leaky_relu"), reps=10)
+    lib_fwd = chain_library_ms(x0c, ws, out[n:], units, ("fwd",))
+    lib_bwd = chain_library_ms(x0c, ws, out[n:], units, ("bwd",))
+    f1 = sum(2 * x0c.shape[1] * w.shape[0] * w.shape[1] for w in ws)
     log(f"K2 recompute at B {b}: max|d| {err:.3e} against its plain version ({flips} fmap "
         f"elements of other sign than the twin's), bit-equal to K2 save; {rec['ms']:.4f} ms "
         f"against K1 save {k1s_ms:.4f} ms + K2 save {k2_ms:.4f} ms")
+    log(f"at B {b}: K1 save {k1s_ms:.4f} ms ({f1 / k1s_ms / 1e9:.1f} TFLOP/s), library (bf16 "
+        f"matmul W^T z a layer) {lib_fwd:.4f} ms; K2 save {k2_ms:.4f} ms "
+        f"({2 * f1 / k2_ms / 1e9:.1f} TFLOP/s), library (W gpre and z gpre^T a layer) "
+        f"{lib_bwd:.4f} ms")
+    profile_device(lambda: cin_chain.cin_chain_bwd(x0c, ws, bs, gs, out[n:], units, d,
+                                                   "leaky_relu"), k2_ms,
+                   f"K2 save calls at B {b} (its phases by kernel)", n=3)
     return rec
 
 
@@ -429,7 +530,7 @@ def phase_kernels(device):
             got = cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act)
             got_s = cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act, save=True)
             torch.cuda.synchronize()
-            ref = cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True)
+            ref = k1_twins(x0c, ws, bs, units, d, act, got_s[n:], f"K1 save {label} {act}")
             e1 = max_rel_err(ref[:n], got, K1_TOL, f"K1 {label} {act}")
             e1s = max_rel_err(ref, got_s, K1_TOL, f"K1 save {label} {act}")
             g = torch.Generator().manual_seed(11)
@@ -456,13 +557,17 @@ def phase_kernels(device):
         if label != "full":
             continue
         act = "leaky_relu"
+        k1_layer0_error(x0c, ws, bs, act, got_s[n], ref[n])
+        lib_fwd = chain_library_ms(x0c, ws, got_s[n:], units, ("fwd",))
+        lib_bwd = chain_library_ms(x0c, ws, got_s[n:], units, ("bwd",))
         ms = cuda_time_ms(lambda: cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act))
         plain_ms = cuda_time_ms(
             lambda: cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act), reps=20)
         bnd, by, flops, moved = chain_bound_ms(x0c, ws, bs, got)
         rec["K1"] = {"max_abs_err": e1, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                     "bound_by": by, "library_ms": None}
-        log(f"K1 full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms "
+                     "bound_by": by, "library_ms": lib_fwd}
+        log(f"K1 full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, library (bf16 matmul W^T z "
+            f"a layer, on a prebuilt z) {lib_fwd:.4f} ms, bound {bnd:.4f} ms "
             f"({by}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.2f} MB), "
             f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
         ms = cuda_time_ms(lambda: cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act, save=True))
@@ -470,20 +575,24 @@ def phase_kernels(device):
             x0c, ws, bs, units, d, act, save=True), reps=20)
         bnd, by, flops, moved = chain_bound_ms(x0c, ws, bs, got_s)
         rec["K1 save"] = {"max_abs_err": e1s, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                          "bound_by": by, "library_ms": None}
-        log(f"K1 save full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms "
-            f"({by}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.2f} MB)")
+                          "bound_by": by, "library_ms": lib_fwd}
+        log(f"K1 save full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_fwd:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.2f} MB), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
         fm = got_s[n:]
         ms = cuda_time_ms(lambda: cin_chain.cin_chain_bwd(x0c, ws, bs, gs, fm, units, d, act))
         plain_ms = cuda_time_ms(lambda: cin_chain.cin_chain_bwd_reference(
             x0c, ws, bs, gs, fm, units, d, act), reps=20)
         bnd, by, flops, moved = chain_bwd_bound_ms(x0c, ws, gs, fm, got_b)
         rec["K2"] = {"max_abs_err": e2, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                     "bound_by": by, "library_ms": None}
-        log(f"K2 full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms "
+                     "bound_by": by, "library_ms": lib_bwd}
+        log(f"K2 full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, library (bf16 matmuls W gpre "
+            f"and z gpre^T a layer, on prebuilt operands) {lib_bwd:.4f} ms, bound {bnd:.4f} ms "
             f"({by}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.2f} MB), "
             f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
-        time_k2_recompute(x0c, ws, bs, gs, units, d, act, e2r, "full width")
+        profile_device(lambda: cin_chain.cin_chain_bwd(x0c, ws, bs, gs, fm, units, d, act), ms,
+                       "K2 save calls at full width (its phases by kernel)", n=3)
+        time_k2_recompute(x0c, ws, bs, gs, units, d, act, e2r, "full width", fm)
     rec["K2 recompute"] = k2_recompute_large_batch(device)
 
     # K3: a small Zipf case, then the full-width sorted ids of one batch

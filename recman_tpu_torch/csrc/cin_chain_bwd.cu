@@ -1,6 +1,7 @@
 // K2: the whole CIN tower backward, from the pooled cotangents and either
 // the fmaps that K1 saved (the save form, cin_chain_bwd) or fmaps rebuilt
-// from x0c, W and b (the recompute form, cin_chain_bwd_recompute).
+// from x0c, W and b (the recompute form, cin_chain_bwd_recompute), on the
+// tensor cores.
 //
 // Replaces the TPU kernel recman_tpu/ops/cin_chain.py:_chain_bwd_kernel
 // in both its forms (launched from _chain_bwd_pallas with fmaps, and
@@ -28,35 +29,44 @@
 // units (100, 100), D = 16, B = 8192) dW and u each take 51.8 GFLOP of
 // bf16 products, 103.6 GFLOP in all: 0.105 ms at the 989 TFLOP/s bf16
 // tensor-core peak. The bytes (the fmaps 104.9 MB, x0c and dx0 13.6 MB
-// each, the pooled cotangents 4.9 MB) take 0.041 ms at 3.35 TB/s.
+// each, the pooled cotangents 4.9 MB) take 0.041 ms at 3.35 TB/s. So both
+// products run on the tensor cores: mma.sync.m16n8k16, bf16 operands, f32
+// sums. Padding (Hk 26 -> 32 and 50 -> 56, O 100 -> 112) makes them do
+// about 1.3x the function's products.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W:
+// 1.285 ms at that geometry (81 TFLOP/s) and 9.52 ms at B = 65,536, the
+// recompute form 1.70 and 12.62 ms, against 4.56, 35.60 and 48.73 ms for
+// the CUDA-core design this replaces. At 65,536, phase 1 takes 6.9 ms,
+// the two dW contractions 2.4 ms and the reductions 0.5 ms; the bare bf16
+// contractions (torch.matmul on prebuilt operands) take 5.81 ms. Phase 1
+// runs one block of 16 warps an SM with a few products a field between
+// barriers: neither a deeper W ring nor loading its gpre rows or x0
+// earlier made it faster; what holds it is an open question (PERF.md).
 //
-// Design (simple and deterministic first; tensor cores are later work):
-// - The TPU kernel carries dW and db in VMEM across its sequential grid.
-//   Blocks on the card run in no order, so the work splits in two
-//   phases, with no atomics, each sum in a fixed order:
-//   1. cin_chain_bwd_cols: everything except dW is local to a column, so
-//      a block owns 128 columns (128/D whole batch rows, as in K1) and
-//      walks the layers. It computes gpre, writes it rounded to bf16 and
-//      transposed, (B*D, O_pad), for phase 2, writes its partial db per
-//      map, and keeps dx0 and the dxk chain in shared memory and
-//      registers. u for a whole layer is K_i x 128 f32 (665 KB at K =
-//      1300), too big for shared memory, so it is formed one field h at a
-//      time (Hk rows x 128 columns, the reference's loop over groups) and
-//      folded into dx0[h] and dxk at once. gpre is kept in bf16 (exact:
-//      it is rounded already) and W is walked in chunks of maps sized to
-//      fit, so the widest geometry K1 takes fits too; at the training
-//      geometry one chunk holds all maps and a block takes 105 KB. Warp w owns rows [8w, 8w+8) of
-//      u and their dxk, each lane 4 consecutive columns.
-//   2. cin_chain_bwd_dw: dW_i = z_i . gpre_i^T over all B*D columns. A
-//      block owns 128 rows and 128 maps of dW and one split of the
-//      columns; it rebuilds its z rows in shared memory from x0 and the
-//      saved xk rows, 64 columns at a time, and writes a partial dW per
-//      split.
-//   3. cin_chain_bwd_reduce: dW = the sum of the split partials and db
-//      the sum of the block partials, both in index order.
-// - The products run on the CUDA cores in f32. Every product is of two
-//   bf16 values (or is an f32 product the reference also forms in f32),
-//   so only the order of the f32 sums differs from the plain version.
+// Design. The TPU kernel carries dW and db in VMEM across its sequential
+// grid. Blocks on the card run in no order, so the work splits in three
+// phases, with no atomics, each sum in a fixed order: two calls are
+// bit-equal.
+// 1. cin_chain_bwd_cols: everything except dW is local to a column, so a
+//    block owns 128 columns (128/D whole batch rows, as in K1) and walks
+//    the layers in reverse with K5's 16 warps (cin_bwd_mma.cuh). Per
+//    layer it forms gpre on the CUDA cores (a warp per map row: the
+//    cotangent, act' from the fmap or its bit), writes its partial db per
+//    map, and keeps bf16(gpre) (O16 x 128) in shared memory and in device
+//    memory (O, B*D) for phase 2, beside bf16 copies of the layer's xk (x0
+//    for layer 0). Then, per field h, u_h = W_h (Hk8 x O16) . gpre (O16 x
+//    128) on the tensor cores, through K5's field loop: W in K5's layout
+//    (Hk padded to 8) streams through a cp.async ring, gpre comes through
+//    ldmatrix.trans, and u is folded from the accumulator fragments into
+//    dx0[h] (kept in shared memory, f32, across the layers) and dxk
+//    (registers, across the fields), with x0 and xk in f32. dxk goes down
+//    to the layer below through shared memory (the ring's), or onto dx0 at
+//    layer 0.
+// 2. The dW contraction of K5 (cin_bwd_mma.cuh: cin_bwd_dw), once per
+//    layer: dW_i = z_i . bf16(gpre_i)^T over the columns in splits, z built
+//    in registers from the bf16 copies, a partial dW per split.
+// 3. cin_chain_bwd_reduce: dW = the sum of the split partials and db the
+//    sum of the block partials, both in index order.
 //
 // The recompute form (the reference's CHAIN_SAVE_FMAPS = False: no fmap
 // crosses from the forward to the backward, whose activation memory is
@@ -65,54 +75,48 @@
 // order, so the rebuilt values are the bits K1 saves; it writes, into
 // scratch that lives only for the backward, the two things phases 1 and 2
 // read of the fmaps: each non-final layer's feed rows in f32 (phase 1
-// takes xk in f32, phase 2 rounds it to bf16) and one bit per fmap
-// element (fmap > 0, which gives act'). Phases 1-3 then run as in the
+// takes xk in f32 and makes the bf16 copy phase 2 reads) and one bit per
+// fmap element (fmap > 0, which gives act'). Phases 1-3 then run as in the
 // save form, reading the feed scratch where they read fmap rows and the
 // bits where they read the fmap for act', so both forms give the same
 // bits. Scratch at the training geometry (units (100, 100), B*D =
 // 1,048,576, batch 65,536): feed rows 50 x B*D x 4 B = 209.7 MB and bits
 // 200 x B*D / 8 = 26.2 MB, against the save form's 838.9 MB of fmaps kept
-// from the forward to the backward. The alternative, rebuilding inside
-// phase 1 and phase 2 each, would repeat the forward's operations twice
-// and needs every layer's feed rows in phase 1's shared memory at once.
+// from the forward to the backward.
 // Bound on an H100 SXM: operations, the forward's and the backward's:
 // 155.4 GFLOP at B = 8192, 0.157 ms at 989 TFLOP/s.
 //
 // Geometry taken (the wrapper checks and raises outside it): K1's range
 // (D divides 128, B*D a multiple of 128, at most 8 layers, O_i <= 256,
-// non-final O_i even, H0 and Hk_i <= 128) and shared memory <= 227 KB;
-// the recompute form's phase 0 is K1 and takes K1's range.
+// non-final O_i even, H0 and Hk_i <= 128); phase 1 then needs under 200
+// KB of shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
+#include "cin_bwd_mma.cuh"
 #include "cin_chain_fwd.cuh"
 
 namespace {
 
+using cinbwd::kCols;
+using cinbwd::kColsThreads;
+using cinbwd::kGStride;
+using cinbwd::kMaxSmem;
+using cinbwd::kSlice;
+using cinbwd::round_up;
+
 constexpr int kMaxLayers = 8;
-constexpr int kTileN = 128;   // B*D columns per block of phase 1
-constexpr int kRows = 8;      // rows of u per warp
-constexpr int kMinWarps = 4;
-constexpr int kGStride = 132; // floats per gpre row in shared memory
-constexpr int kTileR = 128;   // dW rows per block of phase 2
-constexpr int kChunk = 64;    // columns per step of phase 2
-constexpr int kStage = kChunk + 1;
-constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
 
 struct ColsArgs {
   const float* x0c;  // (h0, bd) f32
-  int h0, bd, d, n_layers, act, o_total, nwarps;
-  int max_hk, max_o, o_chunk, max_hk_pad;
-  int hk[kMaxLayers], o[kMaxLayers], feed[kMaxLayers], hk_pad[kMaxLayers];
-  int o_pad[kMaxLayers], db_off[kMaxLayers];
-  const __nv_bfloat16* wt[kMaxLayers];  // (h0, o, hk_pad) bf16: [h][o][m] = W[h*hk+m, o]
+  int h0, bd, d, n_layers, act, o_total, max_o16;
+  int hk[kMaxLayers], hk8[kMaxLayers], o[kMaxLayers], o16[kMaxLayers], o64[kMaxLayers];
+  int sw[kMaxLayers], feed[kMaxLayers], db_off[kMaxLayers];
+  const __nv_bfloat16* wp[kMaxLayers];  // (h0*hk8, o64) bf16: [h*hk8 + m][o] = bf16(W[h*hk+m, o])
   const float* fmap[kMaxLayers];        // (o, bd) f32 saved fmap, or null: read sign
   const uint32_t* sign[kMaxLayers];     // (o, bd/128, 4) uint32 bits fmap > 0
-  const float* xk[kMaxLayers];          // (>= hk, bd) f32 rows of layer l's xk, l >= 1
+  const float* xk[kMaxLayers];          // (>= hk, bd) f32 rows of layer l's xk (x0c for l = 0)
   const float* g[kMaxLayers];           // (bd/d, o - feed) f32
-  __nv_bfloat16* gt[kMaxLayers];        // (bd, o_pad) bf16: bf16(gpre) transposed
+  __nv_bfloat16* gb[kMaxLayers];        // (o, bd) bf16 scratch: bf16(gpre)
+  __nv_bfloat16* xkb[kMaxLayers];       // (hk, bd) bf16 scratch: bf16(xk); xkb[0] = bf16(x0)
   float* pdb;                           // (bd/128, o_total) f32
   float* dx0;                           // (h0, bd) f32
 };
@@ -125,40 +129,44 @@ __device__ __forceinline__ float act_deriv(bool positive, int act) {
   return 1.0f;
 }
 
-__global__ void __launch_bounds__(512) cin_chain_bwd_cols(const ColsArgs a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* x0s = smem;                          // h0 x 128, f32
-  float* dx0s = x0s + a.h0 * kTileN;          // h0 x 128
-  float* xks = dx0s + a.h0 * kTileN;          // max_hk x 128: xk, or dxk handed down
-  float* wts = xks + a.max_hk * kTileN;       // o_chunk x hk_pad: a chunk of one field's W
-  float* red = wts + a.o_chunk * a.max_hk_pad;  // nwarps x 128: partial dx0 sums
-  __nv_bfloat16* gps =                        // max_o x kGStride: bf16(gpre), exact
-      reinterpret_cast<__nv_bfloat16*>(red + a.nwarps * kTileN);
+// Phase 1's shared memory before the ring: dx0 (h0 x 128 f32), the dx0
+// partials (4 x 128 f32) and bf16(gpre) (max_o16 x kGStride bf16).
+int cols_fixed_bytes(int h0, int max_o16) {
+  return h0 * kCols * 4 + 4 * kCols * 4 + max_o16 * kGStride * 2;
+}
+
+// NTW: n8 tiles of u a warp holds, at least half of the widest hk8 / 8
+template <int NTW>
+__global__ void __launch_bounds__(kColsThreads, 1) cin_chain_bwd_cols(const ColsArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dx0s = reinterpret_cast<float*>(smem);                 // h0 x 128
+  float* red = dx0s + a.h0 * kCols;                             // 2 x 2 x 128: dx0 halves
+  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(red + 4 * kCols);  // max_o16 x kGStride
+  unsigned char* tail = reinterpret_cast<unsigned char*>(gs + a.max_o16 * kGStride);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(tail);  // the field loop's W ring
+  float* dxks = reinterpret_cast<float*>(tail);                  // hk x 128: dxk handed down
 
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
   const int n0 = lane * 4;
-  const int col0 = blockIdx.x * kTileN;
+  const int col0 = blockIdx.x * kCols;
   const int row0 = col0 / a.d;
 
-  for (int i = tid; i < a.h0 * (kTileN / 4); i += nthreads) {
-    const int h = i / (kTileN / 4), c = (i % (kTileN / 4)) * 4;
-    *reinterpret_cast<float4*>(x0s + h * kTileN + c) =
-        *reinterpret_cast<const float4*>(a.x0c + (size_t)h * a.bd + col0 + c);
-    *reinterpret_cast<float4*>(dx0s + h * kTileN + c) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  for (int i = tid; i < a.h0 * kCols; i += kColsThreads) dx0s[i] = 0.0f;
 
-  float dxk[kRows][4];
   for (int l = a.n_layers - 1; l >= 0; --l) {
-    const int hk = a.hk[l], o = a.o[l], feed = a.feed[l], hk_pad = a.hk_pad[l];
+    const int hk = a.hk[l], hk8 = a.hk8[l], o = a.o[l], o16 = a.o16[l], feed = a.feed[l];
     const int nd = o - feed;
-    __syncthreads();  // x0s loaded; the dxk handed down by layer l+1 is in xks
+    __syncthreads();  // dxks holds layer l+1's dxk; gs and the ring are free
 
-    // gpre, its bf16 rounding and this block's partial db, one map per warp
-    for (int r = warp; r < o; r += a.nwarps) {
+    // gpre, its bf16 rounding and this block's partial db, one map per
+    // warp; rows [o, o16) of gs are zero
+    for (int r = warp; r < o16; r += kColsThreads / 32) {
+      uint2* gdst = reinterpret_cast<uint2*>(gs + r * kGStride + n0);
+      if (r >= o) {
+        *gdst = make_uint2(0u, 0u);
+        continue;
+      }
       bool pos[4];
       if (a.fmap[l] != nullptr) {
         const float4 f = *reinterpret_cast<const float4*>(
@@ -166,235 +174,78 @@ __global__ void __launch_bounds__(512) cin_chain_bwd_cols(const ColsArgs a) {
         pos[0] = f.x > 0.0f, pos[1] = f.y > 0.0f, pos[2] = f.z > 0.0f, pos[3] = f.w > 0.0f;
       } else {
         const uint4 s = reinterpret_cast<const uint4*>(a.sign[l])[
-            (size_t)r * (a.bd / kTileN) + blockIdx.x];
+            (size_t)r * (a.bd / kCols) + blockIdx.x];
         pos[0] = (s.x >> lane) & 1u, pos[1] = (s.y >> lane) & 1u;
         pos[2] = (s.z >> lane) & 1u, pos[3] = (s.w >> lane) & 1u;
       }
       float gp[4];
-      float s = 0.0f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const float df = r < feed
-            ? xks[r * kTileN + n0 + c]
+            ? dxks[r * kCols + n0 + c]
             : a.g[l][(size_t)(row0 + (n0 + c) / a.d) * nd + (r - feed)];
         gp[c] = a.act == 0 ? df : df * act_deriv(pos[c], a.act);
       }
-      s = (gp[0] + gp[1]) + (gp[2] + gp[3]);
+      float s = (gp[0] + gp[1]) + (gp[2] + gp[3]);
       for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
       if (lane == 0) a.pdb[(size_t)blockIdx.x * a.o_total + a.db_off[l] + r] = s;
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(gps + r * kGStride + n0);
-      dst[0] = __floats2bfloat162_rn(gp[0], gp[1]);
-      dst[1] = __floats2bfloat162_rn(gp[2], gp[3]);
+      const uint2 b = tc::pack_bf16x4(make_float4(gp[0], gp[1], gp[2], gp[3]));
+      *gdst = b;
+      *reinterpret_cast<uint2*>(a.gb[l] + (size_t)r * a.bd + col0 + n0) = b;
     }
-    __syncthreads();  // gpre complete; the handed-down dxk is consumed
+    // bf16 copies of this layer's xk (x0 for layer 0) for the dW phase
+    const float* xk = a.xk[l];
+    for (int i = tid; i < hk * (kCols / 4); i += kColsThreads) {
+      const int m = i >> 5, c = (i & 31) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(xk + (size_t)m * a.bd + col0 + c);
+      *reinterpret_cast<uint2*>(a.xkb[l] + (size_t)m * a.bd + col0 + c) = tc::pack_bf16x4(v);
+    }
+    // this thread's xk, f32, in the fragment layout of its dxk
+    const cinbwd::ColsThread t = cinbwd::cols_thread(hk8, a.bd);
+    float xkr[NTW][4], dxk[NTW][4];
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int m = 8 * (t.j0 + j) + 2 * t.q;
+      const bool on = j < t.ntw;
+      xkr[j][0] = on && m < hk ? xk[(size_t)m * a.bd + t.ca] : 0.0f;
+      xkr[j][1] = on && m + 1 < hk ? xk[(size_t)(m + 1) * a.bd + t.ca] : 0.0f;
+      xkr[j][2] = on && m < hk ? xk[(size_t)m * a.bd + t.cb] : 0.0f;
+      xkr[j][3] = on && m + 1 < hk ? xk[(size_t)(m + 1) * a.bd + t.cb] : 0.0f;
+      dxk[j][0] = dxk[j][1] = dxk[j][2] = dxk[j][3] = 0.0f;
+    }
+    __syncthreads();  // gs is complete and dxks consumed: the ring may overwrite it
 
-    // bf16(gpre) transposed to (bd, o_pad) for the dW phase, padding maps 0
-    const int o_pad = a.o_pad[l];
-    for (int i = tid; i < kTileN * (o_pad / 2); i += nthreads) {
-      const int n = i / (o_pad / 2), r = (i % (o_pad / 2)) * 2;
-      const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-      __nv_bfloat162 v;
-      v.x = r < o ? gps[r * kGStride + n] : zero;
-      v.y = r + 1 < o ? gps[(r + 1) * kGStride + n] : zero;
-      *reinterpret_cast<__nv_bfloat162*>(a.gt[l] + (size_t)(col0 + n) * o_pad + r) = v;
-    }
-    // this layer's xk in f32: x0 for layer 0, fmap_{l-1}[:hk] after
-    for (int i = tid; i < hk * (kTileN / 4); i += nthreads) {
-      const int m = i / (kTileN / 4), c = (i % (kTileN / 4)) * 4;
-      const float4 v = l == 0
-          ? *reinterpret_cast<const float4*>(x0s + m * kTileN + c)
-          : *reinterpret_cast<const float4*>(a.xk[l] + (size_t)m * a.bd + col0 + c);
-      *reinterpret_cast<float4*>(xks + m * kTileN + c) = v;
-    }
+    const cinbwd::WRing w(ring, a.wp[l], a.h0, hk8, o16, a.o64[l], a.sw[l]);
+    w.prologue();
+    cinbwd::fold_fields<NTW>(w, gs, red, a.x0c, a.bd, a.h0, xkr, dxk, [&](int h) {
+      if (t.half != 0 || t.q != 0) return;
+      const float2 s = cinbwd::dx0_partials(red, h, t);
+      dx0s[h * kCols + t.wc + t.g] += s.x;
+      dx0s[h * kCols + t.wc + t.g + 8] += s.y;
+    });
 
-    const int m0 = warp * kRows;
-    const bool active = m0 < hk;                // warp-uniform
-    const int nact = (hk + kRows - 1) / kRows;  // warps that own rows
+    // dxk down to layer l-1's gpre (into the ring's memory, free now), or
+    // at layer 0 onto dx0, after the last field's partials are in
+    if (l == 0) __syncthreads();
+    const int na = t.wc + t.g, nb = na + 8;
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) dxk[j][0] = dxk[j][1] = dxk[j][2] = dxk[j][3] = 0.0f;
-
-    for (int h = 0; h < a.h0; ++h) {
-      float acc[kRows][4];
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-      for (int oc0 = 0; oc0 < o; oc0 += a.o_chunk) {
-        const int oc = min(a.o_chunk, o - oc0);
-        __syncthreads();  // the previous W chunk and partial sums are consumed
-        const uint4* wsrc =
-            reinterpret_cast<const uint4*>(a.wt[l] + ((size_t)h * o + oc0) * hk_pad);
-        for (int i = tid; i < oc * hk_pad / 8; i += nthreads) {
-          const uint4 u = __ldg(wsrc + i);
-          float4* dst = reinterpret_cast<float4*>(wts + i * 8);
-          dst[0] = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                               __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-          dst[1] = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
-                               __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
-        }
-        __syncthreads();
-        if (active) {
-#pragma unroll 2
-          for (int r = 0; r < oc; ++r) {
-            const uint2 gu = *reinterpret_cast<const uint2*>(gps + (oc0 + r) * kGStride + n0);
-            const float gv[4] = {__uint_as_float(gu.x << 16), __uint_as_float(gu.x & 0xffff0000u),
-                                 __uint_as_float(gu.y << 16), __uint_as_float(gu.y & 0xffff0000u)};
-            const float4 wa = *reinterpret_cast<const float4*>(wts + r * hk_pad + m0);
-            const float4 wb = *reinterpret_cast<const float4*>(wts + r * hk_pad + m0 + 4);
-            const float wv[kRows] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-            for (int j = 0; j < kRows; ++j) {
-#pragma unroll
-              for (int c = 0; c < 4; ++c) acc[j][c] = fmaf(wv[j], gv[c], acc[j][c]);
-            }
-          }
-        }
-      }
-      if (active) {
-        // fold u's rows for field h into dxk (times x0[h]) and dx0[h] (times xk)
-        const float4 xv = *reinterpret_cast<const float4*>(x0s + h * kTileN + n0);
-        const float x0v[4] = {xv.x, xv.y, xv.z, xv.w};
-        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          const int m = m0 + j;
-          if (m < hk) {
-            const float4 kv = *reinterpret_cast<const float4*>(xks + m * kTileN + n0);
-            const float xkv[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              dxk[j][c] = fmaf(acc[j][c], x0v[c], dxk[j][c]);
-              part[c] = fmaf(acc[j][c], xkv[c], part[c]);
-            }
-          }
-        }
-        *reinterpret_cast<float4*>(red + warp * kTileN + n0) =
-            make_float4(part[0], part[1], part[2], part[3]);
-      }
-      __syncthreads();
-      for (int i = tid; i < kTileN; i += nthreads) {
-        float s = 0.0f;
-        for (int w = 0; w < nact; ++w) s += red[w * kTileN + i];
-        dx0s[h * kTileN + i] += s;
-      }
-    }
-    __syncthreads();  // every read of this layer's xk and every dx0s update is done
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        const int m = m0 + j;
-        if (m >= hk) break;
-        float* dst = (l == 0 ? dx0s : xks) + m * kTileN + n0;
-        float4 v = l == 0 ? *reinterpret_cast<float4*>(dst) : make_float4(0.f, 0.f, 0.f, 0.f);
-        v.x += dxk[j][0];
-        v.y += dxk[j][1];
-        v.z += dxk[j][2];
-        v.w += dxk[j][3];
-        *reinterpret_cast<float4*>(dst) = v;
+    for (int j = 0; j < NTW; ++j) {
+      const int m = 8 * (t.j0 + j) + 2 * t.q;
+      if (j >= t.ntw) break;
+      if (l > 0) {
+        if (m < hk) dxks[m * kCols + na] = dxk[j][0], dxks[m * kCols + nb] = dxk[j][2];
+        if (m + 1 < hk) dxks[(m + 1) * kCols + na] = dxk[j][1], dxks[(m + 1) * kCols + nb] = dxk[j][3];
+      } else {
+        if (m < hk) dx0s[m * kCols + na] += dxk[j][0], dx0s[m * kCols + nb] += dxk[j][2];
+        if (m + 1 < hk) dx0s[(m + 1) * kCols + na] += dxk[j][1], dx0s[(m + 1) * kCols + nb] += dxk[j][3];
       }
     }
   }
   __syncthreads();
-  for (int i = tid; i < a.h0 * (kTileN / 4); i += nthreads) {
-    const int h = i / (kTileN / 4), c = (i % (kTileN / 4)) * 4;
+  for (int i = tid; i < a.h0 * (kCols / 4); i += kColsThreads) {
+    const int h = i / (kCols / 4), c = (i % (kCols / 4)) * 4;
     *reinterpret_cast<float4*>(a.dx0 + (size_t)h * a.bd + col0 + c) =
-        *reinterpret_cast<const float4*>(dx0s + h * kTileN + c);
-  }
-}
-
-struct DwArgs {
-  const float* x0c;             // (h0, bd) f32
-  const float* xk;              // (>= hk, bd) f32: x0c or the previous fmap
-  const __nv_bfloat16* gt;      // (bd, o_pad) bf16
-  float* pdw;                   // (splits, h0*hk, o) f32
-  int h0, hk, o, o_pad, bd, splits;
-};
-
-__global__ void __launch_bounds__(256) cin_chain_bwd_dw(const DwArgs a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* zs = smem;                       // kChunk x kTileR: z[n][r]
-  float* gs = zs + kChunk * kTileR;       // kChunk x 128:    gpre[n][o_base + o]
-  float* stage = gs + kChunk * kTileR;    // (nh + hk) x kStage: bf16(x0), bf16(xk)
-
-  const int tid = threadIdx.x;
-  const int k_rows = a.h0 * a.hk;
-  const int r_base = blockIdx.x * kTileR;
-  const int o_base = blockIdx.z * 128;
-  const int h_lo = r_base / a.hk;
-  const int h_hi = min(a.h0 - 1, (r_base + kTileR - 1) / a.hk);
-  const int nh = h_hi - h_lo + 1;
-  const int nchunks = a.bd / kChunk;
-  const int c_begin = (int)((long long)nchunks * blockIdx.y / a.splits);
-  const int c_end = (int)((long long)nchunks * (blockIdx.y + 1) / a.splits);
-
-  // this thread's z row, fixed for the whole block
-  const int zr = tid & (kTileR - 1);
-  const int rr = r_base + zr;
-  const bool zvalid = rr < k_rows;
-  const int zh = zvalid ? rr / a.hk - h_lo : 0;
-  const int zm = zvalid ? rr % a.hk : 0;
-
-  // this thread's 8 x 8 outputs: rows {4rg..4rg+3, 64+4rg..}, maps {4og.., 64+4og..}
-  const int rg = tid >> 4, og = tid & 15;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int ch = c_begin; ch < c_end; ++ch) {
-    const int c0 = ch * kChunk;
-    __syncthreads();  // the previous chunk's tiles are consumed
-    for (int i = tid; i < (nh + a.hk) * kChunk; i += blockDim.x) {
-      const int row = i / kChunk, n = i % kChunk;
-      const float v = row < nh ? a.x0c[(size_t)(h_lo + row) * a.bd + c0 + n]
-                               : a.xk[(size_t)(row - nh) * a.bd + c0 + n];
-      stage[row * kStage + n] = bf16_round(v);
-    }
-    for (int i = tid; i < kChunk * 16; i += blockDim.x) {
-      const int n = i / 16, q = (i % 16) * 8;
-      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-      if (o_base + q < a.o_pad) {
-        const uint4 u = __ldg(reinterpret_cast<const uint4*>(
-            a.gt + (size_t)(c0 + n) * a.o_pad + o_base + q));
-        lo = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                         __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-        hi = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
-                         __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
-      }
-      *reinterpret_cast<float4*>(gs + n * kTileR + q) = lo;
-      *reinterpret_cast<float4*>(gs + n * kTileR + q + 4) = hi;
-    }
-    __syncthreads();
-    for (int n = tid >> 7; n < kChunk; n += 2)
-      zs[n * kTileR + zr] = zvalid
-          ? bf16_round(stage[zh * kStage + n] * stage[(nh + zm) * kStage + n])
-          : 0.0f;
-    __syncthreads();
-#pragma unroll 2
-    for (int n = 0; n < kChunk; ++n) {
-      const float4 za = *reinterpret_cast<const float4*>(zs + n * kTileR + rg * 4);
-      const float4 zb = *reinterpret_cast<const float4*>(zs + n * kTileR + 64 + rg * 4);
-      const float4 ga = *reinterpret_cast<const float4*>(gs + n * kTileR + og * 4);
-      const float4 gb = *reinterpret_cast<const float4*>(gs + n * kTileR + 64 + og * 4);
-      const float zv[8] = {za.x, za.y, za.z, za.w, zb.x, zb.y, zb.z, zb.w};
-      const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(zv[i], gv[j], acc[i][j]);
-    }
-  }
-
-  float* dst = a.pdw + (size_t)blockIdx.y * k_rows * a.o;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = r_base + (i < 4 ? rg * 4 + i : 64 + rg * 4 + i - 4);
-    if (r >= k_rows) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int oc = o_base + (j < 4 ? og * 4 + j : 64 + og * 4 + j - 4);
-      if (oc < a.o) dst[(size_t)r * a.o + oc] = acc[i][j];
-    }
+        *reinterpret_cast<const float4*>(dx0s + h * kCols + c);
   }
 }
 
@@ -416,51 +267,48 @@ __global__ void cin_chain_bwd_reduce(const float* pdw, int splits, int n_dw, flo
   }
 }
 
-int round8(int x) { return (x + 7) / 8 * 8; }
-
-// Shared memory of a phase-1 block, in bytes, with W walked in chunks of
-// o_chunk maps.
-int cols_smem_bytes(int h0, int max_hk, int max_hk_pad, int max_o, int o_chunk, int nwarps) {
-  return ((2 * h0 + max_hk) * kTileN + o_chunk * max_hk_pad + nwarps * kTileN) *
-             (int)sizeof(float) +
-         max_o * kGStride * (int)sizeof(__nv_bfloat16);
-}
-
-// Phase 1's block: one warp per 8 rows of the widest fan-in (at least
-// kMinWarps) and the widest W chunk that fits (all maps at the training
-// geometry). smem may exceed kMaxSmem: the geometry is then refused.
+// Phase 1's block for a geometry: the W slice of each layer's ring (the
+// widest multiple of 64 maps that fits), the n8 tiles a warp holds, and
+// the shared memory in bytes (over kMaxSmem means the geometry is
+// refused; K1's range needs under 200 KB).
 struct ColsPlan {
-  int max_hk, max_o, nwarps, o_chunk, smem;
+  int max_o16, ntw, smem;
+  int sw[kMaxLayers];
 };
 
 ColsPlan cols_plan(int h0, int n_layers, const int* units) {
   ColsPlan p;
-  p.max_hk = p.max_o = 0;
-  int hk = h0;
+  p.max_o16 = p.ntw = 0;
+  int hk = h0, dxks = 0;
   for (int l = 0; l < n_layers; ++l) {
-    if (hk > p.max_hk) p.max_hk = hk;
-    if (units[l] > p.max_o) p.max_o = units[l];
+    if (round_up(units[l], 16) > p.max_o16) p.max_o16 = round_up(units[l], 16);
+    const int ntw = (round_up(hk, 8) / 8 + 1) / 2;
+    if (ntw > p.ntw) p.ntw = ntw;
+    if (l > 0 && hk * kCols * 4 > dxks) dxks = hk * kCols * 4;
     hk = units[l] / 2;
   }
-  p.nwarps = (p.max_hk + kRows - 1) / kRows;
-  if (p.nwarps < kMinWarps) p.nwarps = kMinWarps;
-  const int hk_pad = round8(p.max_hk);
-  p.o_chunk = round8(p.max_o);
-  while (p.o_chunk > 8 &&
-         cols_smem_bytes(h0, p.max_hk, hk_pad, p.max_o, p.o_chunk, p.nwarps) > kMaxSmem)
-    p.o_chunk -= 8;
-  p.smem = cols_smem_bytes(h0, p.max_hk, hk_pad, p.max_o, p.o_chunk, p.nwarps);
+  const int fixed = cols_fixed_bytes(h0, p.max_o16);
+  int tail = dxks;
+  hk = h0;
+  for (int l = 0; l < n_layers; ++l) {
+    const int hk8 = round_up(hk, 8);
+    int sw = round_up(units[l], kSlice);
+    while (sw > kSlice && fixed + cinbwd::ring_bytes(hk8, sw) > kMaxSmem) sw -= kSlice;
+    p.sw[l] = sw;
+    if (cinbwd::ring_bytes(hk8, sw) > tail) tail = cinbwd::ring_bytes(hk8, sw);
+    hk = units[l] / 2;
+  }
+  p.smem = fixed + tail;
   return p;
 }
 
-// Column splits of phase 2 for a layer with k_rows rows of dW: enough
-// (row tile, split) blocks for two per SM, each split a whole number of
-// column chunks.
-int dw_splits(int k_rows, int bd, int sms) {
-  const int tiles = (k_rows + kTileR - 1) / kTileR;
-  int s = (2 * sms + tiles - 1) / tiles;
-  if (s > bd / kChunk) s = bd / kChunk;
-  return s < 1 ? 1 : s;
+template <int NTW>
+cudaError_t launch_cols(const ColsArgs& a, int smem, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(cin_chain_bwd_cols<NTW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cin_chain_bwd_cols<NTW><<<a.bd / kCols, kColsThreads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -469,12 +317,12 @@ int dw_splits(int k_rows, int bd, int sms) {
 // column splits of layer l's dW phase (the wrapper sizes its partial-dW
 // scratch by them), for a card with `sms` SMs, and returns the shared
 // memory of a phase-1 block in bytes (over 232448 means K2 refuses the
-// geometry). A phase-2 block needs under 100 KB for any such geometry.
+// geometry).
 extern "C" int cin_chain_bwd_plan(int h0, int bd, int n_layers, const int* units, int sms,
                                   int* splits) {
   int hk = h0;
   for (int l = 0; l < n_layers; ++l) {
-    splits[l] = dw_splits(h0 * hk, bd, sms);
+    splits[l] = cinbwd::dw_splits(h0 * hk, units[l], bd, sms);
     hk = units[l] / 2;
   }
   return cols_plan(h0, n_layers, units).smem;
@@ -487,12 +335,12 @@ namespace {
 // 0; xk[l] for l >= 1: (>= hk_l, bd) f32 rows holding layer l's xk (the
 // saved fmap_{l-1}, or the feed rows of the recompute form's phase 0).
 int bwd_launch(const void* x0c, int h0, int bd, int d, int n_layers, const int* units,
-               const void* const* wt, const void* const* fmap, const void* const* sign,
-               const void* const* xk, const void* const* g, void* const* gt, void* pdb,
-               void* const* pdw, const int* splits, void* dx0, void* const* dw,
+               const void* const* wp, const void* const* fmap, const void* const* sign,
+               const void* const* xk, const void* const* g, void* const* gb, void* const* xkb,
+               void* pdb, void* const* pdw, const int* splits, void* dx0, void* const* dw,
                void* const* db, int act, cudaStream_t st) {
   if (n_layers < 1 || n_layers > kMaxLayers || h0 < 1 || h0 > 128 || d < 1 ||
-      kTileN % d != 0 || bd % kTileN != 0 || act < 0 || act > 2)
+      kCols % d != 0 || bd % kCols != 0 || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
   ColsArgs a;
   a.x0c = static_cast<const float*>(x0c);
@@ -509,65 +357,44 @@ int bwd_launch(const void* x0c, int h0, int bd, int d, int n_layers, const int* 
     if (o < 1 || o > 256 || (!final_layer && o % 2 != 0) || hk > 128 || splits[l] < 1)
       return (int)cudaErrorInvalidValue;
     a.hk[l] = hk;
+    a.hk8[l] = round_up(hk, 8);
     a.o[l] = o;
+    a.o16[l] = round_up(o, 16);
+    a.o64[l] = round_up(o, kSlice);
     a.feed[l] = final_layer ? 0 : o / 2;
-    a.hk_pad[l] = round8(hk);
-    a.o_pad[l] = round8(o);
     a.db_off[l] = a.o_total;
     a.o_total += o;
-    a.wt[l] = static_cast<const __nv_bfloat16*>(wt[l]);
+    a.wp[l] = static_cast<const __nv_bfloat16*>(wp[l]);
     a.fmap[l] = fmap != nullptr ? static_cast<const float*>(fmap[l]) : nullptr;
     a.sign[l] = sign != nullptr ? static_cast<const uint32_t*>(sign[l]) : nullptr;
     if (a.fmap[l] == nullptr && a.sign[l] == nullptr) return (int)cudaErrorInvalidValue;
     a.xk[l] = l == 0 ? a.x0c : static_cast<const float*>(xk[l]);
     a.g[l] = static_cast<const float*>(g[l]);
-    a.gt[l] = static_cast<__nv_bfloat16*>(gt[l]);
+    a.gb[l] = static_cast<__nv_bfloat16*>(gb[l]);
+    a.xkb[l] = static_cast<__nv_bfloat16*>(xkb[l]);
     hk = o / 2;
   }
   a.pdb = static_cast<float*>(pdb);
   a.dx0 = static_cast<float*>(dx0);
   const ColsPlan plan = cols_plan(h0, n_layers, units);
-  a.max_hk = plan.max_hk;
-  a.max_o = plan.max_o;
-  a.max_hk_pad = round8(plan.max_hk);
-  a.nwarps = plan.nwarps;
-  a.o_chunk = plan.o_chunk;
-  const int smem1 = plan.smem;
-  if (smem1 > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      cin_chain_bwd_cols, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = bd / kTileN;
-  cin_chain_bwd_cols<<<blocks, 32 * a.nwarps, smem1, st>>>(a);
-  err = cudaGetLastError();
+  if (plan.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  a.max_o16 = plan.max_o16;
+  for (int l = 0; l < n_layers; ++l) a.sw[l] = plan.sw[l];
+  cudaError_t err = plan.ntw <= 2 ? launch_cols<2>(a, plan.smem, st)
+                  : plan.ntw <= 4 ? launch_cols<4>(a, plan.smem, st)
+                                  : launch_cols<8>(a, plan.smem, st);
   if (err != cudaSuccess) return (int)err;
 
+  const int blocks = bd / kCols;
   for (int l = 0; l < n_layers; ++l) {
-    DwArgs b;
-    b.x0c = a.x0c;
-    b.xk = a.xk[l];
-    b.gt = a.gt[l];
-    b.pdw = static_cast<float*>(pdw[l]);
-    b.h0 = h0;
-    b.hk = a.hk[l];
-    b.o = a.o[l];
-    b.o_pad = a.o_pad[l];
-    b.bd = bd;
-    b.splits = splits[l];
-    const int k_rows = h0 * b.hk;
-    const int nh_max = (kTileR / b.hk + 2 < h0) ? kTileR / b.hk + 2 : h0;
-    const int smem2 = (2 * kChunk * kTileR + (nh_max + b.hk) * kStage) * (int)sizeof(float);
-    err = cudaFuncSetAttribute(cin_chain_bwd_dw,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
+    float* pdw_l = static_cast<float*>(pdw[l]);
+    err = cinbwd::dw_launch(a.xkb[0], a.xkb[l], a.gb[l], pdw_l, h0, a.hk[l], a.o[l], bd,
+                            splits[l], st);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((k_rows + kTileR - 1) / kTileR, b.splits, (b.o + 127) / 128);
-    cin_chain_bwd_dw<<<grid, 256, smem2, st>>>(b);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const int n_dw = k_rows * b.o;
-    cin_chain_bwd_reduce<<<(n_dw + b.o + 255) / 256, 256, 0, st>>>(
-        b.pdw, b.splits, n_dw, static_cast<float*>(dw[l]), a.pdb, blocks, a.o_total,
-        a.db_off[l], b.o, static_cast<float*>(db[l]));
+    const int n_dw = h0 * a.hk[l] * a.o[l];
+    cin_chain_bwd_reduce<<<(n_dw + a.o[l] + 255) / 256, 256, 0, st>>>(
+        pdw_l, splits[l], n_dw, static_cast<float*>(dw[l]), a.pdb, blocks, a.o_total,
+        a.db_off[l], a.o[l], static_cast<float*>(db[l]));
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -577,42 +404,43 @@ int bwd_launch(const void* x0c, int h0, int bd, int d, int n_layers, const int* 
 }  // namespace
 
 // Launches K2's save form on `stream`: phase 1 once, then phase 2 and the
-// reduction once per layer. x0c (h0, bd) f32; wt[l] (h0, units[l],
-// roundup8(hk_l)) bf16 with wt[l][h][o][m] = W_l[h*hk_l + m, o] and
-// padding 0; fmap[l] (units[l], bd) f32 from K1; g[l] (bd/d, F_l) f32
-// pooled cotangents. Scratch: gt[l] (bd, roundup8(units[l])) bf16; pdb
-// (bd/128, sum units) f32; pdw[l] (splits[l], h0*hk_l, units[l]) f32.
-// Out: dx0 (h0, bd), dw[l] (h0*hk_l, units[l]), db[l] (units[l],), all
-// f32. act: 0 identity, 1 relu, 2 leaky_relu. Returns cudaGetLastError()
-// after the launches (or cudaErrorInvalidValue for a geometry outside the
-// kernel's range).
+// reduction once per layer. x0c (h0, bd) f32; wp[l] (h0*hk8_l,
+// roundup64(units[l])) bf16 in K5's layout, wp[l][h*hk8_l + m][o] =
+// bf16(W_l[h*hk_l + m, o]) with hk8_l = roundup8(hk_l) and padding 0;
+// fmap[l] (units[l], bd) f32 from K1; g[l] (bd/d, F_l) f32 pooled
+// cotangents. Scratch: gb[l] (units[l], bd) bf16; xkb[l] (hk_l, bd) bf16
+// (xkb[0] (h0, bd)); pdb (bd/128, sum units) f32; pdw[l] (splits[l],
+// h0*hk_l, units[l]) f32. Out: dx0 (h0, bd), dw[l] (h0*hk_l, units[l]),
+// db[l] (units[l],), all f32. act: 0 identity, 1 relu, 2 leaky_relu.
+// Returns cudaGetLastError() after the launches (or cudaErrorInvalidValue
+// for a geometry outside the kernel's range).
 extern "C" int cin_chain_bwd(const void* x0c, int h0, int bd, int d, int n_layers,
-                             const int* units, const void* const* wt,
+                             const int* units, const void* const* wp,
                              const void* const* fmap, const void* const* g,
-                             void* const* gt, void* pdb, void* const* pdw,
+                             void* const* gb, void* const* xkb, void* pdb, void* const* pdw,
                              const int* splits, void* dx0, void* const* dw,
                              void* const* db, int act, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
   const void* xk[kMaxLayers] = {nullptr};
   for (int l = 1; l < n_layers; ++l) xk[l] = fmap[l - 1];
-  return bwd_launch(x0c, h0, bd, d, n_layers, units, wt, fmap, nullptr, xk, g, gt, pdb, pdw,
-                    splits, dx0, dw, db, act, static_cast<cudaStream_t>(stream));
+  return bwd_launch(x0c, h0, bd, d, n_layers, units, wp, fmap, nullptr, xk, g, gb, xkb, pdb,
+                    pdw, splits, dx0, dw, db, act, static_cast<cudaStream_t>(stream));
 }
 
 // Launches K2's recompute form on `stream`: phase 0 (K1's kernel, from x0c,
 // w and b, writing the feed rows and the sign bits), then phases 1-3 as
-// the save form. w[l] (h0*hk_l, roundup8(units[l])) bf16 and b[l]
-// (units[l],) f32 as K1 takes them; wt, g, gt, pdb, pdw, splits and the
-// outputs as cin_chain_bwd. Scratch of phase 0: feed[l] for every
-// non-final layer (units[l]/2, bd) f32 (feed[n_layers-1] unused); sign[l]
-// (units[l], bd/128, 4) uint32. Returns as cin_chain_bwd.
+// the save form. w[l] in K1's layout and b[l] (units[l],) f32 as K1 takes
+// them; wp, g, gb, xkb, pdb, pdw, splits and the outputs as
+// cin_chain_bwd. Scratch of phase 0: feed[l] for every non-final layer
+// (units[l]/2, bd) f32 (feed[n_layers-1] unused); sign[l] (units[l],
+// bd/128, 4) uint32. Returns as cin_chain_bwd.
 extern "C" int cin_chain_bwd_recompute(const void* x0c, int h0, int bd, int d, int n_layers,
                                        const int* units, const void* const* w,
-                                       const void* const* b, const void* const* wt,
+                                       const void* const* b, const void* const* wp,
                                        void* const* feed, void* const* sign,
-                                       const void* const* g, void* const* gt, void* pdb,
-                                       void* const* pdw, const int* splits, void* dx0,
-                                       void* const* dw, void* const* db, int act,
+                                       const void* const* g, void* const* gb, void* const* xkb,
+                                       void* pdb, void* const* pdw, const int* splits,
+                                       void* dx0, void* const* dw, void* const* db, int act,
                                        void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -625,6 +453,6 @@ extern "C" int cin_chain_bwd_recompute(const void* x0c, int h0, int bd, int d, i
   const int err = chain_fwd_launch(x0c, h0, bd, d, n_layers, units, w, b, nullptr, fmap, sign,
                                    act, st);
   if (err != 0) return err;
-  return bwd_launch(x0c, h0, bd, d, n_layers, units, wt, nullptr, sign, xk, g, gt, pdb, pdw,
-                    splits, dx0, dw, db, act, st);
+  return bwd_launch(x0c, h0, bd, d, n_layers, units, wp, nullptr, sign, xk, g, gb, xkb, pdb,
+                    pdw, splits, dx0, dw, db, act, st);
 }

@@ -1,5 +1,5 @@
 // K1: the whole CIN tower forward in one launch, with or without saving
-// the fmaps for the backward.
+// the fmaps for the backward, on the tensor cores.
 //
 // Replaces the TPU kernel recman_tpu/ops/cin_chain.py:_chain_fwd_kernel
 // (launched from _chain_fwd_pallas). Bound to PyTorch through a plain C
@@ -17,11 +17,16 @@
 // of bf16 products, 52 us at the 989 TFLOP/s bf16 tensor-core peak; the
 // bytes (13.6 MB of x0c in, 4.9 MB pooled out) take 5.5 us at 3.35 TB/s;
 // saving the fmaps adds 104.9 MB (2 x 100 x 131,072 x 4 B), 31 us, so
-// operations bound the save variant too.
-// This simple design runs on the CUDA cores: 1.56 ms at that geometry on
-// an H100 80GB HBM3 at a 700 W power limit (chip_smoke.py), about 30x the
-// bound. Tensor cores (mma.sync / wgmma, bf16 in, f32 sums) keep the same
-// rounding and are the next step.
+// operations bound the save variant too. Padding (Hk 26 -> 32 and 50 ->
+// 56, O 100 -> 112) makes the tensor cores do about 1.3x the function's
+// products.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W:
+// 0.467 ms at that geometry (111 TFLOP/s of the function's products; the
+// save form 0.473 ms) and 3.47 ms saving at B = 65,536 (119 TFLOP/s),
+// against 1.63 and 12.58 ms for the CUDA-core design this replaces. The
+// bare bf16 contraction on a prebuilt z (torch.matmul) takes 0.286 ms:
+// what is left over it is building z in registers, the split sums and
+// the epilogue's passes over shared memory; wgmma is the next step.
 
 #include "cin_chain_fwd.cuh"
 
@@ -30,12 +35,12 @@ extern "C" int cin_chain_fwd_smem_bytes(int h0, int n_layers, const int* units) 
   return chain_fwd_smem_bytes(h0, n_layers, units);
 }
 
-// Launches K1 on `stream`. x0c (h0, bd) f32; w[l] (h0*hk_l, o_pad_l) bf16
-// with o_pad_l = roundup(units[l], 8) and padding columns zero; b[l]
-// (units[l],) f32; out[l] (bd/d, F_l) f32; fmap null (no fmaps saved) or
-// fmap[l] (units[l], bd) f32. act: 0 identity, 1 relu, 2 leaky_relu.
-// Returns cudaGetLastError() after the launch (or cudaErrorInvalidValue
-// for a geometry outside the kernel's range).
+// Launches K1 on `stream`. x0c (h0, bd) f32; w[l] (units[l], kp_l) bf16
+// in K4's layout (cin_chain_fwd.cuh: chain_fwd_launch); b[l] (units[l],)
+// f32; out[l] (bd/d, F_l) f32; fmap null (no fmaps saved) or fmap[l]
+// (units[l], bd) f32. act: 0 identity, 1 relu, 2 leaky_relu. Returns
+// cudaGetLastError() after the launch (or cudaErrorInvalidValue for a
+// geometry outside the kernel's range).
 extern "C" int cin_chain_fwd(const void* x0c, int h0, int bd, int d, int n_layers,
                              const int* units, const void* const* w,
                              const void* const* b, void* const* out,

@@ -22,56 +22,62 @@
 //   gives the activation's derivative), into sign_i, laid out (O_i,
 //   B*D/128, 4) uint32: word c of (row o, block j) holds, in bit `lane`,
 //   column j*128 + lane*4 + c.
-// The feed rows stay in shared memory for the next layer either way.
+// The feed rows stay in shared memory, as bf16, for the next layer.
 //
-// Design (simple first; wgmma/TMA tiling is later work):
+// Bound on an H100 SXM: operations (cin_chain_fwd.cu gives the numbers),
+// so the products run on the tensor cores: mma.sync.m16n8k16, bf16
+// operands, f32 sums, through the k-loop K4 uses (cin_fwd_mma.cuh).
+//
+// Design:
 // - A block owns 128 columns = 128/D whole batch rows, so pooling over D
-//   stays inside the block and no cross-block reduction is needed.
-// - Shared memory holds the bf16-rounded x0 tile, the feed rows of the
-//   current fmap (updated in place, layer by layer), and per field h one
-//   chunk of z rows (Hk x 128) and of W rows (Hk x O_pad, widened to f32),
-//   each filled once by the whole block and read by every warp.
-// - Warp w computes maps [8w, 8w+8) for all 128 columns; each lane keeps
-//   an 8 x 4 f32 accumulator tile (4 consecutive columns) and adds the
-//   products in a fixed order, h outer and m inner. The products run on
-//   the CUDA cores: z and W are bf16 values, so every product is exact in
-//   f32 and only the order of the f32 sums differs from the plain PyTorch
-//   version.
+//   stays inside the block and no cross-block reduction is needed, and all
+//   O_i <= 256 maps of each layer: 4 warps of 32 columns for each group of
+//   64 maps (16 warps at O 256, 8 at the bench's O 100), each warp 64 maps
+//   x 32 columns of f32 sums in registers. A layer is one product pre (O x
+//   128) = bf16(W)^T (O x H0*Hk8) . z (H0*Hk8 x 128).
+// - A: bf16(W) in K4's layout (the wrapper builds it once per call, Hk
+//   padded to 8 with zeros), streamed through a 3-stage cp.async ring; W
+//   is under 0.3 MB a layer, so it stays in L2 for all blocks.
+// - B: z is built in registers from bf16 x0 and bf16 xk, both held in
+//   shared memory column-major. x0 is staged once; xk is x0 for layer 0
+//   and then the feed rows that each layer's epilogue writes back.
+// - The epilogue works from the C fragments: bias and activation in
+//   registers, the feed rows to shared memory as bf16 (the next layer's
+//   xk; its padding rows zeroed), then each group of 64 maps staged as f32
+//   in the ring's memory, from which a warp takes one map row of 128
+//   columns at a time: the pooling (shuffles over the lanes of a batch
+//   row), the saved fmap (16 B a lane, coalesced), the sign bits (ballots).
+// - Each sum has one owner and a fixed order: two calls are bit-equal.
 //
 // Geometry taken (the callers check and refuse outside it): D divides
 // 128, B*D a multiple of 128, at most 8 layers, O_i <= 256, non-final O_i
-// even, H0 and Hk_i <= 128, and the shared memory of
-// chain_fwd_smem_bytes <= 227 KB.
+// even, H0 and Hk_i <= 128. Shared memory (chain_fwd_smem_bytes) is under
+// 180 KB for all of them.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cin_fwd_mma.cuh"
 
 namespace {
 
 constexpr int kChainMaxLayers = 8;
-constexpr int kChainTileN = 128;      // B*D columns per block
-constexpr int kMapsPerWarp = 8;
-constexpr int kChainMaxThreads = 1024;  // 32 lanes * (256 maps / 8)
+constexpr int kChainTileN = 128;                 // B*D columns per block
+constexpr int kChainOutStride = kChainTileN + 8; // f32 per staged fmap row
+constexpr int kChainMaxThreads = 512;            // 4 warps per 64 maps, O <= 256
 
 struct ChainArgs {
   const float* x0c;                   // (h0, bd) f32
   int h0, bd, d, n_layers, act;
-  int max_feed;                       // rows of the feed buffer
-  int hk[kChainMaxLayers], o[kChainMaxLayers], o_pad[kChainMaxLayers];
+  int groups;                         // groups of 64 maps: the block has 4 warps each
+  int xs, x0st;                       // bf16 per staged column of xk and of x0
+  int hk8[kChainMaxLayers], o[kChainMaxLayers], kp[kChainMaxLayers];
   int feed[kChainMaxLayers];
-  const __nv_bfloat16* w[kChainMaxLayers];  // (h0*hk, o_pad) bf16, row h*hk+m
+  const __nv_bfloat16* wt[kChainMaxLayers]; // (o, kp) bf16: [o][h*hk8 + m] = bf16(W[h*hk+m, o])
   const float* b[kChainMaxLayers];          // (o,) f32
   float* out[kChainMaxLayers];              // (bd/d, o - feed) f32 (K1)
   float* fmap[kChainMaxLayers];             // (o, bd) f32 (K1), (feed, bd) f32 (rebuild), or null
   uint32_t* sign[kChainMaxLayers];          // (o, bd/128, 4) uint32 (rebuild)
 };
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 __device__ __forceinline__ float activate(float x, int act) {
   if (act == 1) return fmaxf(x, 0.0f);
@@ -79,94 +85,161 @@ __device__ __forceinline__ float activate(float x, int act) {
   return x;
 }
 
+// Bytes of the ring, which the epilogue reuses for one group's f32 tile.
+inline __host__ __device__ int chain_ring_bytes(int groups) {
+  const int ring = cinfwd::kStages * groups * 64 * cinfwd::kWStride * 2;
+  const int staged = 64 * kChainOutStride * 4;
+  return ring > staged ? ring : staged;
+}
+
 template <bool kRebuild>
-__global__ void __launch_bounds__(kChainMaxThreads)
-cin_chain_fwd_kernel(const ChainArgs a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  int max_hk = 0;
-  for (int l = 0; l < a.n_layers; ++l) max_hk = max(max_hk, a.hk[l]);
-  float* x0s = smem;                            // h0 x 128
-  float* feed = x0s + a.h0 * kChainTileN;       // max_feed x 128
-  float* zs = feed + a.max_feed * kChainTileN;  // max_hk x 128
-  float* ws = zs + max_hk * kChainTileN;        // max over layers of hk x o_pad
+__global__ void __launch_bounds__(kChainMaxThreads) cin_chain_fwd_kernel(const ChainArgs a) {
+  using cinfwd::kStages;
+  using cinfwd::kWStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // kStages x groups*64 x kWStride
+  float* outs = reinterpret_cast<float*>(smem);                   // 64 x kChainOutStride, epilogue
+  __nv_bfloat16* x0s =                                            // 128 x x0st: [n][h]
+      reinterpret_cast<__nv_bfloat16*>(smem + chain_ring_bytes(a.groups));
+  __nv_bfloat16* xks = x0s + kChainTileN * a.x0st;                 // 128 x xs: [n][m]
 
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n0 = lane * 4;                      // this lane's 4 columns
+  const int nwarps = nthreads >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
   const int col0 = blockIdx.x * kChainTileN;
   const int row0 = col0 / a.d;                  // first batch row of the block
+  const int stage_elems = a.groups * 64 * kWStride;
 
-  for (int i = tid; i < a.h0 * (kChainTileN / 4); i += nthreads) {
-    const int h = i / (kChainTileN / 4), c = (i % (kChainTileN / 4)) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(
-        a.x0c + (size_t)h * a.bd + col0 + c);
-    *reinterpret_cast<float4*>(x0s + h * kChainTileN + c) = make_float4(
-        bf16_round(v.x), bf16_round(v.y), bf16_round(v.z), bf16_round(v.w));
+  int l = 0;
+  auto load_w = [&](int c) {
+    const int o16 = cinfwd::round_up(a.o[l], 16);
+    const int rows = o16 < a.groups * 64 ? o16 : a.groups * 64;
+    cinfwd::load_w_slice(ring + (c % kStages) * stage_elems, a.wt[l], a.kp[l], c, rows, a.o[l],
+                         tid, nthreads);
+  };
+  auto prologue = [&]() {
+    const int nchunks = (a.h0 * a.hk8[l] + cinfwd::kBK - 1) / cinfwd::kBK;
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < nchunks) load_w(s);
+      tc::cp_async_commit();
+    }
+  };
+  prologue();
+
+  // bf16(x0) of the block's columns, column-major, into x0s and (layer 0's
+  // xk) into xks, whose padding rows [h0, hk8) are zero. Each thread keeps
+  // 4 loads of 16 bytes in flight before it stores.
+  const int quads = a.h0 * (kChainTileN / 4);
+  for (int i0 = tid; i0 < quads; i0 += 4 * nthreads) {
+    float4 v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + e * nthreads;
+      v[e] = i < quads ? *reinterpret_cast<const float4*>(
+                             a.x0c + (size_t)(i >> 5) * a.bd + col0 + (i & 31) * 4)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + e * nthreads, h = i >> 5, n = (i & 31) * 4;
+      if (i >= quads) break;
+      const __nv_bfloat16 b4[4] = {__float2bfloat16_rn(v[e].x), __float2bfloat16_rn(v[e].y),
+                                   __float2bfloat16_rn(v[e].z), __float2bfloat16_rn(v[e].w)};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        x0s[(n + c) * a.x0st + h] = b4[c];
+        xks[(n + c) * a.xs + h] = b4[c];
+      }
+    }
   }
+  for (int i = tid; i < (a.hk8[0] - a.h0) * kChainTileN; i += nthreads)
+    xks[(i % kChainTileN) * a.xs + a.h0 + i / kChainTileN] = __float2bfloat16_rn(0.0f);
 
-  const float* xk = x0s;
-  for (int l = 0; l < a.n_layers; ++l) {
-    const int hk = a.hk[l], o = a.o[l], o_pad = a.o_pad[l], nfeed = a.feed[l];
-    const int m0 = warp * kMapsPerWarp;         // first map of this warp
-    const bool active = m0 < o;                 // warp-uniform
-    float acc[kMapsPerWarp][4];
-#pragma unroll
-    for (int j = 0; j < kMapsPerWarp; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  for (l = 0; l < a.n_layers; ++l) {
+    const int o = a.o[l], hk8 = a.hk8[l], nfeed = a.feed[l];
+    if (l > 0) prologue();  // layer 0's slices went out before the staging
 
-    for (int h = 0; h < a.h0; ++h) {
-      __syncthreads();  // the previous chunk is consumed (and x0s / feed written)
-      for (int i = tid; i < hk * (kChainTileN / 4); i += nthreads) {
-        const int m = i / (kChainTileN / 4), c = (i % (kChainTileN / 4)) * 4;
-        const float4 x = *reinterpret_cast<const float4*>(x0s + h * kChainTileN + c);
-        const float4 k = *reinterpret_cast<const float4*>(xk + m * kChainTileN + c);
-        *reinterpret_cast<float4*>(zs + m * kChainTileN + c) = make_float4(
-            bf16_round(x.x * k.x), bf16_round(x.y * k.y),
-            bf16_round(x.z * k.z), bf16_round(x.w * k.w));
-      }
-      const uint4* wsrc =
-          reinterpret_cast<const uint4*>(a.w[l] + (size_t)h * hk * o_pad);
-      for (int i = tid; i < hk * o_pad / 8; i += nthreads) {
-        const uint4 u = __ldg(wsrc + i);
-        float4* dst = reinterpret_cast<float4*>(ws + i * 8);
-        dst[0] = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                             __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-        dst[1] = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
-                             __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
-      }
-      __syncthreads();
-      if (active) {
-#pragma unroll 2
-        for (int m = 0; m < hk; ++m) {
-          const float4 z = *reinterpret_cast<const float4*>(zs + m * kChainTileN + n0);
-          const float4 wa = *reinterpret_cast<const float4*>(ws + m * o_pad + m0);
-          const float4 wb = *reinterpret_cast<const float4*>(ws + m * o_pad + m0 + 4);
-          const float wv[kMapsPerWarp] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+    float acc[4][4][4];
 #pragma unroll
-          for (int j = 0; j < kMapsPerWarp; ++j) {
-            acc[j][0] = fmaf(wv[j], z.x, acc[j][0]);
-            acc[j][1] = fmaf(wv[j], z.y, acc[j][1]);
-            acc[j][2] = fmaf(wv[j], z.z, acc[j][2]);
-            acc[j][3] = fmaf(wv[j], z.w, acc[j][3]);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+    // m16 tiles of this warp that hold a map below O (warp-uniform)
+    int mt = (o - wm * 64 + 15) / 16;
+    mt = mt < 0 ? 0 : (mt > 4 ? 4 : mt);
+    cinfwd::z_product<true>(acc, ring, stage_elems, load_w, xks + (wn * 32 + g) * a.xs + 2 * q, a.xs,
+                      x0s + (wn * 32 + g) * a.x0st, a.x0st, a.h0, hk8, a.h0 * hk8, mt, wm * 64);
+    tc::cp_async_wait<0>();
+    __syncthreads();  // every warp is done with xk and the ring
+
+    // bias and activation on the fragments: acc[i][j][e] is map wm*64 +
+    // 16i + g (+8 for e >= 2), column wn*32 + 8j + 2q + (e & 1)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i >= mt) break;
+      const int o0 = wm * 64 + i * 16 + g, o1 = o0 + 8;
+      const float b0 = o0 < o ? a.b[l][o0] : 0.0f, b1 = o1 < o ? a.b[l][o1] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j][0] = activate(acc[i][j][0] + b0, a.act);
+        acc[i][j][1] = activate(acc[i][j][1] + b0, a.act);
+        acc[i][j][2] = activate(acc[i][j][2] + b1, a.act);
+        acc[i][j][3] = activate(acc[i][j][3] + b1, a.act);
+      }
+    }
+    if (nfeed > 0) {
+      // the feed rows, the next layer's xk: only bf16(xk) enters its z
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i >= mt) break;
+        const int o0 = wm * 64 + i * 16 + g, o1 = o0 + 8;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn * 32 + j * 8 + 2 * q;
+          if (o0 < nfeed) {
+            xks[n * a.xs + o0] = __float2bfloat16_rn(acc[i][j][0]);
+            xks[(n + 1) * a.xs + o0] = __float2bfloat16_rn(acc[i][j][1]);
+          }
+          if (o1 < nfeed) {
+            xks[n * a.xs + o1] = __float2bfloat16_rn(acc[i][j][2]);
+            xks[(n + 1) * a.xs + o1] = __float2bfloat16_rn(acc[i][j][3]);
           }
         }
       }
+      const int pad = a.hk8[l + 1] - nfeed;     // the next layer's padding rows
+      for (int i = tid; i < pad * kChainTileN; i += nthreads)
+        xks[(i % kChainTileN) * a.xs + nfeed + i / kChainTileN] = __float2bfloat16_rn(0.0f);
     }
-    __syncthreads();  // every warp is done reading xk: the feed rows may be overwritten
 
-    if (active) {
-      const int nout = o - nfeed;
+    // each group of 64 maps through the staged f32 tile: a warp takes one
+    // map row, lane l holding columns 4l..4l+3
+    for (int grp = 0; grp * 64 < o; ++grp) {
+      const int r_lo = grp * 64, r_hi = o < r_lo + 64 ? o : r_lo + 64;
+      if (!kRebuild && a.fmap[l] == nullptr && r_hi <= nfeed) continue;  // nothing to write
+      if (wm == grp) {
 #pragma unroll
-      for (int j = 0; j < kMapsPerWarp; ++j) {
-        const int om = m0 + j;
-        if (om >= o) break;                     // warp-uniform
-        const float bias = a.b[l][om];
-        float v[4];
+        for (int i = 0; i < 4; ++i) {
+          if (i >= mt) break;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = activate(acc[j][c] + bias, a.act);
+          for (int j = 0; j < 4; ++j) {
+            float* p = outs + (i * 16 + g) * kChainOutStride + wn * 32 + j * 8 + 2 * q;
+            *reinterpret_cast<float2*>(p) = make_float2(acc[i][j][0], acc[i][j][1]);
+            *reinterpret_cast<float2*>(p + 8 * kChainOutStride) =
+                make_float2(acc[i][j][2], acc[i][j][3]);
+          }
+        }
+      }
+      __syncthreads();
+      for (int r = warp; r < r_hi - r_lo; r += nwarps) {
+        const int om = r_lo + r;
+        const int n0 = lane * 4;
+        const float4 v4 = *reinterpret_cast<const float4*>(outs + r * kChainOutStride + n0);
+        const float v[4] = {v4.x, v4.y, v4.z, v4.w};
         if constexpr (kRebuild) {
           uint4 s;
           s.x = __ballot_sync(0xffffffffu, v[0] > 0.0f);
@@ -177,22 +250,16 @@ cin_chain_fwd_kernel(const ChainArgs a) {
             reinterpret_cast<uint4*>(a.sign[l])[(size_t)om * (a.bd / kChainTileN) + blockIdx.x] = s;
         }
         if (a.fmap[l] != nullptr && (!kRebuild || om < nfeed))
-          *reinterpret_cast<float4*>(a.fmap[l] + (size_t)om * a.bd + col0 + n0) =
-              make_float4(v[0], v[1], v[2], v[3]);
-        if (om < nfeed) {
-          // only bf16(xk) enters the next layer's z
-          *reinterpret_cast<float4*>(feed + om * kChainTileN + n0) = make_float4(
-              bf16_round(v[0]), bf16_round(v[1]), bf16_round(v[2]), bf16_round(v[3]));
-          continue;
-        }
-        if constexpr (kRebuild) continue;
+          *reinterpret_cast<float4*>(a.fmap[l] + (size_t)om * a.bd + col0 + n0) = v4;
+        if (kRebuild || om < nfeed) continue;
+        const int nout = o - nfeed;
         float* dst = a.out[l] + (om - nfeed);
         if (a.d >= 4) {
           float s = (v[0] + v[1]) + (v[2] + v[3]);
-          const int q = a.d / 4;                // lanes per batch row
-          for (int off = 1; off < q; off <<= 1)
+          const int lanes = a.d / 4;              // lanes per batch row
+          for (int off = 1; off < lanes; off <<= 1)
             s += __shfl_xor_sync(0xffffffffu, s, off);
-          if ((lane & (q - 1)) == 0)
+          if ((lane & (lanes - 1)) == 0)
             dst[(size_t)(row0 + n0 / a.d) * nout] = s;
         } else {
           for (int c = 0; c < 4; c += a.d) {
@@ -202,37 +269,51 @@ cin_chain_fwd_kernel(const ChainArgs a) {
           }
         }
       }
+      __syncthreads();  // the tile is free for the next group, the ring for the next layer
     }
-    xk = feed;
   }
+}
+
+// The kernel's block for a geometry: groups of 64 maps (4 warps each) and
+// the bf16 strides of the staged x0 and xk columns.
+struct ChainFwdPlan {
+  int groups, xs, x0st, smem;
+};
+
+inline ChainFwdPlan chain_fwd_plan(int h0, int n_layers, const int* units) {
+  int hk = h0, max_hk8 = 0, max_o16 = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const int hk8 = cinfwd::round_up(hk, 8), o16 = cinfwd::round_up(units[l], 16);
+    if (hk8 > max_hk8) max_hk8 = hk8;
+    if (o16 > max_o16) max_o16 = o16;
+    hk = units[l] / 2;
+  }
+  ChainFwdPlan p;
+  p.groups = (max_o16 + 63) / 64;
+  p.xs = cinfwd::xk_stride(max_hk8);
+  p.x0st = cinfwd::x0_stride(h0);
+  p.smem = chain_ring_bytes(p.groups) + kChainTileN * (p.x0st + p.xs) * 2;
+  return p;
 }
 
 // Shared memory the kernel needs for a geometry, in bytes.
-int chain_fwd_smem_bytes(int h0, int n_layers, const int* units) {
-  int hk = h0, max_hk = 0, max_feed = 0, max_wchunk = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    const int o = units[l];
-    const bool final_layer = l == n_layers - 1;
-    if (hk > max_hk) max_hk = hk;
-    if (!final_layer && o / 2 > max_feed) max_feed = o / 2;
-    const int wchunk = hk * ((o + 7) / 8 * 8);
-    if (wchunk > max_wchunk) max_wchunk = wchunk;
-    hk = o / 2;
-  }
-  return ((h0 + max_feed + max_hk) * kChainTileN + max_wchunk) * (int)sizeof(float);
+inline int chain_fwd_smem_bytes(int h0, int n_layers, const int* units) {
+  return chain_fwd_plan(h0, n_layers, units).smem;
 }
 
-// Launches the kernel on `stream`. x0c (h0, bd) f32; w[l] (h0*hk_l,
-// o_pad_l) bf16 with o_pad_l = roundup(units[l], 8) and padding columns
-// zero; b[l] (units[l],) f32. K1 (sign null): out[l] (bd/d, F_l) f32, and
-// fmap null or fmap[l] (units[l], bd) f32. The rebuild (sign given, out
-// null): fmap[l] (units[l]/2, bd) f32 for each non-final layer (null for
-// the last) and sign[l] (units[l], bd/128, 4) uint32. act: 0 identity, 1
-// relu, 2 leaky_relu. Returns cudaGetLastError() after the launch (or
-// cudaErrorInvalidValue for a geometry outside the range).
-int chain_fwd_launch(const void* x0c, int h0, int bd, int d, int n_layers, const int* units,
-                     const void* const* w, const void* const* b, void* const* out,
-                     void* const* fmap, void* const* sign, int act, cudaStream_t stream) {
+// Launches the kernel on `stream`. x0c (h0, bd) f32; w[l] (units[l],
+// kp_l) bf16 in K4's layout, w[l][o][h*hk8_l + m] = bf16(W_l[h*hk_l + m,
+// o]) with hk8_l = roundup8(hk_l), kp_l = roundup64(h0 * hk8_l) and
+// padding zero; b[l] (units[l],) f32. K1 (sign null): out[l] (bd/d, F_l)
+// f32, and fmap null or fmap[l] (units[l], bd) f32. The rebuild (sign
+// given, out null): fmap[l] (units[l]/2, bd) f32 for each non-final layer
+// (null for the last) and sign[l] (units[l], bd/128, 4) uint32. act: 0
+// identity, 1 relu, 2 leaky_relu. Returns cudaGetLastError() after the
+// launch (or cudaErrorInvalidValue for a geometry outside the range).
+inline int chain_fwd_launch(const void* x0c, int h0, int bd, int d, int n_layers,
+                            const int* units, const void* const* w, const void* const* b,
+                            void* const* out, void* const* fmap, void* const* sign, int act,
+                            cudaStream_t stream) {
   if (n_layers < 1 || n_layers > kChainMaxLayers || h0 < 1 || h0 > 128 || d < 1 ||
       kChainTileN % d != 0 || bd % kChainTileN != 0 || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
@@ -243,34 +324,33 @@ int chain_fwd_launch(const void* x0c, int h0, int bd, int d, int n_layers, const
   a.d = d;
   a.n_layers = n_layers;
   a.act = act;
-  a.max_feed = 0;
-  int hk = h0, max_o = 0;
+  int hk = h0;
   for (int l = 0; l < n_layers; ++l) {
     const int o = units[l];
     const bool final_layer = l == n_layers - 1;
     if (o < 1 || o > 256 || (!final_layer && o % 2 != 0) || hk > 128)
       return (int)cudaErrorInvalidValue;
-    a.hk[l] = hk;
+    a.hk8[l] = cinfwd::round_up(hk, 8);
+    a.kp[l] = cinfwd::round_up(h0 * a.hk8[l], cinfwd::kBK);
     a.o[l] = o;
-    a.o_pad[l] = (o + 7) / 8 * 8;
     a.feed[l] = final_layer ? 0 : o / 2;
-    if (a.feed[l] > a.max_feed) a.max_feed = a.feed[l];
-    if (o > max_o) max_o = o;
-    a.w[l] = static_cast<const __nv_bfloat16*>(w[l]);
+    a.wt[l] = static_cast<const __nv_bfloat16*>(w[l]);
     a.b[l] = static_cast<const float*>(b[l]);
     a.out[l] = out != nullptr ? static_cast<float*>(out[l]) : nullptr;
     a.fmap[l] = fmap != nullptr ? static_cast<float*>(fmap[l]) : nullptr;
     a.sign[l] = sign != nullptr ? static_cast<uint32_t*>(sign[l]) : nullptr;
     hk = o / 2;
   }
+  const ChainFwdPlan plan = chain_fwd_plan(h0, n_layers, units);
+  a.groups = plan.groups;
+  a.xs = plan.xs;
+  a.x0st = plan.x0st;
   const bool rebuild = sign != nullptr;
   auto kernel = rebuild ? cin_chain_fwd_kernel<true> : cin_chain_fwd_kernel<false>;
-  const int smem = chain_fwd_smem_bytes(h0, n_layers, units);
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 32 * ((max_o + kMapsPerWarp - 1) / kMapsPerWarp);
-  kernel<<<bd / kChainTileN, threads, smem, stream>>>(a);
+  kernel<<<bd / kChainTileN, 128 * plan.groups, plan.smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,9 @@
 // ldmatrix.x4 a product), and a warp's loads and products of a k-step
 // run in order. wgmma, reading B from shared memory, is the next step.
 //
-// Design. The TPU kernel carries dW in VMEM across its sequential grid.
+// Design. Phase 1's field loop and phase 2 are shared with K2
+// (cin_bwd_mma.cuh). The TPU kernel carries dW in VMEM across its
+// sequential grid.
 // Blocks on the card run in no order, so the work splits into three
 // launches with no atomics, each sum in a fixed order, and two calls are
 // bit-equal:
@@ -71,24 +73,17 @@
 // Geometry taken (the wrapper checks and raises outside it): any H0 >= 1
 // and B*D >= 1, 1 <= Hk <= 128, 1 <= O <= 512.
 
-#include "tensor_core.cuh"
+#include "cin_bwd_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStages = 3;
-constexpr int kSlice = 64;           // phase 2's columns a stage; phase 1's W slices are multiples
-constexpr int kStride = kSlice + 8;  // bf16 per staged row of phase 2: 144 B, ldmatrix without conflicts
-// phase 1
-constexpr int kCols = 128;           // B*D columns per block
-constexpr int kColsThreads = 512;    // 16 warps: 8 groups of 16 columns x 2 halves of Hk
-constexpr int kGStride = kCols + 8;  // bf16 per staged gb row
-// phase 2
-constexpr int kDwRows = 128;         // dW rows per block
-constexpr int kDwMaps = 128;         // dW maps per block
-constexpr int kMaxSmem = 232448;     // bytes of shared memory a block may use
-
-int round_up(int x, int m) { return (x + m - 1) / m * m; }
+using cinbwd::kCols;
+using cinbwd::kColsThreads;
+using cinbwd::kGStride;
+using cinbwd::kMaxSmem;
+using cinbwd::kSlice;
+using cinbwd::kStages;
+using cinbwd::round_up;
 
 struct ColsArgs {
   const float* x0;             // (h0, bd) f32
@@ -113,30 +108,9 @@ __global__ void __launch_bounds__(kColsThreads, 1) cin_interact_bwd_cols(const C
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(red + 4 * kCols);  // kStages x hk8 x ws_stride
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
   const int col0 = blockIdx.x * kCols;
-  const int nt = a.hk8 / 8;
-  const int noc = (a.o16 + a.sw - 1) / a.sw;  // W slices per field
-  const int items = a.h0 * noc;
-  const int ws_stride = a.sw + 8;             // 16 mod 128 bytes: ldmatrix without conflicts
-  const int stage_elems = a.hk8 * ws_stride;
-
-  auto load_w = [&](int t) {
-    const int h = t / noc, oc = t - h * noc;
-    const int pieces = min(a.sw, a.o16 - oc * a.sw) / 8;  // 16 B pieces of a row
-    __nv_bfloat16* dst = ring + (t % kStages) * stage_elems;
-    const __nv_bfloat16* src = a.wp + (size_t)h * a.hk8 * a.o64 + oc * a.sw;
-    for (int i = tid; i < a.hk8 * pieces; i += kColsThreads) {
-      const int r = i / pieces, p = (i - r * pieces) * 8;
-      tc::cp_async16(dst + r * ws_stride + p, src + (size_t)r * a.o64 + p);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < items) load_w(s);
-    tc::cp_async_commit();
-  }
+  const cinbwd::WRing w(ring, a.wp, a.h0, a.hk8, a.o16, a.o64, a.sw);
+  w.prologue();  // W's first slices load while g, x0 and xk are staged
 
   // bf16 copies: g to shared memory and the scratch, x0 and xk to the
   // scratch; zero past O and B*D. Each thread keeps 4 loads of 16 bytes in
@@ -182,14 +156,10 @@ __global__ void __launch_bounds__(kColsThreads, 1) cin_interact_bwd_cols(const C
 
   // warp = (half, column group): 16 columns, rows g and g + 8 of its
   // fragments; half 0 holds u's n8 tiles [0, t0), half 1 [t0, nt)
-  const int half = warp >> 3;
-  const int wc = (warp & 7) * 16;
-  const int t0 = (nt + 1) / 2;
-  const int j0 = half ? t0 : 0;
-  const int ntw = half ? nt - t0 : t0;
-  const int ca = col0 + wc + g, cb = ca + 8;
-  const bool va = ca < a.bd, vb = cb < a.bd;
-  float xkr[NTW][4], dxk[NTW][4], u[NTW][4];
+  const cinbwd::ColsThread t = cinbwd::cols_thread(a.hk8, a.bd);
+  const int q = t.q, j0 = t.j0, ntw = t.ntw, ca = t.ca, cb = t.cb;
+  const bool va = t.va, vb = t.vb;
+  float xkr[NTW][4], dxk[NTW][4];
 #pragma unroll
   for (int j = 0; j < NTW; ++j) {
     const int m = 8 * (j0 + j) + 2 * q;
@@ -200,92 +170,13 @@ __global__ void __launch_bounds__(kColsThreads, 1) cin_interact_bwd_cols(const C
     xkr[j][3] = on && vb && m + 1 < a.hk ? a.xk[(size_t)(m + 1) * a.bd + cb] : 0.0f;
     dxk[j][0] = dxk[j][1] = dxk[j][2] = dxk[j][3] = 0.0f;
   }
-  // ldmatrix addresses. A (.trans from gs[o][n]): lane l gives row o = 8 *
-  // (l / 16) + l % 8 and column 8 * ((l / 8) % 2) of the warp's 16. B (from
-  // the staged W_h[m][o]): row m = 8 * (l / 16) + l % 8, column 8 * ((l / 8) % 2).
-  const __nv_bfloat16* a_src = gs + (((lane >> 4) << 3) + (lane & 7)) * kGStride + wc +
-                               ((lane >> 3) & 1) * 8;
-  const int b_off = (8 * j0 + ((lane >> 4) << 3) + (lane & 7)) * ws_stride + ((lane >> 3) & 1) * 8;
-  const int b_off2 = (8 * j0 + (lane & 7)) * ws_stride + ((lane >> 3) & 1) * 8;  // the .x2 form
-  // dx0[h] = half 0's partial + half 1's, summed by half 0 once both are in
-  // red[h % 2] (after the next barrier)
-  auto dx0_store = [&](int h) {
-    if (half != 0 || q != 0) return;
-    const float* r = red + (h & 1) * 2 * kCols;
-    if (va) a.dx0[(size_t)h * a.bd + ca] = r[wc + g] + r[kCols + wc + g];
-    if (vb) a.dx0[(size_t)h * a.bd + cb] = r[wc + g + 8] + r[kCols + wc + g + 8];
-  };
-
-  int t = 0;
-  for (int h = 0; h < a.h0; ++h) {
-    const float x0_a = va ? a.x0[(size_t)h * a.bd + ca] : 0.0f;
-    const float x0_b = vb ? a.x0[(size_t)h * a.bd + cb] : 0.0f;
-#pragma unroll
-    for (int j = 0; j < NTW; ++j) u[j][0] = u[j][1] = u[j][2] = u[j][3] = 0.0f;
-    for (int oc = 0; oc < noc; ++oc, ++t) {
-      tc::cp_async_wait<kStages - 2>();
-      __syncthreads();  // item t has landed; the stage item t - 1 used is free
-      if (oc == 0 && h > 0) dx0_store(h - 1);
-      if (t + kStages - 1 < items) load_w(t + kStages - 1);
-      tc::cp_async_commit();
-      const __nv_bfloat16* ws = ring + (t % kStages) * stage_elems;
-      const int steps = min(a.sw, a.o16 - oc * a.sw) / 16;
-      // every fragment of a k-step first, then its products: the loads
-      // overlap, and the tensor pipe gets the products back to back
-      auto load = [&](int ks, uint32_t (&af)[4], uint32_t (&bf)[NTW][2]) {
-        tc::ldmatrix_x4_trans(af, a_src + (oc * a.sw + ks * 16) * kGStride);
-#pragma unroll
-        for (int j = 0; j < NTW; j += 2) {
-          if (j + 1 < NTW && j + 1 < ntw) {
-            uint32_t r[4];
-            tc::ldmatrix_x4(r, ws + j * 8 * ws_stride + b_off + ks * 16);
-            bf[j][0] = r[0];
-            bf[j][1] = r[1];
-            bf[j + 1][0] = r[2];
-            bf[j + 1][1] = r[3];
-          } else if (j < ntw) {
-            tc::ldmatrix_x2(bf[j], ws + j * 8 * ws_stride + b_off2 + ks * 16);
-          }
-        }
-      };
-      auto products = [&](const uint32_t (&af)[4], const uint32_t (&bf)[NTW][2]) {
-#pragma unroll
-        for (int j = 0; j < NTW; ++j)
-          if (j < ntw) tc::mma_bf16(u[j], af, bf[j]);
-      };
-      for (int ks = 0; ks < steps; ++ks) {
-        uint32_t af[4], bf[NTW][2];
-        load(ks, af, bf);
-        products(af, bf);
-      }
-    }
-    // fold field h: dx0 over m, dxk across h
-    float pa = 0.0f, pb = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NTW; ++j) {
-      pa = fmaf(u[j][0], xkr[j][0], pa);
-      pa = fmaf(u[j][1], xkr[j][1], pa);
-      pb = fmaf(u[j][2], xkr[j][2], pb);
-      pb = fmaf(u[j][3], xkr[j][3], pb);
-      dxk[j][0] = fmaf(u[j][0], x0_a, dxk[j][0]);
-      dxk[j][1] = fmaf(u[j][1], x0_a, dxk[j][1]);
-      dxk[j][2] = fmaf(u[j][2], x0_b, dxk[j][2]);
-      dxk[j][3] = fmaf(u[j][3], x0_b, dxk[j][3]);
-    }
-    // the 4 threads of a column hold its 4 sets of m: a + b is b + a, so
-    // every lane gets the same bits
-    pa += __shfl_xor_sync(0xffffffffu, pa, 1);
-    pa += __shfl_xor_sync(0xffffffffu, pa, 2);
-    pb += __shfl_xor_sync(0xffffffffu, pb, 1);
-    pb += __shfl_xor_sync(0xffffffffu, pb, 2);
-    if (q == 0) {
-      float* r = red + (h & 1) * 2 * kCols + half * kCols;
-      r[wc + g] = pa;
-      r[wc + g + 8] = pb;
-    }
-  }
-  __syncthreads();
-  dx0_store(a.h0 - 1);
+  // dx0[h] = half 0's partial + half 1's
+  cinbwd::fold_fields<NTW>(w, gs, red, a.x0, a.bd, a.h0, xkr, dxk, [&](int h) {
+    if (t.half != 0 || q != 0) return;
+    const float2 s = cinbwd::dx0_partials(red, h, t);
+    if (va) a.dx0[(size_t)h * a.bd + ca] = s.x;
+    if (vb) a.dx0[(size_t)h * a.bd + cb] = s.y;
+  });
 #pragma unroll
   for (int j = 0; j < NTW; ++j) {
     const int m = 8 * (j0 + j) + 2 * q;
@@ -301,142 +192,6 @@ __global__ void __launch_bounds__(kColsThreads, 1) cin_interact_bwd_cols(const C
   }
 }
 
-struct DwArgs {
-  const __nv_bfloat16* x0b;    // (h0, bdp) bf16
-  const __nv_bfloat16* xkb;    // (hk, bdp) bf16
-  const __nv_bfloat16* gb;     // (o, bdp) bf16
-  float* pdw;                  // (splits, h0*hk, o) f32
-  int h0, hk, o, bdp, splits, nh_max;
-};
-
-__global__ void __launch_bounds__(kThreads, 2) cin_interact_bwd_dw(const DwArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  // a stage: x0 rows [0, nh_max), xk rows [nh_max, nh_max + hk), gb rows
-  // [nh_max + hk, nh_max + hk + 128), each kSlice columns
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int stage_elems = (a.nh_max + a.hk + kDwMaps) * kStride;
-  const int xk_row0 = a.nh_max, gb_row0 = a.nh_max + a.hk;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int k_rows = a.h0 * a.hk;
-  const int r_base = blockIdx.x * kDwRows;
-  const int o_base = blockIdx.z * kDwMaps;
-  const int h_lo = r_base / a.hk;
-  const int r_last = min(r_base + kDwRows, k_rows) - 1;
-  const int nh = r_last / a.hk - h_lo + 1;
-  const int nchunks = a.bdp / kSlice;
-  const int c_begin = (int)((long long)nchunks * blockIdx.y / a.splits);
-  const int c_end = (int)((long long)nchunks * (blockIdx.y + 1) / a.splits);
-  const int nc = c_end - c_begin;
-
-  auto load = [&](int i_c) {
-    const int col = (c_begin + i_c) * kSlice;
-    __nv_bfloat16* dst = ring + (i_c % kStages) * stage_elems;
-    const int rows = nh + a.hk + kDwMaps;
-    for (int i = tid; i < rows * 8; i += kThreads) {
-      const int rr = i >> 3, p = (i & 7) * 8;
-      if (rr < nh) {
-        tc::cp_async16(dst + rr * kStride + p, a.x0b + (size_t)(h_lo + rr) * a.bdp + col + p);
-      } else if (rr < nh + a.hk) {
-        const int m = rr - nh;
-        tc::cp_async16(dst + (xk_row0 + m) * kStride + p, a.xkb + (size_t)m * a.bdp + col + p);
-      } else {
-        const int r = rr - nh - a.hk, o = o_base + r;
-        tc::cp_async16(dst + (gb_row0 + r) * kStride + p,
-                       a.gb + (size_t)(o < a.o ? o : 0) * a.bdp + col + p, o < a.o ? 16 : 0);
-      }
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nc) load(s);
-    tc::cp_async_commit();
-  }
-
-  // the thread's z rows r_base + wm*32 + 16i + 8e + g: offsets of their x0
-  // and xk rows in a stage (rows past X read row 0 and are not stored)
-  int zx0[2][2], zxk[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int r = r_base + wm * 32 + 16 * i + 8 * e + g;
-      const int h = r < k_rows ? r / a.hk : h_lo, m = r < k_rows ? r - h * a.hk : 0;
-      zx0[i][e] = (h - h_lo) * kStride + 2 * q;
-      zxk[i][e] = (xk_row0 + m) * kStride + 2 * q;
-    }
-  // n8 tiles of this warp that hold a map below O (warp-uniform)
-  int ntv = (a.o - o_base - wn * 64 + 7) / 8;
-  ntv = ntv < 0 ? 0 : (ntv > 8 ? 8 : ntv);
-  const int b_off = (gb_row0 + wn * 64 + ((lane >> 4) << 3) + (lane & 7)) * kStride +
-                    ((lane >> 3) & 1) * 8;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
-
-  for (int i_c = 0; i_c < nc; ++i_c) {
-    tc::cp_async_wait<kStages - 2>();
-    __syncthreads();  // slice i_c has landed; the stage slice i_c - 1 used is free
-    if (i_c + kStages - 1 < nc) load(i_c + kStages - 1);
-    tc::cp_async_commit();
-    const __nv_bfloat16* st = ring + (i_c % kStages) * stage_elems;
-    if (ntv == 0) continue;
-#pragma unroll
-    for (int ks = 0; ks < kSlice / 16; ++ks) {
-      const int k = ks * 16;
-      uint32_t af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int kh = 0; kh < 2; ++kh)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            af[i][2 * kh + e] =
-                tc::mul_bf16x2(*reinterpret_cast<const uint32_t*>(st + zx0[i][e] + k + 8 * kh),
-                               *reinterpret_cast<const uint32_t*>(st + zxk[i][e] + k + 8 * kh));
-      uint32_t bf[8][2];
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        if (j < ntv) {
-          uint32_t r[4];
-          tc::ldmatrix_x4(r, st + b_off + j * 8 * kStride + k);
-          bf[j][0] = r[0];
-          bf[j][1] = r[1];
-          bf[j + 1][0] = r[2];
-          bf[j + 1][1] = r[3];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (j < ntv)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) tc::mma_bf16(acc[i][j], af[i], bf[j]);
-    }
-  }
-  tc::cp_async_wait<0>();
-
-  float* dst = a.pdw + (size_t)blockIdx.y * k_rows * a.o;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int r = r_base + wm * 32 + 16 * i + 8 * e + g;
-      if (r >= k_rows) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int o = o_base + wn * 64 + j * 8 + 2 * q;
-        if (o < a.o) dst[(size_t)r * a.o + o] = acc[i][j][2 * e];
-        if (o + 1 < a.o) dst[(size_t)r * a.o + o + 1] = acc[i][j][2 * e + 1];
-      }
-    }
-}
-
 // dw[i] = sum over splits of pdw[s][i], in split order.
 __global__ void cin_interact_bwd_reduce(const float* pdw, int splits, int n_dw, float* dw) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -444,16 +199,6 @@ __global__ void cin_interact_bwd_reduce(const float* pdw, int splits, int n_dw, 
   float s = 0.0f;
   for (int k = 0; k < splits; ++k) s += pdw[(size_t)k * n_dw + i];
   dw[i] = s;
-}
-
-// Column splits of phase 2: as many (row tile, map tile, split) blocks as
-// two a SM can hold at once, each split a whole number of column slices.
-int dw_splits(int k_rows, int o, int bd, int sms) {
-  const int tiles = ((k_rows + kDwRows - 1) / kDwRows) * ((o + kDwMaps - 1) / kDwMaps);
-  int s = 2 * sms / tiles;
-  const int nchunks = round_up(bd, kSlice) / kSlice;
-  if (s > nchunks) s = nchunks;
-  return s < 1 ? 1 : s;
 }
 
 template <int NT>
@@ -470,7 +215,7 @@ cudaError_t launch_cols(const ColsArgs& a, int smem, cudaStream_t st) {
 // Column splits of K5's dW phase for a card with `sms` SMs (the wrapper
 // sizes its partial-dW scratch by them).
 extern "C" int cin_interact_bwd_splits(int h0, int hk, int o, int bd, int sms) {
-  return dw_splits(h0 * hk, o, bd, sms);
+  return cinbwd::dw_splits(h0 * hk, o, bd, sms);
 }
 
 // Launches K5 on `stream`: phases 1, 2 and 3. x0 (h0, bd) f32, xk (hk,
@@ -507,7 +252,7 @@ extern "C" int cin_interact_bwd(const void* x0, const void* xk, const void* wp, 
   a.dxk = static_cast<float*>(dxk);
   // the widest W slice that fits beside the staged g
   auto cols_smem = [&](int sw) {
-    return (a.o16 * kGStride + kStages * a.hk8 * (sw + 8)) * 2 + 4 * kCols * 4;
+    return a.o16 * kGStride * 2 + cinbwd::ring_bytes(a.hk8, sw) + 4 * kCols * 4;
   };
   a.sw = a.o64;
   while (a.sw > kSlice && cols_smem(a.sw) > kMaxSmem) a.sw -= kSlice;
@@ -519,28 +264,12 @@ extern "C" int cin_interact_bwd(const void* x0, const void* xk, const void* wp, 
                              : launch_cols<8>(a, smem1, st);
   if (err != cudaSuccess) return (int)err;
 
-  DwArgs b;
-  b.x0b = a.x0b;
-  b.xkb = a.xkb;
-  b.gb = a.gb;
-  b.pdw = static_cast<float*>(pdw);
-  b.h0 = h0;
-  b.hk = hk;
-  b.o = o;
-  b.bdp = a.bdp;
-  b.splits = splits;
-  b.nh_max = (kDwRows - 1) / hk + 2 < h0 ? (kDwRows - 1) / hk + 2 : h0;
+  err = cinbwd::dw_launch(a.x0b, a.xkb, a.gb, static_cast<float*>(pdw), h0, hk, o, a.bdp, splits,
+                          st);
+  if (err != cudaSuccess) return (int)err;
   const int k_rows = h0 * hk;
-  const int smem2 = kStages * (b.nh_max + hk + kDwMaps) * kStride * 2;
-  err = cudaFuncSetAttribute(cin_interact_bwd_dw, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem2);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((k_rows + kDwRows - 1) / kDwRows, splits, (o + kDwMaps - 1) / kDwMaps);
-  cin_interact_bwd_dw<<<grid, kThreads, smem2, st>>>(b);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   const int n_dw = k_rows * o;
-  cin_interact_bwd_reduce<<<(n_dw + 255) / 256, 256, 0, st>>>(b.pdw, splits, n_dw,
-                                                              static_cast<float*>(dw));
+  cin_interact_bwd_reduce<<<(n_dw + 255) / 256, 256, 0, st>>>(static_cast<const float*>(pdw),
+                                                              splits, n_dw, static_cast<float*>(dw));
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,7 @@
 // of O 200 build the same z twice. wgmma is the next step.
 //
 // Design: one product pre (O x B*D) = bf16(W)^T (O x X) . z (X x B*D).
+// The k-loop is shared with K1 (cin_fwd_mma.cuh).
 // - The wrapper lays bf16(W) out as Wt (O, Kp): Wt[o][h*Hk8 + m] =
 //   bf16(W[h*Hk+m, o]), Hk8 = Hk rounded up to 8, zero padding, Kp a
 //   multiple of 64. With Hk8 a multiple of 8, every 8 consecutive rows of
@@ -54,16 +55,18 @@
 // Geometry taken (the wrapper checks and raises outside it): any H0 >= 1
 // and B*D >= 1, 1 <= Hk <= 128, 1 <= O <= 512.
 
-#include "tensor_core.cuh"
+#include "cin_fwd_mma.cuh"
 
 namespace {
+
+using cinfwd::kBK;
+using cinfwd::kStages;
+using cinfwd::kWStride;
+using cinfwd::round_up;
 
 constexpr int kThreads = 256;
 constexpr int kBM = 128;            // maps per block
 constexpr int kBN = 128;            // B*D columns per block
-constexpr int kBK = 64;             // padded z rows per ring stage
-constexpr int kStages = 3;
-constexpr int kWStride = kBK + 8;   // bf16 per staged W row: 144 B, ldmatrix without conflicts
 constexpr int kOutStride = kBN + 8; // f32 per staged output row
 constexpr int kH0Chunk = 64;        // fields per launch
 
@@ -92,15 +95,10 @@ __global__ void __launch_bounds__(kThreads, 2) cin_interact_fwd_kernel(const Fwd
   const int o_base = blockIdx.y * kBM;
   const int kz = a.h0c * a.hk8;  // padded z rows of this launch
   const int nchunks = (kz + kBK - 1) / kBK;
-  const int nsteps = (kz + 15) / 16;
 
   auto load_w = [&](int c) {
-    __nv_bfloat16* dst = ring + (c % kStages) * kBM * kWStride;
-    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
-      const int r = i >> 3, p = (i & 7) * 8, o = o_base + r;
-      const __nv_bfloat16* src = a.wt + (size_t)(o < a.o ? o : 0) * a.kp + c * kBK + p;
-      tc::cp_async16(dst + r * kWStride + p, src, o < a.o ? 16 : 0);
-    }
+    cinfwd::load_w_slice(ring + (c % kStages) * kBM * kWStride, a.wt + (size_t)o_base * a.kp,
+                         a.kp, c, kBM, a.o - o_base, tid, kThreads);
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -144,61 +142,8 @@ __global__ void __launch_bounds__(kThreads, 2) cin_interact_fwd_kernel(const Fwd
   int mt = (a.o - o_base - wm * 64 + 15) / 16;
   mt = mt < 0 ? 0 : (mt > 4 ? 4 : mt);
   // this thread's B columns n = wn*32 + 8j + g, as offsets into xks and x0s
-  const __nv_bfloat16* xkc = xks + (wn * 32 + g) * a.xs + 2 * q;
-  const __nv_bfloat16* x0c = x0s + (wn * 32 + g) * a.x0st;
-  // (field, row) of the first padded z row of the current k16 step
-  int h_lo = 0, m_lo = 0;
-
-  for (int c = 0; c < nchunks; ++c) {
-    tc::cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk c has landed; the stage chunk c - 1 used is free
-    if (c + kStages - 1 < nchunks) load_w(c + kStages - 1);
-    tc::cp_async_commit();
-    const __nv_bfloat16* ws = ring + (c % kStages) * kBM * kWStride;
-    const int steps = nsteps - c * 4 < 4 ? nsteps - c * 4 : 4;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      if (ks >= steps) break;
-      int h_hi = h_lo, m_hi = m_lo + 8;
-      if (m_hi == a.hk8) {
-        m_hi = 0;
-        ++h_hi;
-      }
-      // z rows [k0, k0+8) are field h_lo, [k0+8, k0+16) field h_hi; past
-      // this launch's fields they are zero
-      uint32_t b[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int off = j * 8;
-        b[j][0] = h_lo < a.h0c
-            ? tc::mul_bf16x2(tc::dup_bf16(x0c[off * a.x0st + h_lo]),
-                             *reinterpret_cast<const uint32_t*>(xkc + off * a.xs + m_lo))
-            : 0u;
-        b[j][1] = h_hi < a.h0c
-            ? tc::mul_bf16x2(tc::dup_bf16(x0c[off * a.x0st + h_hi]),
-                             *reinterpret_cast<const uint32_t*>(xkc + off * a.xs + m_hi))
-            : 0u;
-      }
-      h_lo = h_hi;
-      m_lo = m_hi + 8;
-      if (m_lo == a.hk8) {
-        m_lo = 0;
-        ++h_lo;
-      }
-      // every A fragment first, then the products back to back
-      uint32_t af[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (i < mt)
-          tc::ldmatrix_x4(af[i], ws + (wm * 64 + i * 16 + (lane & 15)) * kWStride + ks * 16 +
-                                     (lane >> 4) * 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (i < mt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) tc::mma_bf16(acc[i][j], af[i], b[j]);
-    }
-  }
+  cinfwd::z_product(acc, ring, kBM * kWStride, load_w, xks + (wn * 32 + g) * a.xs + 2 * q, a.xs,
+                    x0s + (wn * 32 + g) * a.x0st, a.x0st, a.h0c, a.hk8, kz, mt, wm * 64);
   tc::cp_async_wait<0>();
   __syncthreads();  // the ring is free for the output
 
@@ -238,8 +183,6 @@ __global__ void __launch_bounds__(kThreads, 2) cin_interact_fwd_kernel(const Fwd
   }
 }
 
-int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
 }  // namespace
 
 // Launches K4 on `stream`. x0 (h0, bd) f32, xk (hk, bd) f32, wt (o, kp)
@@ -259,14 +202,11 @@ extern "C" int cin_interact_fwd(const void* x0, const void* xk, const void* wt, 
   a.o = o;
   a.bd = bd;
   a.kp = round_up(h0 * a.hk8, kBK);
-  // 32-bit B loads from 8 columns x 4 rows hit 32 banks when a staged
-  // column is 8 mod 64 bf16; 16-bit x0 loads from 8 columns when it is 2 mod 4
-  a.xs = round_up(a.hk8 - 8, 64) + 8;
+  a.xs = cinfwd::xk_stride(a.hk8);
   const dim3 grid((bd + kBN - 1) / kBN, (o + kBM - 1) / kBM);
   for (int hb = 0; hb < h0; hb += kH0Chunk) {
     a.h0c = h0 - hb < kH0Chunk ? h0 - hb : kH0Chunk;
-    a.x0st = round_up(a.h0c, 2);
-    if (a.x0st % 4 == 0) a.x0st += 2;
+    a.x0st = cinfwd::x0_stride(a.h0c);
     a.x0 = static_cast<const float*>(x0) + (size_t)hb * bd;
     a.wt = static_cast<const __nv_bfloat16*>(wt) + (size_t)hb * a.hk8;
     a.accumulate = hb > 0;

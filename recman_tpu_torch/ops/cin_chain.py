@@ -13,8 +13,10 @@ the final fmap) is sum-pooled over D into batch-major (B, F_i) blocks.
 z and W enter the products as bf16 and the sums run in f32, as in the
 reference.
 
-Kernels (sources in ``csrc/``), each beside its plain PyTorch twin, which
-is the CPU path and the kernel's oracle:
+Kernels (sources in ``csrc/``, on the tensor cores: bf16 operands, f32
+sums), each beside its plain PyTorch twin, which is the CPU path and the
+kernel's oracle. The wrappers lay bf16(W) out once per call, Hk padded to
+8 (``k1_weight_layouts``, ``k2_weight_layouts``):
 
 - K1 ``csrc/cin_chain_fwd.cu`` (the TPU kernel ``_chain_fwd_kernel``):
   the forward. With ``save=True`` it also writes every layer's fmap
@@ -124,6 +126,32 @@ def _round8(x: int) -> int:
     return -(-x // 8) * 8
 
 
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def k4_weight_layout(w, h0: int, hk: int):
+    """bf16(W) as K4 and K1 read it: Wt (O, Kp) bf16 with Wt[o, h*Hk8 + m] =
+    bf16(W[h*Hk + m, o]), Hk8 = Hk rounded up to 8, Kp = H0*Hk8 rounded up
+    to 64, padding zero."""
+    o = w.shape[1]
+    hk8 = _round8(hk)
+    wt = torch.zeros((o, _round_up(h0 * hk8, 64)), dtype=torch.bfloat16, device=w.device)
+    wt[:, : h0 * hk8].view(o, h0, hk8)[:, :, :hk] = w.view(h0, hk, o).permute(2, 0, 1)
+    return wt
+
+
+def k5_weight_layout(w, h0: int, hk: int):
+    """bf16(W) as K5 and K2 read it: Wp (H0*Hk8, O64) bf16 with Wp[h*Hk8 + m, o] =
+    bf16(W[h*Hk + m, o]), Hk8 = Hk rounded up to 8, O64 = O rounded up to
+    64, padding zero."""
+    o = w.shape[1]
+    hk8 = _round8(hk)
+    wp = torch.zeros((h0 * hk8, _round_up(o, 64)), dtype=torch.bfloat16, device=w.device)
+    wp.view(h0, hk8, -1)[:, :hk, :o] = w.view(h0, hk, o)
+    return wp
+
+
 def _pick_chain_tile(bd: int, d: int, want: int) -> int | None:
     """Largest tile <= want that divides bd, is a multiple of 128 and of d
     (the reference's rule, kept for ``chain_supported``)."""
@@ -151,7 +179,11 @@ def chain_supported(h0: int, units, d: int, bd: int, act) -> bool:
 
 
 def k1_smem_bytes(h0: int, units) -> int:
-    """Shared memory of one K1 block (the formula of the kernel source)."""
+    """The shared-memory clause of K1's range: f32 tiles of the x0, feed
+    and z rows of one field and of its W rows, which must fit in 227 KB.
+    It keeps the range (and so the routing between the chain and the
+    per-layer path) where it has been; the tensor-core kernels need less
+    (under 180 KB for K1 and 200 KB for K2 anywhere in the range)."""
     cfgs = _layer_cfgs(h0, units)
     max_hk = max(c.hk for c in cfgs)
     max_feed = max(c.feed for c in cfgs)
@@ -186,7 +218,7 @@ def k2_unsupported_reason(h0: int, units, d: int, bd: int) -> str | None:
     return None if reason is None else reason.replace("K1", "K2")
 
 
-def cin_chain_fm_reference(x0c, ws, bs, units, d, act="leaky_relu", save=False):
+def cin_chain_fm_reference(x0c, ws, bs, units, d, act="leaky_relu", save=False, feeds=None):
     """Plain PyTorch version of K1 (the CPU path and K1's oracle).
 
     x0, xk and W are rounded to bf16 and z is their bf16 product, as in
@@ -194,6 +226,12 @@ def cin_chain_fm_reference(x0c, ws, bs, units, d, act="leaky_relu", save=False):
     because a bf16 matmul rounds its output to bf16, which is not the f32
     accumulation the reference uses. Returns the per-layer pooled blocks,
     followed with ``save=True`` by every layer's fmap (O_i, B*D) f32.
+
+    ``feeds`` (optional, one (O_i, B*D) fmap per layer, a kernel's): layer
+    i+1 takes the first O_i/2 rows of feeds[i] as its xk in place of its
+    own, so that each layer of a kernel is held to this version on the
+    same input. Sums in another order can round an xk element to the
+    neighbouring bf16 value, which the next layer's products carry.
     """
     h0, bd = x0c.shape
     b = bd // d
@@ -210,6 +248,8 @@ def cin_chain_fm_reference(x0c, ws, bs, units, d, act="leaky_relu", save=False):
         fmaps.append(fmap)
         if i != len(units) - 1:
             xk, direct = fmap[: o // 2], fmap[o // 2:]
+            if feeds is not None:
+                xk = feeds[i][: o // 2]
         else:
             direct = fmap
         outs.append(direct.reshape(direct.shape[0], b, d).sum(2).t().contiguous())
@@ -336,15 +376,16 @@ def _k1():
     return fn
 
 
-def _k1_weights(cfgs, ws):
-    """W to bf16 in K1's layout, once per call: columns zero-padded to a
-    multiple of 8, so the kernel reads each row in 16-byte pieces."""
-    w_bf = []
-    for cfg, w in zip(cfgs, ws):
-        wb = torch.zeros((w.shape[0], _round8(cfg.o)), dtype=torch.bfloat16, device=w.device)
-        wb[:, : cfg.o] = w
-        w_bf.append(wb)
-    return w_bf
+def k1_weight_layouts(h0: int, units, ws):
+    """bf16(W_i) as K1 reads each layer, once per call: K4's layout
+    (``k4_weight_layout``), Hk_i padded to 8 with zeros."""
+    return [k4_weight_layout(w, h0, c.hk) for c, w in zip(_layer_cfgs(h0, units), ws)]
+
+
+def k2_weight_layouts(h0: int, units, ws):
+    """bf16(W_i) as K2 reads each layer, once per call: K5's layout
+    (``k5_weight_layout``), Hk_i padded to 8 and O_i to 64 with zeros."""
+    return [k5_weight_layout(w, h0, c.hk) for c, w in zip(_layer_cfgs(h0, units), ws)]
 
 
 def _cin_chain_fm_cuda(x0c, ws, bs, units, d, act, save=False):
@@ -354,7 +395,7 @@ def _cin_chain_fm_cuda(x0c, ws, bs, units, d, act, save=False):
     n = len(units)
     cfgs = _layer_cfgs(h0, units)
     fn = _k1()
-    w_bf = _k1_weights(cfgs, ws)
+    w_bf = k1_weight_layouts(h0, units, ws)
     b_c = [b.contiguous() for b in bs]
     outs = [
         torch.empty((bd // d, c.o - c.feed), dtype=torch.float32, device=x0c.device)
@@ -384,7 +425,7 @@ def _k2():
     p = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), p, p, p, p, ctypes.c_void_p, p,
+        ctypes.POINTER(ctypes.c_int), p, p, p, p, p, ctypes.c_void_p, p,
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, p, p, ctypes.c_int,
         ctypes.c_void_p,
     ]
@@ -413,38 +454,44 @@ def _k2_recompute():
     p = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), p, p, p, p, p, p, p, ctypes.c_void_p, p,
+        ctypes.POINTER(ctypes.c_int), p, p, p, p, p, p, p, p, ctypes.c_void_p, p,
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, p, p, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn
 
 
+def k2_scratch_shapes(h0: int, units, bd: int, splits) -> dict:
+    """The shapes of K2's scratch for a geometry and its dW splits: per
+    layer bf16(gpre) (O_i, B*D) and bf16(xk_i) (Hk_i, B*D) (layer 0's is
+    bf16(x0)), both bf16, for the dW phase; the per-block partial db
+    (B*D/128, sum O_i) and the per-split partial dW_i (splits_i, H0*Hk_i,
+    O_i), both f32."""
+    cfgs = _layer_cfgs(h0, units)
+    return {
+        "gb": [(c.o, bd) for c in cfgs],
+        "xkb": [(c.hk, bd) for c in cfgs],
+        "pdb": (bd // _TILE_N, sum(units)),
+        "pdw": [(s, h0 * c.hk, c.o) for s, c in zip(splits, cfgs)],
+    }
+
+
 def _k2_buffers(x0c, ws, units):
     """K2's W in the layout it walks, its scratch and its outputs, for
-    either form: (splits, wts, gts, pdb, pdws, dx0, dws, dbs)."""
+    either form: (splits, wps, gbs, xkbs, pdb, pdws, dx0, dws, dbs)."""
     h0, bd = x0c.shape
-    cfgs = _layer_cfgs(h0, units)
     dev = x0c.device
     smem, splits = k2_plan(h0, units, bd, dev)
     if smem > _MAX_SMEM:
         raise ValueError(f"K2 needs {smem} bytes of shared memory, over {_MAX_SMEM}")
-    # W to bf16 once per call in the layout the kernel walks: per field h
-    # the (O, Hk) block W[h*Hk + m, o] transposed, Hk zero-padded to 8
-    wts = []
-    for cfg, w in zip(cfgs, ws):
-        wt = torch.zeros((h0, cfg.o, _round8(cfg.hk)), dtype=torch.bfloat16, device=dev)
-        wt[:, :, : cfg.hk] = w.reshape(h0, cfg.hk, cfg.o).transpose(1, 2)
-        wts.append(wt)
-    # scratch: bf16 gpre transposed to (B*D, O_pad), per-block partial db,
-    # per-split partial dW
-    gts = [torch.empty((bd, _round8(c.o)), dtype=torch.bfloat16, device=dev) for c in cfgs]
-    pdb = torch.empty((bd // _TILE_N, sum(units)), dtype=torch.float32, device=dev)
-    pdws = [torch.empty((s, h0 * c.hk, c.o), dtype=torch.float32, device=dev)
-            for s, c in zip(splits, cfgs)]
+    shapes = k2_scratch_shapes(h0, units, bd, splits)
+    gbs = [torch.empty(s, dtype=torch.bfloat16, device=dev) for s in shapes["gb"]]
+    xkbs = [torch.empty(s, dtype=torch.bfloat16, device=dev) for s in shapes["xkb"]]
+    pdb = torch.empty(shapes["pdb"], dtype=torch.float32, device=dev)
+    pdws = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes["pdw"]]
     dx0 = torch.empty_like(x0c)
-    dws = [torch.empty((h0 * c.hk, c.o), dtype=torch.float32, device=dev) for c in cfgs]
-    dbs = [torch.empty((c.o,), dtype=torch.float32, device=dev) for c in cfgs]
-    return splits, wts, gts, pdb, pdws, dx0, dws, dbs
+    dws = [torch.empty(s[1:], dtype=torch.float32, device=dev) for s in shapes["pdw"]]
+    dbs = [torch.empty((o,), dtype=torch.float32, device=dev) for o in units]
+    return (splits, k2_weight_layouts(h0, units, ws), gbs, xkbs, pdb, pdws, dx0, dws, dbs)
 
 
 def _check_k2_args(x0c, ws, gs, units, d, act):
@@ -467,12 +514,12 @@ def _cin_chain_bwd_cuda(x0c, ws, gs, fmaps, units, d, act):
         raise ValueError("K2 needs one fmap per layer")
     for cfg, f in zip(_layer_cfgs(h0, units), fmaps):
         _check_tensor("K2", "fmap", f, (cfg.o, bd), torch.float32, x0c.device)
-    splits, wts, gts, pdb, pdws, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
+    splits, wps, gbs, xkbs, pdb, pdws, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
     stream = torch.cuda.current_stream(x0c.device).cuda_stream
     err = _k2()(
         x0c.data_ptr(), h0, bd, d, n, (ctypes.c_int * n)(*units),
-        _ptrs(wts), _ptrs(list(fmaps)), _ptrs(list(gs)), _ptrs(gts), pdb.data_ptr(),
-        _ptrs(pdws), (ctypes.c_int * n)(*splits), dx0.data_ptr(), _ptrs(dws),
+        _ptrs(wps), _ptrs(list(fmaps)), _ptrs(list(gs)), _ptrs(gbs), _ptrs(xkbs),
+        pdb.data_ptr(), _ptrs(pdws), (ctypes.c_int * n)(*splits), dx0.data_ptr(), _ptrs(dws),
         _ptrs(dbs), _ACT_CODES[act], stream,
     )
     if err != 0:
@@ -489,8 +536,8 @@ def _cin_chain_bwd_recompute_cuda(x0c, ws, bs, gs, units, d, act):
     n = len(units)
     cfgs = _layer_cfgs(h0, units)
     dev = x0c.device
-    splits, wts, gts, pdb, pdws, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
-    w_bf = _k1_weights(cfgs, ws)
+    splits, wps, gbs, xkbs, pdb, pdws, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
+    w_bf = k1_weight_layouts(h0, units, ws)
     b_c = [b.contiguous() for b in bs]
     # phase 0's scratch: each non-final layer's feed rows (f32) and one bit
     # per fmap element (fmap > 0), alive only for this call
@@ -500,8 +547,8 @@ def _cin_chain_bwd_recompute_cuda(x0c, ws, bs, gs, units, d, act):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _k2_recompute()(
         x0c.data_ptr(), h0, bd, d, n, (ctypes.c_int * n)(*units),
-        _ptrs(w_bf), _ptrs(b_c), _ptrs(wts), _ptrs(feeds), _ptrs(signs), _ptrs(list(gs)),
-        _ptrs(gts), pdb.data_ptr(), _ptrs(pdws), (ctypes.c_int * n)(*splits),
+        _ptrs(w_bf), _ptrs(b_c), _ptrs(wps), _ptrs(feeds), _ptrs(signs), _ptrs(list(gs)),
+        _ptrs(gbs), _ptrs(xkbs), pdb.data_ptr(), _ptrs(pdws), (ctypes.c_int * n)(*splits),
         dx0.data_ptr(), _ptrs(dws), _ptrs(dbs), _ACT_CODES[act], stream,
     )
     if err != 0:

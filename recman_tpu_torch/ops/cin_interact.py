@@ -39,7 +39,7 @@ import threading
 
 import torch
 
-from .cin_chain import _on, _round8
+from .cin_chain import _on, _round_up, k4_weight_layout, k5_weight_layout
 from .cuda_build import load
 from .embedding import _mode as _fused_mode
 
@@ -203,32 +203,6 @@ def _check(name, x0c, xkc, w, g=None):
                          f"got H0={h0}, Hk={hk}, O={o}, B*D={bd}")
     if g is not None and tuple(g.shape) != (o, bd):
         raise ValueError(f"{name} cotangent: got {tuple(g.shape)}, expected ({o}, {bd})")
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
-
-
-def k4_weight_layout(w, h0: int, hk: int):
-    """bf16(W) as K4 reads it: Wt (O, Kp) bf16 with Wt[o, h*Hk8 + m] =
-    bf16(W[h*Hk + m, o]), Hk8 = Hk rounded up to 8, Kp = H0*Hk8 rounded up
-    to 64, padding zero."""
-    o = w.shape[1]
-    hk8 = _round8(hk)
-    wt = torch.zeros((o, _round_up(h0 * hk8, 64)), dtype=torch.bfloat16, device=w.device)
-    wt[:, : h0 * hk8].view(o, h0, hk8)[:, :, :hk] = w.view(h0, hk, o).permute(2, 0, 1)
-    return wt
-
-
-def k5_weight_layout(w, h0: int, hk: int):
-    """bf16(W) as K5 reads it: Wp (H0*Hk8, O64) bf16 with Wp[h*Hk8 + m, o] =
-    bf16(W[h*Hk + m, o]), Hk8 = Hk rounded up to 8, O64 = O rounded up to
-    64, padding zero."""
-    o = w.shape[1]
-    hk8 = _round8(hk)
-    wp = torch.zeros((h0 * hk8, _round_up(o, 64)), dtype=torch.bfloat16, device=w.device)
-    wp.view(h0, hk8, -1)[:, :hk, :o] = w.view(h0, hk, o)
-    return wp
 
 
 def _fn(source, symbol, argtypes):

@@ -344,3 +344,152 @@ def test_the_chain_ignores_cin_remat(monkeypatch):
         grads.append({k: v.grad for k, v in p.items()})
     assert calls == {"save": 2, "recompute": 0}
     assert all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0])
+
+
+# -- the tensor-core kernels' host-side layouts and scratch ---------------------
+
+# (H0, units): the small odd geometry (Hk 5 and 3 pad to 8), the ML-100K
+# anchor's three layers, the widest maps and the widest fields K1 takes,
+# the bench geometry
+LAYOUT_GEOMETRIES = [(5, (6, 4)), (6, (100, 100, 100)), (39, (256, 128)), (128, (128, 64)),
+                     (26, (100, 100))]
+
+
+def _r(x, m):
+    return -(-x // m) * m
+
+
+@pytest.mark.parametrize("h0,units", LAYOUT_GEOMETRIES)
+def test_k1_weight_layouts_read_back_bf16_w(h0, units):
+    """K1's per-layer W (K4's layout, (O_i, Kp_i)): column h*Hk8 + m of row
+    o is bf16(W_i[h*Hk+m, o]); the padding rows of a field and the columns
+    past H0*Hk8 are zero."""
+    x0c, ws, bs = _inputs(h0, units, 1, 1, seed=h0)
+    wts = torch_chain.k1_weight_layouts(h0, units, [torch.from_numpy(w) for w in ws])
+    for cfg, w, wt in zip(torch_chain._layer_cfgs(h0, units), ws, wts):
+        hk8 = _r(cfg.hk, 8)
+        assert wt.dtype == torch.bfloat16 and wt.shape == (cfg.o, _r(h0 * hk8, 64))
+        fields = wt[:, : h0 * hk8].reshape(cfg.o, h0, hk8)
+        back = fields[:, :, : cfg.hk].permute(1, 2, 0).reshape(h0 * cfg.hk, cfg.o)
+        assert torch.equal(back, torch.from_numpy(w).to(torch.bfloat16))
+        assert not fields[:, :, cfg.hk:].any() and not wt[:, h0 * hk8:].any()
+
+
+@pytest.mark.parametrize("h0,units", LAYOUT_GEOMETRIES)
+def test_k2_weight_layouts_read_back_bf16_w(h0, units):
+    """K2's per-layer W (K5's layout, (H0*Hk8, O64)): row h*Hk8 + m is
+    bf16(W_i[h*Hk+m]); the padding rows of a field and the maps past O_i
+    are zero."""
+    x0c, ws, bs = _inputs(h0, units, 1, 1, seed=h0 + 1)
+    wps = torch_chain.k2_weight_layouts(h0, units, [torch.from_numpy(w) for w in ws])
+    for cfg, w, wp in zip(torch_chain._layer_cfgs(h0, units), ws, wps):
+        hk8 = _r(cfg.hk, 8)
+        assert wp.dtype == torch.bfloat16 and wp.shape == (h0 * hk8, _r(cfg.o, 64))
+        fields = wp.reshape(h0, hk8, -1)
+        back = fields[:, : cfg.hk, : cfg.o].reshape(h0 * cfg.hk, cfg.o)
+        assert torch.equal(back, torch.from_numpy(w).to(torch.bfloat16))
+        assert not fields[:, cfg.hk:].any() and not wp[:, cfg.o:].any()
+
+
+def _padded_z(x0c, xk, hk8):
+    """z with Hk padded to hk8 zero rows per field, (H0*Hk8, B*D) f32."""
+    h0, bd = x0c.shape
+    z = torch.zeros((h0, hk8, bd), dtype=torch.bfloat16)
+    z[:, : xk.shape[0]] = x0c.to(torch.bfloat16)[:, None, :] * xk.to(torch.bfloat16)[None, :, :]
+    return z.reshape(h0 * hk8, bd).float()
+
+
+# (H0, units, B, D): the layout geometries at batches small enough for the CPU
+PADDED_CASES = [(5, (6, 4), 64, 4), (6, (100, 100, 100), 16, 8), (39, (256, 128), 8, 8),
+                (128, (128, 64), 2, 8), (26, (100, 100), 16, 16)]
+
+
+@pytest.mark.parametrize("h0,units,b,d", PADDED_CASES)
+def test_plain_contraction_over_k1_layout_matches_reference(h0, units, b, d):
+    """The forward as K1 computes it, over its padded layout (z with Hk8
+    rows a field, W in K4's layout): the same pooled blocks and fmaps as
+    ``cin_chain_fm_reference``, to f32 sum order (1e-5 of max|ref|)."""
+    T = torch.from_numpy
+    x0c, ws, bs = _inputs(h0, units, b, d, seed=h0 + d)
+    x0c, ws, bs = T(x0c), [T(w) for w in ws], [T(v) for v in bs]
+    ref = torch_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, "leaky_relu", save=True)
+    xk, outs, fmaps = x0c, [], []
+    for cfg, wt, bias in zip(torch_chain._layer_cfgs(h0, units),
+                             torch_chain.k1_weight_layouts(h0, units, ws), bs):
+        hk8 = _r(cfg.hk, 8)
+        pre = wt[:, : h0 * hk8].float() @ _padded_z(x0c, xk, hk8) + bias[:, None]
+        fmap = torch_chain._act("leaky_relu", pre)
+        direct = fmap[cfg.feed:]
+        outs.append(direct.reshape(direct.shape[0], b, d).sum(2).t())
+        fmaps.append(fmap)
+        xk = fmap[: cfg.feed]
+    for r, g in zip(ref, outs + fmaps):
+        assert g.shape == r.shape and _rel_err(r.numpy(), g.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("h0,units,b,d", PADDED_CASES)
+def test_plain_contraction_over_k2_layout_matches_reference(h0, units, b, d):
+    """The backward as K2 computes it, over its padded layouts (u from W in
+    K5's layout, dW from z with Hk8 rows a field): the same dx0, dW_i and
+    db_i as ``cin_chain_bwd_reference``, to f32 sum order (1e-5 of
+    max|ref|)."""
+    T = torch.from_numpy
+    x0c, ws, bs = _inputs(h0, units, b, d, seed=h0 + d + 1)
+    x0c, ws, bs = T(x0c), [T(w) for w in ws], [T(v) for v in bs]
+    gs = [T(g) for g in _cotangents(h0, units, b, seed=h0)]
+    fmaps = torch_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, "leaky_relu",
+                                               save=True)[len(units):]
+    ref = torch_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, fmaps, units, d, "leaky_relu")
+    cfgs = torch_chain._layer_cfgs(h0, units)
+    wps = torch_chain.k2_weight_layouts(h0, units, ws)
+    dx0, dws, dbs, dxk_next = torch.zeros_like(x0c), [None] * len(cfgs), [None] * len(cfgs), None
+    for i in reversed(range(len(cfgs))):
+        cfg, hk8 = cfgs[i], _r(cfgs[i].hk, 8)
+        g_direct = gs[i].t().repeat_interleave(d, dim=1)
+        dfmap = g_direct if cfg.final else torch.cat([dxk_next, g_direct], 0)
+        gpre = dfmap * torch.where(fmaps[i] > 0, 1.0, 0.2)
+        dbs[i] = gpre.sum(1)
+        gpre_bf = gpre.to(torch.bfloat16).float()
+        xk = x0c if i == 0 else fmaps[i - 1][: cfg.hk]
+        dw = (_padded_z(x0c, xk, hk8) @ gpre_bf.t()).reshape(h0, hk8, cfg.o)
+        dws[i] = dw[:, : cfg.hk].reshape(h0 * cfg.hk, cfg.o)
+        u = (wps[i][:, : cfg.o].float() @ gpre_bf).reshape(h0, hk8, -1)[:, : cfg.hk]
+        dx0 = dx0 + (u * xk[None]).sum(1)
+        dxk = (u * x0c[:, None]).sum(0)
+        if i == 0:
+            dx0 = dx0 + dxk
+        else:
+            dxk_next = dxk
+    for r, g in zip([ref[0], *ref[1], *ref[2]], [dx0, *dws, *dbs]):
+        assert g.shape == r.shape and _rel_err(r.numpy(), g.numpy()) <= 1e-5
+
+
+def test_k2_scratch_shapes_at_the_bench_geometry():
+    """K2's scratch at batch 8192: bf16(gpre) and bf16(xk) per layer for the
+    dW phase (layer 0's xk is x0), partial db per 128-column block, partial
+    dW per split."""
+    shapes = torch_chain.k2_scratch_shapes(26, (100, 100), 8192 * 16, [24, 11])
+    assert shapes == {
+        "gb": [(100, 131_072), (100, 131_072)],
+        "xkb": [(26, 131_072), (50, 131_072)],
+        "pdb": (1024, 200),
+        "pdw": [(24, 676, 100), (11, 1300, 100)],
+    }
+
+
+def test_plain_chain_takes_given_feeds():
+    """``feeds`` replaces each later layer's xk by the feed rows of a given
+    fmap: its own fmaps give the same bits, and zero feeds leave layer 0 as
+    it is and make layer 1's fmap act(b_1)."""
+    T = torch.from_numpy
+    units, d = (8, 8, 6), D
+    x0c, ws, bs = _inputs(F, units, B, d, seed=5)
+    x0c, ws, bs = T(x0c), [T(w) for w in ws], [T(v) for v in bs]
+    own = torch_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, "relu", save=True)
+    again = torch_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, "relu", save=True,
+                                               feeds=own[3:])
+    assert all(torch.equal(a, b) for a, b in zip(own, again))
+    zero = [torch.zeros_like(f) for f in own[3:]]
+    got = torch_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, "relu", save=True, feeds=zero)
+    assert torch.equal(got[3], own[3]) and torch.equal(got[0], own[0])
+    assert torch.equal(got[4], torch.relu(bs[1])[:, None].expand(8, B * d))
