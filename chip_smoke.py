@@ -22,8 +22,8 @@ Phases, each failing the script (non-zero exit) when it fails:
    (segment_matmul.cu; K7 beside index_add_ into a (T*V, k_eff) buffer)
    on the sorted ids of 8192 synthetic Criteo rows. K1 and K2 are timed
    beside the bare bf16 contractions they do (torch.matmul on prebuilt
-   operands), K2 profiled by phase; the chain is held layer by layer to
-   the twin run on K1's own fmaps, and end to end to FEED_TOL, and K1's
+   operands), K2 profiled by phase; the chain is held end to end to the
+   twin and layer by layer to the twin run on K1's own fmaps, and K1's
    layer 0 is read against an exact f64 sum beside the twin.
 3. the serving slice end to end: full-width xDeepFM (26 hashed fields x
    100,000 buckets, k=16, CIN (100, 100), DNN (400, 400)) with random
@@ -380,35 +380,39 @@ def sign_flips(refs, gots, tol, what, near_tol=FLIP_ABS):
     return flips
 
 
-def k1_twins(x0c, ws, bs, units, d, act, fmaps, what):
+def k1_twins(x0c, ws, bs, units, d, act, got, what):
     """K1's twin on K1's own input, layer by layer: layer i+1 of the twin
     takes the feed rows of K1's fmaps[i] (``cin_chain_fm_reference``'s
     ``feeds``). Returns its pooled blocks and fmaps, to which K1 is held at
-    K1_TOL. First K1's fmaps are held to the twin run end to end at
-    FEED_TOL: where sums in another order straddle a bf16 rounding of a
-    feed element, the two round it to neighbouring bf16 values, which the
-    next layer's products carry; the count of such elements is logged."""
+    K1_TOL. First K1's save-form outputs ``got`` (pooled blocks, then
+    fmaps) are held to the twin run end to end, also at K1_TOL; the count
+    of feed elements that the two round to neighbouring bf16 values (sums
+    in another order straddling a rounding, which the next layers carry)
+    is logged."""
     import torch
 
     from recman_tpu_torch.ops import cin_chain
 
     n = len(units)
-    e2e = cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True)[n:]
+    e2e = cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True)
     apart = sum(int((f[: o // 2].to(torch.bfloat16) != t[: o // 2].to(torch.bfloat16)).sum())
-                for f, t, o in zip(fmaps[:-1], e2e[:-1], units[:-1]))
-    err = max_rel_err(e2e, fmaps, FEED_TOL, f"{what}: K1's fmaps against the twin end to end")
-    scale = max(t.abs().max().item() for t in e2e)
-    log(f"{what}: K1's fmaps against the twin end to end: max|d| {err / scale:.3e} of max|ref|; "
-        f"feed elements rounded to another bf16 value than the twin's: {apart} of "
+                for f, t, o in zip(got[n:-1], e2e[n:-1], units[:-1]))
+    rels = [(r - g).abs().max().item() / (r.abs().max().item() or 1.0) for r, g in zip(e2e, got)]
+    log(f"{what}: K1 against the twin end to end, max|d|/max|ref| per pooled block "
+        f"{[f'{e:.3e}' for e in rels[:n]]}, per fmap {[f'{e:.3e}' for e in rels[n:]]}; feed "
+        f"elements rounded to another bf16 value than the twin's: {apart} of "
         f"{sum(o // 2 for o in units[:-1]) * x0c.shape[1]}")
+    max_rel_err(e2e, got, K1_TOL, f"{what}: K1 against the twin end to end")
     del e2e
-    return cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True, feeds=fmaps)
+    return cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True,
+                                            feeds=got[n:])
 
 
-def check_recompute(x0c, ws, bs, gs, units, d, act, fmaps, got, what):
-    """K2's recompute form against K2's twin on K1's fmaps (``fmaps``, the
-    bits the kernel rebuilds) to K2_TOL of max|ref|. Those fmaps are first
-    held to K1's twin on K1's own input (``k1_twins``) to K1_TOL, with
+def check_recompute(x0c, ws, bs, gs, units, d, act, k1_out, got, what):
+    """K2's recompute form against K2's twin on K1's fmaps (the last
+    len(units) of K1's save-form outputs ``k1_out``: the bits the kernel
+    rebuilds) to K2_TOL of max|ref|. Those fmaps are first held to K1's
+    twin end to end and on K1's own input (``k1_twins``) to K1_TOL, with
     their sign differences bounded by ``sign_flips``. The twin's own fmaps
     are not K2's input: they can round a feed element to the neighbouring
     bf16 value, and at an element of other sign read the activation's
@@ -419,7 +423,8 @@ def check_recompute(x0c, ws, bs, gs, units, d, act, fmaps, got, what):
     from recman_tpu_torch.ops import cin_chain
 
     n = len(units)
-    twin = k1_twins(x0c, ws, bs, units, d, act, fmaps, what)[n:]
+    fmaps = k1_out[n:]
+    twin = k1_twins(x0c, ws, bs, units, d, act, k1_out, what)[n:]
     flips = sign_flips(twin, fmaps, K1_TOL, f"{what}: K1's fmaps")
     del twin
     ref = cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, fmaps, units, d, act)
@@ -471,7 +476,7 @@ def k2_recompute_large_batch(device):
     check(all(torch.equal(a, c) for a, c in zip([saved[0], *saved[1], *saved[2]],
                                                 [got[0], *got[1], *got[2]])),
           "K2 recompute at B 65,536: not bit-equal to K2 save")
-    err, flips = check_recompute(x0c, ws, bs, gs, units, d, "leaky_relu", out[n:], got,
+    err, flips = check_recompute(x0c, ws, bs, gs, units, d, "leaky_relu", out, got,
                                  "K2 recompute at B 65,536")
     rec = time_k2_recompute(x0c, ws, bs, gs, units, d, "leaky_relu", err, f"B {b}", out[n:])
     k1s_ms = cuda_time_ms(lambda: cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, "leaky_relu",
@@ -530,7 +535,7 @@ def phase_kernels(device):
             got = cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act)
             got_s = cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act, save=True)
             torch.cuda.synchronize()
-            ref = k1_twins(x0c, ws, bs, units, d, act, got_s[n:], f"K1 save {label} {act}")
+            ref = k1_twins(x0c, ws, bs, units, d, act, got_s, f"K1 save {label} {act}")
             e1 = max_rel_err(ref[:n], got, K1_TOL, f"K1 {label} {act}")
             e1s = max_rel_err(ref, got_s, K1_TOL, f"K1 save {label} {act}")
             g = torch.Generator().manual_seed(11)
@@ -546,7 +551,7 @@ def phase_kernels(device):
             check(all(torch.equal(a, c) for a, c in zip([got_b[0], *got_b[1], *got_b[2]],
                                                         [got_r[0], *got_r[1], *got_r[2]])),
                   f"K2 recompute {label} {act}: not bit-equal to K2 save")
-            e2r, flips = check_recompute(x0c, ws, bs, gs, units, d, act, got_s[n:], got_r,
+            e2r, flips = check_recompute(x0c, ws, bs, gs, units, d, act, got_s, got_r,
                                          f"K2 recompute {label} {act}")
             log(f"K1/K1 save/K2/K2 recompute vs plain [{label} H0={h0} units={units} B={b} D={d} "
                 f"{act}]: max|d| {e1:.3e} / {e1s:.3e} / {e2:.3e} / {e2r:.3e} ({flips} fmap "

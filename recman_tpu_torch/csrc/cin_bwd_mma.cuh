@@ -26,12 +26,14 @@
 // = the columns. A block owns 128 rows x 128 maps and one split of the
 // columns; 8 warps as 4 (rows) x 2 (maps), each 32 x 64. Each 64-column
 // slice of the x0 rows its z rows need, of xk, and of gb's 128 maps
-// streams through a 3-stage cp.async ring from bf16 copies in device
-// memory; every thread builds its A fragment of z in registers from two
-// 32-bit loads and one bf16x2 multiply, with its rows' (h, m) offsets
-// computed once per block (no divide in the loop); B comes through
-// ldmatrix. Each split writes its own partial dW, which the caller sums in
-// split order.
+// streams through a 3-stage cp.async ring; x0 and xk come as bf16 copies
+// (K5's scratch) or as the f32 rows themselves (K2: x0c and the feed rows,
+// so no copy is stored), which the block then rounds once per slice into
+// a bf16 tile. Every thread builds its A fragment of z in registers from
+// two 32-bit loads of bf16 pairs and one bf16x2 multiply, with its rows'
+// (h, m) offsets computed once per block (no divide in the loop); B comes
+// through ldmatrix. Each split writes its own partial dW, which the
+// caller sums in split order.
 
 #pragma once
 
@@ -227,21 +229,41 @@ __device__ __forceinline__ float2 dx0_partials(const float* red, int h, const Co
                      r[t.wc + t.g + 8] + r[kCols + t.wc + t.g + 8]);
 }
 
+// TX: the element of the x0 and xk rows, __nv_bfloat16 or float.
+template <class TX>
 struct DwArgs {
-  const __nv_bfloat16* x0b;    // (h0, bdp) bf16
-  const __nv_bfloat16* xkb;    // (hk, bdp) bf16
+  const TX* x0;                // (h0, bdp)
+  const TX* xk;                // (hk, bdp)
   const __nv_bfloat16* gb;     // (o, bdp) bf16
   float* pdw;                  // (splits, h0*hk, o) f32
   int h0, hk, o, bdp, splits, nh_max;
 };
 
-__global__ void __launch_bounds__(kThreads, 2) cin_bwd_dw(const DwArgs a) {
+// Bytes of one dW ring stage: x0 rows [0, nh_max) and xk rows [nh_max,
+// nh_max + hk) in TX, then gb's kDwMaps rows in bf16, each kSlice columns.
+template <class TX>
+inline __host__ __device__ int dw_stage_bytes(int nh_max, int hk) {
+  return (nh_max + hk) * kStride * (int)sizeof(TX) + kDwMaps * kStride * 2;
+}
+
+// Bytes of the dW block's shared memory: the ring, and for f32 rows one
+// bf16 tile of a slice's x0 and xk rows, which the block rounds them into.
+template <class TX>
+inline __host__ __device__ int dw_smem_bytes(int nh_max, int hk) {
+  return kStages * dw_stage_bytes<TX>(nh_max, hk) +
+         (sizeof(TX) == 2 ? 0 : (nh_max + hk) * kStride * 2);
+}
+
+template <class TX>
+__global__ void __launch_bounds__(kThreads, 2) cin_bwd_dw(const DwArgs<TX> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // a stage: x0 rows [0, nh_max), xk rows [nh_max, nh_max + hk), gb rows
-  // [nh_max + hk, nh_max + hk + 128), each kSlice columns
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int stage_elems = (a.nh_max + a.hk + kDwMaps) * kStride;
-  const int xk_row0 = a.nh_max, gb_row0 = a.nh_max + a.hk;
+  constexpr int kShift = sizeof(TX) == 2 ? 3 : 4;  // log2 of the 16 B pieces of an x0 or xk row
+  constexpr int kPer = 16 / (int)sizeof(TX);        // elements a piece
+  const int stage_bytes = dw_stage_bytes<TX>(a.nh_max, a.hk);
+  const int xk_row0 = a.nh_max;
+  const int gb_off = (a.nh_max + a.hk) * kStride * (int)sizeof(TX);  // bytes into a stage
+  // f32 rows: the bf16 tile after the ring
+  __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(smem + kStages * stage_bytes);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -260,19 +282,22 @@ __global__ void __launch_bounds__(kThreads, 2) cin_bwd_dw(const DwArgs a) {
 
   auto load = [&](int i_c) {
     const int col = (c_begin + i_c) * kSlice;
-    __nv_bfloat16* dst = ring + (i_c % kStages) * stage_elems;
-    const int rows = nh + a.hk + kDwMaps;
-    for (int i = tid; i < rows * 8; i += kThreads) {
-      const int rr = i >> 3, p = (i & 7) * 8;
-      if (rr < nh) {
-        tc::cp_async16(dst + rr * kStride + p, a.x0b + (size_t)(h_lo + rr) * a.bdp + col + p);
-      } else if (rr < nh + a.hk) {
-        const int m = rr - nh;
-        tc::cp_async16(dst + (xk_row0 + m) * kStride + p, a.xkb + (size_t)m * a.bdp + col + p);
+    unsigned char* stage = smem + (i_c % kStages) * stage_bytes;
+    TX* xs = reinterpret_cast<TX*>(stage);
+    __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(stage + gb_off);
+    const int nx = (nh + a.hk) << kShift;
+    for (int i = tid; i < nx + kDwMaps * 8; i += kThreads) {
+      if (i < nx) {
+        const int rr = i >> kShift, p = (i & ((1 << kShift) - 1)) * kPer;
+        if (rr < nh)
+          tc::cp_async16(xs + rr * kStride + p, a.x0 + (size_t)(h_lo + rr) * a.bdp + col + p);
+        else
+          tc::cp_async16(xs + (xk_row0 + rr - nh) * kStride + p,
+                         a.xk + (size_t)(rr - nh) * a.bdp + col + p);
       } else {
-        const int r = rr - nh - a.hk, o = o_base + r;
-        tc::cp_async16(dst + (gb_row0 + r) * kStride + p,
-                       a.gb + (size_t)(o < a.o ? o : 0) * a.bdp + col + p, o < a.o ? 16 : 0);
+        const int r = (i - nx) >> 3, p = ((i - nx) & 7) * 8, o = o_base + r;
+        tc::cp_async16(gs + r * kStride + p, a.gb + (size_t)(o < a.o ? o : 0) * a.bdp + col + p,
+                       o < a.o ? 16 : 0);
       }
     }
   };
@@ -297,7 +322,8 @@ __global__ void __launch_bounds__(kThreads, 2) cin_bwd_dw(const DwArgs a) {
   // n8 tiles of this warp that hold a map below O (warp-uniform)
   int ntv = (a.o - o_base - wn * 64 + 7) / 8;
   ntv = ntv < 0 ? 0 : (ntv > 8 ? 8 : ntv);
-  const int b_off = (gb_row0 + wn * 64 + ((lane >> 4) << 3) + (lane & 7)) * kStride +
+  // the thread's ldmatrix row of gb, in bf16 elements from a stage's start
+  const int b_off = gb_off / 2 + (wn * 64 + ((lane >> 4) << 3) + (lane & 7)) * kStride +
                     ((lane >> 3) & 1) * 8;
 
   float acc[2][8][4];
@@ -311,8 +337,22 @@ __global__ void __launch_bounds__(kThreads, 2) cin_bwd_dw(const DwArgs a) {
     __syncthreads();  // slice i_c has landed; the stage slice i_c - 1 used is free
     if (i_c + kStages - 1 < nc) load(i_c + kStages - 1);
     tc::cp_async_commit();
-    const __nv_bfloat16* st = ring + (i_c % kStages) * stage_elems;
+    const __nv_bfloat16* st =
+        reinterpret_cast<const __nv_bfloat16*>(smem + (i_c % kStages) * stage_bytes);
+    if constexpr (sizeof(TX) != 2) {
+      // round the slice's f32 rows into the bf16 tile once, as the
+      // reference rounds x0 and xk; the tile is free (the barrier above
+      // follows every warp's products of the slice before)
+      const float* xf = reinterpret_cast<const float*>(st);
+      for (int i = tid; i < (nh + a.hk) * (kSlice / 4); i += kThreads) {
+        const int rr = i >> 4, row = rr < nh ? rr : xk_row0 + rr - nh, c = (i & 15) * 4;
+        *reinterpret_cast<uint2*>(xb + row * kStride + c) =
+            tc::pack_bf16x4(*reinterpret_cast<const float4*>(xf + row * kStride + c));
+      }
+      __syncthreads();
+    }
     if (ntv == 0) continue;
+    const __nv_bfloat16* xs = sizeof(TX) == 2 ? st : xb;  // the slice's bf16 x0 and xk rows
 #pragma unroll
     for (int ks = 0; ks < kSlice / 16; ++ks) {
       const int k = ks * 16;
@@ -324,8 +364,8 @@ __global__ void __launch_bounds__(kThreads, 2) cin_bwd_dw(const DwArgs a) {
 #pragma unroll
           for (int e = 0; e < 2; ++e)
             af[i][2 * kh + e] =
-                tc::mul_bf16x2(*reinterpret_cast<const uint32_t*>(st + zx0[i][e] + k + 8 * kh),
-                               *reinterpret_cast<const uint32_t*>(st + zxk[i][e] + k + 8 * kh));
+                tc::mul_bf16x2(*reinterpret_cast<const uint32_t*>(xs + zx0[i][e] + k + 8 * kh),
+                               *reinterpret_cast<const uint32_t*>(xs + zxk[i][e] + k + 8 * kh));
       uint32_t bf[8][2];
 #pragma unroll
       for (int j = 0; j < 8; j += 2) {
@@ -374,15 +414,15 @@ inline int dw_splits(int k_rows, int o, int bd, int sms) {
 }
 
 
-// Launches the dW contraction for one layer on `st`: x0b (h0, bdp), xkb
-// (hk, bdp) and gb (o, bdp) bf16 with bdp a multiple of kSlice and zeros
-// past the columns; pdw (splits, h0*hk, o) f32 partials.
-inline cudaError_t dw_launch(const __nv_bfloat16* x0b, const __nv_bfloat16* xkb,
-                             const __nv_bfloat16* gb, float* pdw, int h0, int hk, int o, int bdp,
-                             int splits, cudaStream_t st) {
-  DwArgs b;
-  b.x0b = x0b;
-  b.xkb = xkb;
+// Launches the dW contraction for one layer on `st`: x0 (h0, bdp) and xk
+// (hk, bdp), bf16 or f32, and gb (o, bdp) bf16, with bdp a multiple of
+// kSlice and zeros past the columns; pdw (splits, h0*hk, o) f32 partials.
+template <class TX>
+cudaError_t dw_launch(const TX* x0, const TX* xk, const __nv_bfloat16* gb, float* pdw, int h0,
+                      int hk, int o, int bdp, int splits, cudaStream_t st) {
+  DwArgs<TX> b;
+  b.x0 = x0;
+  b.xk = xk;
   b.gb = gb;
   b.pdw = pdw;
   b.h0 = h0;
@@ -392,12 +432,12 @@ inline cudaError_t dw_launch(const __nv_bfloat16* x0b, const __nv_bfloat16* xkb,
   b.splits = splits;
   b.nh_max = (kDwRows - 1) / hk + 2 < h0 ? (kDwRows - 1) / hk + 2 : h0;
   const int k_rows = h0 * hk;
-  const int smem = kStages * (b.nh_max + hk + kDwMaps) * kStride * 2;
+  const int smem = dw_smem_bytes<TX>(b.nh_max, hk);
   cudaError_t err =
-      cudaFuncSetAttribute(cin_bwd_dw, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(cin_bwd_dw<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((k_rows + kDwRows - 1) / kDwRows, splits, (o + kDwMaps - 1) / kDwMaps);
-  cin_bwd_dw<<<grid, kThreads, smem, st>>>(b);
+  cin_bwd_dw<TX><<<grid, kThreads, smem, st>>>(b);
   return cudaGetLastError();
 }
 

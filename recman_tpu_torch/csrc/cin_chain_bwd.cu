@@ -33,15 +33,19 @@
 // products run on the tensor cores: mma.sync.m16n8k16, bf16 operands, f32
 // sums. Padding (Hk 26 -> 32 and 50 -> 56, O 100 -> 112) makes them do
 // about 1.3x the function's products.
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W:
-// 1.285 ms at that geometry (81 TFLOP/s) and 9.52 ms at B = 65,536, the
-// recompute form 1.70 and 12.62 ms, against 4.56, 35.60 and 48.73 ms for
-// the CUDA-core design this replaces. At 65,536, phase 1 takes 6.9 ms,
-// the two dW contractions 2.4 ms and the reductions 0.5 ms; the bare bf16
-// contractions (torch.matmul on prebuilt operands) take 5.81 ms. Phase 1
-// runs one block of 16 warps an SM with a few products a field between
-// barriers: neither a deeper W ring nor loading its gpre rows or x0
-// earlier made it faster; what holds it is an open question (PERF.md).
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (recman_tpu_torch/tools/chain_readings.py): 1.29-1.30 ms at that
+// geometry (80 TFLOP/s) and 9.66-9.73 ms at B = 65,536, the recompute
+// form 1.68-1.70 and 12.59-12.69 ms, against 4.56, 35.60 and 48.73 ms for
+// the CUDA-core design this replaces. At 65,536 phase 1 takes 6.65 ms of
+// it and the two dW contractions 2.76 ms (a chip_smoke.py profile); the
+// bare bf16 contractions (torch.matmul on prebuilt operands) take 5.81
+// ms. Phase 1 runs one block of 16 warps an SM with a few products a
+// field between barriers: neither a deeper W ring nor loading its gpre
+// rows or x0 earlier made it faster; what holds it is an open question
+// (PERF.md). The dW phase reads x0c and the f32 feed rows, not bf16
+// copies of them: copies would save 0.13-0.18 ms at 65,536 and add 159
+// MB to the call's peak.
 //
 // Design. The TPU kernel carries dW and db in VMEM across its sequential
 // grid. Blocks on the card run in no order, so the work splits in three
@@ -53,9 +57,8 @@
 //    layer it forms gpre on the CUDA cores (a warp per map row: the
 //    cotangent, act' from the fmap or its bit), writes its partial db per
 //    map, and keeps bf16(gpre) (O16 x 128) in shared memory and in device
-//    memory (O, B*D) for phase 2, beside bf16 copies of the layer's xk (x0
-//    for layer 0). Then, per field h, u_h = W_h (Hk8 x O16) . gpre (O16 x
-//    128) on the tensor cores, through K5's field loop: W in K5's layout
+//    memory (O, B*D) for phase 2. Then, per field h, u_h = W_h (Hk8 x
+//    O16) . gpre (O16 x 128) on the tensor cores, through K5's field loop: W in K5's layout
 //    (Hk padded to 8) streams through a cp.async ring, gpre comes through
 //    ldmatrix.trans, and u is folded from the accumulator fragments into
 //    dx0[h] (kept in shared memory, f32, across the layers) and dxk
@@ -64,7 +67,9 @@
 //    layer 0.
 // 2. The dW contraction of K5 (cin_bwd_mma.cuh: cin_bwd_dw), once per
 //    layer: dW_i = z_i . bf16(gpre_i)^T over the columns in splits, z built
-//    in registers from the bf16 copies, a partial dW per split.
+//    in registers from x0c and the layer's f32 xk rows (the saved fmap's
+//    or phase 0's feed rows), which each block rounds to bf16 a slice at a
+//    time, a partial dW per split.
 // 3. cin_chain_bwd_reduce: dW = the sum of the split partials and db the
 //    sum of the block partials, both in index order.
 //
@@ -74,9 +79,9 @@
 // kernel (cin_chain_fwd.cuh) again, the same arithmetic in the same
 // order, so the rebuilt values are the bits K1 saves; it writes, into
 // scratch that lives only for the backward, the two things phases 1 and 2
-// read of the fmaps: each non-final layer's feed rows in f32 (phase 1
-// takes xk in f32 and makes the bf16 copy phase 2 reads) and one bit per
-// fmap element (fmap > 0, which gives act'). Phases 1-3 then run as in the
+// read of the fmaps: each non-final layer's feed rows in f32 (phases 1
+// and 2 take xk in f32) and one bit per fmap element (fmap > 0, which
+// gives act'). Phases 1-3 then run as in the
 // save form, reading the feed scratch where they read fmap rows and the
 // bits where they read the fmap for act', so both forms give the same
 // bits. Scratch at the training geometry (units (100, 100), B*D =
@@ -116,7 +121,6 @@ struct ColsArgs {
   const float* xk[kMaxLayers];          // (>= hk, bd) f32 rows of layer l's xk (x0c for l = 0)
   const float* g[kMaxLayers];           // (bd/d, o - feed) f32
   __nv_bfloat16* gb[kMaxLayers];        // (o, bd) bf16 scratch: bf16(gpre)
-  __nv_bfloat16* xkb[kMaxLayers];       // (hk, bd) bf16 scratch: bf16(xk); xkb[0] = bf16(x0)
   float* pdb;                           // (bd/128, o_total) f32
   float* dx0;                           // (h0, bd) f32
 };
@@ -193,14 +197,8 @@ __global__ void __launch_bounds__(kColsThreads, 1) cin_chain_bwd_cols(const Cols
       *gdst = b;
       *reinterpret_cast<uint2*>(a.gb[l] + (size_t)r * a.bd + col0 + n0) = b;
     }
-    // bf16 copies of this layer's xk (x0 for layer 0) for the dW phase
-    const float* xk = a.xk[l];
-    for (int i = tid; i < hk * (kCols / 4); i += kColsThreads) {
-      const int m = i >> 5, c = (i & 31) * 4;
-      const float4 v = *reinterpret_cast<const float4*>(xk + (size_t)m * a.bd + col0 + c);
-      *reinterpret_cast<uint2*>(a.xkb[l] + (size_t)m * a.bd + col0 + c) = tc::pack_bf16x4(v);
-    }
     // this thread's xk, f32, in the fragment layout of its dxk
+    const float* xk = a.xk[l];
     const cinbwd::ColsThread t = cinbwd::cols_thread(hk8, a.bd);
     float xkr[NTW][4], dxk[NTW][4];
 #pragma unroll
@@ -336,8 +334,8 @@ namespace {
 // saved fmap_{l-1}, or the feed rows of the recompute form's phase 0).
 int bwd_launch(const void* x0c, int h0, int bd, int d, int n_layers, const int* units,
                const void* const* wp, const void* const* fmap, const void* const* sign,
-               const void* const* xk, const void* const* g, void* const* gb, void* const* xkb,
-               void* pdb, void* const* pdw, const int* splits, void* dx0, void* const* dw,
+               const void* const* xk, const void* const* g, void* const* gb, void* pdb,
+               void* const* pdw, const int* splits, void* dx0, void* const* dw,
                void* const* db, int act, cudaStream_t st) {
   if (n_layers < 1 || n_layers > kMaxLayers || h0 < 1 || h0 > 128 || d < 1 ||
       kCols % d != 0 || bd % kCols != 0 || act < 0 || act > 2)
@@ -371,7 +369,6 @@ int bwd_launch(const void* x0c, int h0, int bd, int d, int n_layers, const int* 
     a.xk[l] = l == 0 ? a.x0c : static_cast<const float*>(xk[l]);
     a.g[l] = static_cast<const float*>(g[l]);
     a.gb[l] = static_cast<__nv_bfloat16*>(gb[l]);
-    a.xkb[l] = static_cast<__nv_bfloat16*>(xkb[l]);
     hk = o / 2;
   }
   a.pdb = static_cast<float*>(pdb);
@@ -388,8 +385,8 @@ int bwd_launch(const void* x0c, int h0, int bd, int d, int n_layers, const int* 
   const int blocks = bd / kCols;
   for (int l = 0; l < n_layers; ++l) {
     float* pdw_l = static_cast<float*>(pdw[l]);
-    err = cinbwd::dw_launch(a.xkb[0], a.xkb[l], a.gb[l], pdw_l, h0, a.hk[l], a.o[l], bd,
-                            splits[l], st);
+    err = cinbwd::dw_launch(a.x0c, a.xk[l], a.gb[l], pdw_l, h0, a.hk[l], a.o[l], bd, splits[l],
+                            st);
     if (err != cudaSuccess) return (int)err;
     const int n_dw = h0 * a.hk[l] * a.o[l];
     cin_chain_bwd_reduce<<<(n_dw + a.o[l] + 255) / 256, 256, 0, st>>>(
@@ -408,29 +405,29 @@ int bwd_launch(const void* x0c, int h0, int bd, int d, int n_layers, const int* 
 // roundup64(units[l])) bf16 in K5's layout, wp[l][h*hk8_l + m][o] =
 // bf16(W_l[h*hk_l + m, o]) with hk8_l = roundup8(hk_l) and padding 0;
 // fmap[l] (units[l], bd) f32 from K1; g[l] (bd/d, F_l) f32 pooled
-// cotangents. Scratch: gb[l] (units[l], bd) bf16; xkb[l] (hk_l, bd) bf16
-// (xkb[0] (h0, bd)); pdb (bd/128, sum units) f32; pdw[l] (splits[l],
-// h0*hk_l, units[l]) f32. Out: dx0 (h0, bd), dw[l] (h0*hk_l, units[l]),
-// db[l] (units[l],), all f32. act: 0 identity, 1 relu, 2 leaky_relu.
+// cotangents. Scratch: gb[l] (units[l], bd) bf16; pdb (bd/128, sum
+// units) f32; pdw[l] (splits[l], h0*hk_l, units[l]) f32. Out: dx0 (h0,
+// bd), dw[l] (h0*hk_l, units[l]), db[l] (units[l],), all f32. act: 0
+// identity, 1 relu, 2 leaky_relu.
 // Returns cudaGetLastError() after the launches (or cudaErrorInvalidValue
 // for a geometry outside the kernel's range).
 extern "C" int cin_chain_bwd(const void* x0c, int h0, int bd, int d, int n_layers,
                              const int* units, const void* const* wp,
                              const void* const* fmap, const void* const* g,
-                             void* const* gb, void* const* xkb, void* pdb, void* const* pdw,
+                             void* const* gb, void* pdb, void* const* pdw,
                              const int* splits, void* dx0, void* const* dw,
                              void* const* db, int act, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
   const void* xk[kMaxLayers] = {nullptr};
   for (int l = 1; l < n_layers; ++l) xk[l] = fmap[l - 1];
-  return bwd_launch(x0c, h0, bd, d, n_layers, units, wp, fmap, nullptr, xk, g, gb, xkb, pdb,
-                    pdw, splits, dx0, dw, db, act, static_cast<cudaStream_t>(stream));
+  return bwd_launch(x0c, h0, bd, d, n_layers, units, wp, fmap, nullptr, xk, g, gb, pdb, pdw,
+                    splits, dx0, dw, db, act, static_cast<cudaStream_t>(stream));
 }
 
 // Launches K2's recompute form on `stream`: phase 0 (K1's kernel, from x0c,
 // w and b, writing the feed rows and the sign bits), then phases 1-3 as
 // the save form. w[l] in K1's layout and b[l] (units[l],) f32 as K1 takes
-// them; wp, g, gb, xkb, pdb, pdw, splits and the outputs as
+// them; wp, g, gb, pdb, pdw, splits and the outputs as
 // cin_chain_bwd. Scratch of phase 0: feed[l] for every non-final layer
 // (units[l]/2, bd) f32 (feed[n_layers-1] unused); sign[l] (units[l],
 // bd/128, 4) uint32. Returns as cin_chain_bwd.
@@ -438,10 +435,9 @@ extern "C" int cin_chain_bwd_recompute(const void* x0c, int h0, int bd, int d, i
                                        const int* units, const void* const* w,
                                        const void* const* b, const void* const* wp,
                                        void* const* feed, void* const* sign,
-                                       const void* const* g, void* const* gb, void* const* xkb,
-                                       void* pdb, void* const* pdw, const int* splits,
-                                       void* dx0, void* const* dw, void* const* db, int act,
-                                       void* stream) {
+                                       const void* const* g, void* const* gb, void* pdb,
+                                       void* const* pdw, const int* splits, void* dx0,
+                                       void* const* dw, void* const* db, int act, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   void* fmap[kMaxLayers] = {nullptr};
@@ -453,6 +449,6 @@ extern "C" int cin_chain_bwd_recompute(const void* x0c, int h0, int bd, int d, i
   const int err = chain_fwd_launch(x0c, h0, bd, d, n_layers, units, w, b, nullptr, fmap, sign,
                                    act, st);
   if (err != 0) return err;
-  return bwd_launch(x0c, h0, bd, d, n_layers, units, wp, nullptr, sign, xk, g, gb, xkb, pdb,
-                    pdw, splits, dx0, dw, db, act, st);
+  return bwd_launch(x0c, h0, bd, d, n_layers, units, wp, nullptr, sign, xk, g, gb, pdb, pdw,
+                    splits, dx0, dw, db, act, st);
 }

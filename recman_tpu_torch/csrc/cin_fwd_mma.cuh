@@ -18,10 +18,16 @@
 // - The tensor cores add a product's terms to the accumulator with
 //   truncation, not rounding, so over the 91 k-steps of a bench layer the
 //   error of one long accumulation grows larger than an f32 matmul's.
-//   Where a sum is rounded to bf16 and feeds a later product (K1's feed
-//   rows), kSplitSums sums each pair of k-steps into a fresh fragment and
-//   adds that to the accumulator with a rounded f32 add. chip_smoke.py
-//   logs K1's error against an exact f64 sum beside its f32 twin's.
+//   kSplitSums sums each pair of k-steps into a fresh fragment and adds
+//   that to the accumulator with a rounded f32 add. K1 takes it: its feed
+//   rows round to bf16 inside the chain, and on one accumulation K1 drifts
+//   up to 1.59e-3 of max|ref| from the exact (f64) chain end to end, past
+//   its 1e-3 check, against 1.09e-3 with split sums. K4 does not: its
+//   per-layer output holds its checks either way (3.5e-5 and 1.3e-5 from
+//   its twin), and split sums make it 0.477 ms where one accumulation
+//   takes 0.328 ms, as the products of a pair chain on one fresh fragment
+//   (recman_tpu_torch/tools/chain_readings.py on an NVIDIA H100 80GB HBM3
+//   at 700 W; PERF.md).
 
 #pragma once
 

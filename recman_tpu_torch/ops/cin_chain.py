@@ -425,7 +425,7 @@ def _k2():
     p = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), p, p, p, p, p, ctypes.c_void_p, p,
+        ctypes.POINTER(ctypes.c_int), p, p, p, p, ctypes.c_void_p, p,
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, p, p, ctypes.c_int,
         ctypes.c_void_p,
     ]
@@ -454,7 +454,7 @@ def _k2_recompute():
     p = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), p, p, p, p, p, p, p, p, ctypes.c_void_p, p,
+        ctypes.POINTER(ctypes.c_int), p, p, p, p, p, p, p, ctypes.c_void_p, p,
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, p, p, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn
@@ -462,14 +462,12 @@ def _k2_recompute():
 
 def k2_scratch_shapes(h0: int, units, bd: int, splits) -> dict:
     """The shapes of K2's scratch for a geometry and its dW splits: per
-    layer bf16(gpre) (O_i, B*D) and bf16(xk_i) (Hk_i, B*D) (layer 0's is
-    bf16(x0)), both bf16, for the dW phase; the per-block partial db
-    (B*D/128, sum O_i) and the per-split partial dW_i (splits_i, H0*Hk_i,
-    O_i), both f32."""
+    layer bf16(gpre) (O_i, B*D) bf16 for the dW phase (which reads x0 and
+    xk_i as they are, in f32); the per-block partial db (B*D/128, sum O_i)
+    and the per-split partial dW_i (splits_i, H0*Hk_i, O_i), both f32."""
     cfgs = _layer_cfgs(h0, units)
     return {
         "gb": [(c.o, bd) for c in cfgs],
-        "xkb": [(c.hk, bd) for c in cfgs],
         "pdb": (bd // _TILE_N, sum(units)),
         "pdw": [(s, h0 * c.hk, c.o) for s, c in zip(splits, cfgs)],
     }
@@ -477,7 +475,7 @@ def k2_scratch_shapes(h0: int, units, bd: int, splits) -> dict:
 
 def _k2_buffers(x0c, ws, units):
     """K2's W in the layout it walks, its scratch and its outputs, for
-    either form: (splits, wps, gbs, xkbs, pdb, pdws, dx0, dws, dbs)."""
+    either form: (splits, wps, gbs, pdb, pdws, dx0, dws, dbs)."""
     h0, bd = x0c.shape
     dev = x0c.device
     smem, splits = k2_plan(h0, units, bd, dev)
@@ -485,13 +483,12 @@ def _k2_buffers(x0c, ws, units):
         raise ValueError(f"K2 needs {smem} bytes of shared memory, over {_MAX_SMEM}")
     shapes = k2_scratch_shapes(h0, units, bd, splits)
     gbs = [torch.empty(s, dtype=torch.bfloat16, device=dev) for s in shapes["gb"]]
-    xkbs = [torch.empty(s, dtype=torch.bfloat16, device=dev) for s in shapes["xkb"]]
     pdb = torch.empty(shapes["pdb"], dtype=torch.float32, device=dev)
     pdws = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes["pdw"]]
     dx0 = torch.empty_like(x0c)
     dws = [torch.empty(s[1:], dtype=torch.float32, device=dev) for s in shapes["pdw"]]
     dbs = [torch.empty((o,), dtype=torch.float32, device=dev) for o in units]
-    return (splits, k2_weight_layouts(h0, units, ws), gbs, xkbs, pdb, pdws, dx0, dws, dbs)
+    return (splits, k2_weight_layouts(h0, units, ws), gbs, pdb, pdws, dx0, dws, dbs)
 
 
 def _check_k2_args(x0c, ws, gs, units, d, act):
@@ -514,13 +511,13 @@ def _cin_chain_bwd_cuda(x0c, ws, gs, fmaps, units, d, act):
         raise ValueError("K2 needs one fmap per layer")
     for cfg, f in zip(_layer_cfgs(h0, units), fmaps):
         _check_tensor("K2", "fmap", f, (cfg.o, bd), torch.float32, x0c.device)
-    splits, wps, gbs, xkbs, pdb, pdws, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
+    splits, wps, gbs, pdb, pdws, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
     stream = torch.cuda.current_stream(x0c.device).cuda_stream
     err = _k2()(
         x0c.data_ptr(), h0, bd, d, n, (ctypes.c_int * n)(*units),
-        _ptrs(wps), _ptrs(list(fmaps)), _ptrs(list(gs)), _ptrs(gbs), _ptrs(xkbs),
-        pdb.data_ptr(), _ptrs(pdws), (ctypes.c_int * n)(*splits), dx0.data_ptr(), _ptrs(dws),
-        _ptrs(dbs), _ACT_CODES[act], stream,
+        _ptrs(wps), _ptrs(list(fmaps)), _ptrs(list(gs)), _ptrs(gbs), pdb.data_ptr(),
+        _ptrs(pdws), (ctypes.c_int * n)(*splits), dx0.data_ptr(), _ptrs(dws), _ptrs(dbs),
+        _ACT_CODES[act], stream,
     )
     if err != 0:
         raise RuntimeError(f"K2 (cin_chain_bwd) launch failed: CUDA error {err}")
@@ -536,7 +533,7 @@ def _cin_chain_bwd_recompute_cuda(x0c, ws, bs, gs, units, d, act):
     n = len(units)
     cfgs = _layer_cfgs(h0, units)
     dev = x0c.device
-    splits, wps, gbs, xkbs, pdb, pdws, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
+    splits, wps, gbs, pdb, pdws, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
     w_bf = k1_weight_layouts(h0, units, ws)
     b_c = [b.contiguous() for b in bs]
     # phase 0's scratch: each non-final layer's feed rows (f32) and one bit
@@ -548,7 +545,7 @@ def _cin_chain_bwd_recompute_cuda(x0c, ws, bs, gs, units, d, act):
     err = _k2_recompute()(
         x0c.data_ptr(), h0, bd, d, n, (ctypes.c_int * n)(*units),
         _ptrs(w_bf), _ptrs(b_c), _ptrs(wps), _ptrs(feeds), _ptrs(signs), _ptrs(list(gs)),
-        _ptrs(gbs), _ptrs(xkbs), pdb.data_ptr(), _ptrs(pdws), (ctypes.c_int * n)(*splits),
+        _ptrs(gbs), pdb.data_ptr(), _ptrs(pdws), (ctypes.c_int * n)(*splits),
         dx0.data_ptr(), _ptrs(dws), _ptrs(dbs), _ACT_CODES[act], stream,
     )
     if err != 0:

@@ -1,0 +1,210 @@
+"""Readings of the CIN kernels on one CUDA GPU, beside what chip_smoke.py
+checks. Each reading is one JSON line on stdout.
+
+- ``accuracy``: at every chain geometry of tests/test_torch_cuda_kernels.py
+  and chip_smoke.py, per activation and input seed, K1's pooled blocks and
+  fmaps (the save form) end to end against its f32 twin
+  (``cin_chain_fm_reference``), and both against the exact chain: the same
+  formulas and bf16 roundings with the sums in f64 (every product of two
+  bf16 values is exact there). Sums in another order round a feed element
+  to the neighbouring bf16 value now and then, and the next layers carry
+  it, so the gap between two f32 orders is read beside each one's gap to
+  the exact chain.
+- ``timing``: K1, K2 (both forms), K4 and K5 at the main paths' shapes
+  (CUDA events, median of back-to-back calls), and the peak memory that
+  each form of K2 allocates over its inputs at batch 65,536.
+
+Run from the repository root:
+
+    python -m recman_tpu_torch.tools.chain_readings accuracy timing
+
+or, to read another checkout's kernels with this script,
+``PYTHONPATH=<checkout> python <this file> timing``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+
+import torch
+
+# (H0, units, B, D, seeds): the card tests' chain geometries with the seeds
+# of test_k1_save_and_k2_match_plain_versions (13) and
+# test_k2_recompute_is_bit_equal_to_the_save_form (17), then chip_smoke.py's
+# (7 at its small and full geometry, 8 at the large batch)
+ACCURACY_CASES = [
+    (6, (4,), 64, 4, (13, 17)),
+    (6, (8, 6), 16, 16, (13, 17)),
+    (5, (6, 4), 128, 1, (13, 17)),
+    (7, (10, 8, 6), 8, 128, (13, 17)),
+    (39, (256, 128), 128, 8, (13, 17)),
+    (128, (128, 64), 128, 8, (13, 17)),
+    (6, (100, 100, 100), 128, 8, (13, 17)),
+    (26, (100, 100), 512, 16, (13, 17)),
+    (26, (100, 100), 8192, 16, (13, 17, 7)),
+    (5, (6, 4), 64, 4, (7,)),
+    (26, (100, 100), 65_536, 16, (17, 8)),
+]
+ACTS = ("identity", "relu", "leaky_relu")
+
+
+def emit(**kv):
+    print(json.dumps(kv), flush=True)
+
+
+def chain_inputs(h0, units, b, d, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    x0c = torch.randn((h0, b * d), generator=g)
+    ws, bs, hk = [], [], h0
+    for o in units:
+        ws.append(torch.randn((h0 * hk, o), generator=g) * (2.0 / (h0 * hk + o)) ** 0.5)
+        bs.append(0.1 * torch.randn((o,), generator=g))
+        hk = o // 2
+    return x0c.to(device), [w.to(device) for w in ws], [v.to(device) for v in bs]
+
+
+def exact_chain(x0c, ws, bs, units, d, act):
+    """The chain with K1's bf16 roundings and f64 sums: pooled blocks, then
+    fmaps, all f64."""
+    from recman_tpu_torch.ops import cin_chain
+
+    h0, bd = x0c.shape
+    x0b = x0c.to(torch.bfloat16)
+    xkb = x0b
+    outs, fmaps = [], []
+    for i, (w, bias, o) in enumerate(zip(ws, bs, units)):
+        z = (x0b[:, None, :] * xkb[None, :, :]).reshape(h0 * xkb.shape[0], bd).double()
+        fmap = cin_chain._act(act, w.to(torch.bfloat16).double().t() @ z + bias.double()[:, None])
+        del z
+        fmaps.append(fmap)
+        if i != len(units) - 1:
+            xkb, direct = fmap[: o // 2].float().to(torch.bfloat16), fmap[o // 2:]
+        else:
+            direct = fmap
+        outs.append(direct.reshape(direct.shape[0], bd // d, d).sum(2).t())
+    return outs, fmaps
+
+
+def rel(refs, gots):
+    """max |ref - got| / max |ref| per tensor (0 where ref is all zero)."""
+    out = []
+    for r, g in zip(refs, gots):
+        scale = r.abs().max().item()
+        out.append((r.double() - g.double()).abs().max().item() / scale if scale else 0.0)
+    return out
+
+
+def accuracy(device):
+    from recman_tpu_torch.ops import cin_chain
+
+    for h0, units, b, d, seeds in ACCURACY_CASES:
+        n = len(units)
+        for seed in seeds:
+            acts = ("leaky_relu",) if b == 65_536 else ACTS
+            for act in acts:
+                x0c, ws, bs = chain_inputs(h0, units, b, d, seed, device)
+                got = cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act, save=True)
+                twin = cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True)
+                apart = sum(int((f[: o // 2].to(torch.bfloat16)
+                                 != t[: o // 2].to(torch.bfloat16)).sum())
+                            for f, t, o in zip(got[n:-1], twin[n:-1], units[:-1]))
+                k1_twin = rel(twin, got)
+                del twin
+                ex_pool, ex_fmaps = exact_chain(x0c, ws, bs, units, d, act)
+                exact = list(ex_pool) + list(ex_fmaps)
+                k1_exact = rel(exact, got)
+                twin = cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True)
+                twin_exact = rel(exact, twin)
+                del exact, twin, ex_pool, ex_fmaps
+                emit(reading="accuracy", h0=h0, units=list(units), b=b, d=d, seed=seed, act=act,
+                     k1_twin=max(k1_twin), k1_exact=max(k1_exact), twin_exact=max(twin_exact),
+                     k1_twin_per_tensor=k1_twin, k1_exact_per_tensor=k1_exact,
+                     twin_exact_per_tensor=twin_exact, feed_elements_apart=apart,
+                     feed_elements=sum(o // 2 for o in units[:-1]) * b * d)
+                torch.cuda.empty_cache()
+
+
+def cuda_time_ms(fn, warmup=3, reps=20):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for ev in events[1:]:
+        fn()
+        ev.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+
+
+def peak_bytes(fn):
+    """Bytes that fn() allocates at its peak over what was allocated before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
+
+
+def timing(device):
+    from recman_tpu_torch.ops import cin_chain, cin_interact
+
+    act = "leaky_relu"
+    for b in (8192, 65_536):
+        units = (100, 100)
+        n = len(units)
+        x0c, ws, bs = chain_inputs(26, units, b, 16, 7, device)
+        out = cin_chain.cin_chain_fwd(x0c, ws, bs, units, 16, act, save=True)
+        g = torch.Generator().manual_seed(11)
+        gs = [torch.randn(p.shape, generator=g).to(device) for p in out[:n]]
+        row = {"reading": "timing", "b": b}
+        row["k1_ms"] = cuda_time_ms(lambda: cin_chain.cin_chain_fwd(x0c, ws, bs, units, 16, act))
+        row["k1_save_ms"] = cuda_time_ms(
+            lambda: cin_chain.cin_chain_fwd(x0c, ws, bs, units, 16, act, save=True))
+        row["k2_ms"] = cuda_time_ms(
+            lambda: cin_chain.cin_chain_bwd(x0c, ws, bs, gs, out[n:], units, 16, act))
+        row["k2_recompute_ms"] = cuda_time_ms(
+            lambda: cin_chain.cin_chain_bwd_recompute(x0c, ws, bs, gs, units, 16, act))
+        row["k2_peak_bytes"] = peak_bytes(
+            lambda: cin_chain.cin_chain_bwd(x0c, ws, bs, gs, out[n:], units, 16, act))
+        row["k2_recompute_peak_bytes"] = peak_bytes(
+            lambda: cin_chain.cin_chain_bwd_recompute(x0c, ws, bs, gs, units, 16, act))
+        emit(**row)
+        del x0c, ws, bs, out, gs
+        torch.cuda.empty_cache()
+    # K4 and K5 at the xDeepFM paper's Criteo layers 1-2 (B 4096, D 10)
+    h0, hk, o, bd = 26, 100, 200, 40_960
+    g = torch.Generator().manual_seed(17)
+    x0c = torch.randn((h0, bd), generator=g).to(device)
+    xkc = torch.randn((hk, bd), generator=g).to(device)
+    w = (torch.randn((h0 * hk, o), generator=g) * (2.0 / (h0 * hk + o)) ** 0.5).to(device)
+    cot = torch.randn((o, bd), generator=g).to(device)
+    emit(reading="timing", geometry=[h0, hk, o, bd],
+         k4_ms=cuda_time_ms(lambda: cin_interact.cin_interact_fwd(x0c, xkc, w)),
+         k5_ms=cuda_time_ms(lambda: cin_interact.cin_interact_bwd(x0c, xkc, w, cot)))
+
+
+def main(argv):
+    if not torch.cuda.is_available():
+        print("chain_readings: no CUDA GPU available", file=sys.stderr)
+        return 1
+    from recman_tpu_torch.ops import cuda_build
+
+    cuda_build.build()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    emit(reading="card", card=card, source=cuda_build.CSRC.as_posix())
+    device = torch.device("cuda")
+    for what in argv or ["accuracy", "timing"]:
+        {"accuracy": accuracy, "timing": timing}[what](device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

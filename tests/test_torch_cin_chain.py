@@ -465,13 +465,12 @@ def test_plain_contraction_over_k2_layout_matches_reference(h0, units, b, d):
 
 
 def test_k2_scratch_shapes_at_the_bench_geometry():
-    """K2's scratch at batch 8192: bf16(gpre) and bf16(xk) per layer for the
-    dW phase (layer 0's xk is x0), partial db per 128-column block, partial
-    dW per split."""
+    """K2's scratch at batch 8192: bf16(gpre) per layer for the dW phase
+    (which reads x0 and xk in f32, with no copy), partial db per 128-column
+    block, partial dW per split."""
     shapes = torch_chain.k2_scratch_shapes(26, (100, 100), 8192 * 16, [24, 11])
     assert shapes == {
         "gb": [(100, 131_072), (100, 131_072)],
-        "xkb": [(26, 131_072), (50, 131_072)],
         "pdb": (1024, 200),
         "pdw": [(24, 676, 100), (11, 1300, 100)],
     }

@@ -10,11 +10,12 @@ Tolerances, per tensor, of its largest element:
 
 - K1 (pooled blocks and saved fmaps) 1e-3: both sides round x0, xk, z and
   W to bf16 at the same places; only the order of the f32 sums differs.
-  Past the first layer the plain version runs on K1's own feed rows
-  (``feeds``): sums in another order can round a feed element to the
-  neighbouring bf16 value, which the next layer carries, so end to end
-  the fmaps are held to 2**-7 (``FEED_TOL``, as chip_smoke.py holds the
-  card's fmaps to the CPU's).
+  Held so twice: end to end, and layer by layer against the plain version
+  run on K1's own feed rows (``feeds``). Sums in another order round a
+  feed element to the neighbouring bf16 value now and then, which the
+  next layers carry; where that puts two f32 orders more than 1e-3 apart
+  end to end, ``K1_E2E_TOL`` gives the geometry's limit, set from
+  readings of both against the exact (f64) chain.
 - K2 (dx0, dW_i, db_i) 1e-3: gpre is rounded to bf16 after f32 sums whose
   order differs, so an element can land one bf16 step away.
 - K4 (pre) and K5 (dx0, dxk, dW) 1e-3: the same bf16 roundings of z, W
@@ -124,17 +125,26 @@ def test_serving_on_card_matches_cpu(cuda):
     assert np.abs(got - ref).max() <= 1e-5
 
 
-FEED_TOL = 2.0 ** -7
+# (H0, units, B*D): K1's limit end to end, of max|ref|, where 1e-3 does
+# not hold between two f32 sum orders (see the top). At the bench chain
+# the twin itself reads up to 1.281e-3 (B 8192) and 1.095e-3 (B 65,536)
+# from the exact chain, K1 up to 8.57e-4 and 1.088e-3, and the two 1.281e-3
+# and 1.095e-3 from each other, over the inputs of these tests and of
+# chip_smoke.py (recman_tpu_torch/tools/chain_readings.py, NVIDIA H100 80GB
+# HBM3, 700 W)
+K1_E2E_TOL = {(26, (100, 100), 8192 * 16): 1.5e-3, (26, (100, 100), 65_536 * 16): 1.5e-3}
 
 
-def _k1_twin(x0c, ws, bs, units, d, act, fmaps):
-    """K1's plain version on K1's own input layer by layer (its pooled
-    blocks, then its fmaps), after K1's fmaps are held to the plain
-    version run end to end at FEED_TOL."""
-    e2e = cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True)[len(units):]
-    for r, g in zip(e2e, fmaps):
-        _close(r, g, FEED_TOL)
-    return cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True, feeds=fmaps)
+def _k1_twin(x0c, ws, bs, units, d, act, got):
+    """K1's save-form outputs ``got`` (pooled blocks, then fmaps) held to
+    the plain version end to end; returns the plain version run on K1's own
+    feed rows, layer by layer, to hold K1 to at 1e-3."""
+    n = len(units)
+    tol = K1_E2E_TOL.get((x0c.shape[0], tuple(units), x0c.shape[1]), 1e-3)
+    for r, g in zip(cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True), got):
+        _close(r, g, tol)
+    return cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True,
+                                            feeds=got[n:])
 
 
 def _close(ref, got, tol):
@@ -164,7 +174,7 @@ def test_k1_save_and_k2_match_plain_versions(cuda, h0, units, b, d, act):
     got = cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act, save=True)
     torch.cuda.synchronize()
     assert cin_chain.LAUNCHES == before + 1 and len(got) == 2 * n
-    ref = _k1_twin(x0c, ws, bs, units, d, act, got[n:])
+    ref = _k1_twin(x0c, ws, bs, units, d, act, got)
     for r, g in zip(ref, got):
         _close(r, g, 1e-3)
     gen = torch.Generator().manual_seed(5)
@@ -254,12 +264,12 @@ def test_k2_recompute_is_bit_equal_to_the_save_form(cuda, h0, units, b, d, act):
     assert torch.equal(saved[0], got[0])
     assert all(torch.equal(x, y) for x, y in zip(saved[1] + saved[2], got[1] + got[2]))
     # K1's fmaps (the bits the recompute form rebuilds) are held to K1's
-    # twin on K1's own input, their sign differences few and next to 0;
-    # the backward is held to K2's twin on those fmaps, the ones it reads
-    # (the twin's own fmaps can round a feed element to the neighbouring
-    # bf16 value, and a sign differing at a pre-activation next to 0 moves
-    # that column's gpre by 0.8 of a term)
-    twin = _k1_twin(x0c, ws, bs, units, d, act, out[n:])[n:]
+    # twin end to end and on K1's own input, their sign differences few and
+    # next to 0; the backward is held to K2's twin on those fmaps, the ones
+    # it reads (the twin's own fmaps can round a feed element to the
+    # neighbouring bf16 value, and a sign differing at a pre-activation next
+    # to 0 moves that column's gpre by 0.8 of a term)
+    twin = _k1_twin(x0c, ws, bs, units, d, act, out)[n:]
     _sign_flips(twin, out[n:])
     ref = cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, out[n:], units, d, act)
     _close(ref[0], got[0], 1e-3)
