@@ -20,7 +20,9 @@ Phases, each failing the script (non-zero exit) when it fails:
    full-width forward's fmaps, K2's recompute form (the same source; bit-
    equal to the save form, at batch 8192 and at 65,536), K3 and K7
    (segment_matmul.cu; K7 beside index_add_ into a (T*V, k_eff) buffer)
-   on the sorted ids of 8192 synthetic Criteo rows. K1 and K2 are timed
+   on the sorted ids of 8192 synthetic Criteo rows, K3 also on those of
+   65,536 (the large-batch step) beside scatter_add_ there, each bit-equal
+   on two calls and profiled by pass. K1 and K2 are timed
    beside the bare bf16 contractions they do (torch.matmul on prebuilt
    operands), K2 profiled by phase; the chain is held end to end to the
    twin and layer by layer to the twin run on K1's own fmaps, and K1's
@@ -507,6 +509,15 @@ def segmat_bound_ms(sids, sg, out):
     return (*bound(flops, moved, PEAK_F32_FLOPS), flops, moved)
 
 
+def criteo_ids(rows):
+    """The sorted ids (26, rows) of synthetic Criteo rows: K3's, K6's and
+    K7's input on the main paths."""
+    from recman_tpu_torch.data import CAT_NAMES, synthetic_criteo_arrays
+
+    data = synthetic_criteo_arrays(rows, num_buckets=NUM_BUCKETS, seed=2019)
+    return np.sort(np.stack([data[c] for c in CAT_NAMES]).astype(np.int32), axis=1)
+
+
 def max_rel_err(refs, gots, tol, what):
     """max |ref - got| over the pairs, each checked against tol * max|ref|."""
     worst = 0.0
@@ -524,7 +535,6 @@ def phase_kernels(device):
     geometry, then timed at full width. Returns the kernels' records."""
     import torch
 
-    from recman_tpu_torch.data import synthetic_criteo_arrays
     from recman_tpu_torch.ops import cin_chain, segment_matmul
 
     rec = {}
@@ -601,37 +611,48 @@ def phase_kernels(device):
     rec["K2 recompute"] = k2_recompute_large_batch(device)
 
     # K3: a small Zipf case, then the full-width sorted ids of one batch
+    # and of one large-batch step (timed at both)
     rs = np.random.RandomState(3)
     small_ids = np.sort(np.minimum(rs.zipf(1.2, size=(3, 70)) + 1, 49).astype(np.int32), axis=1)
-    data = synthetic_criteo_arrays(BATCH, num_buckets=NUM_BUCKETS, seed=2019)
-    from recman_tpu_torch.data import CAT_NAMES
-
-    full_ids = np.sort(np.stack([data[c] for c in CAT_NAMES]).astype(np.int32), axis=1)
+    full_ids = criteo_ids(BATCH)
     vocab_full = NUM_BUCKETS + 1
-    for label, ids, v in (("small", small_ids, 50), ("full", full_ids, vocab_full)):
+    for label, ids, v in (("small", small_ids, 50), ("full", full_ids, vocab_full),
+                          ("large batch", criteo_ids(LARGE_BATCH), vocab_full)):
         t, nn = ids.shape
         c = 5 if label == "small" else HPARAMS["embedding_size"] + 1
         sids = torch.from_numpy(ids).to(device)
         sg = torch.randn((t, c, nn), generator=torch.Generator().manual_seed(12)).to(device)
         got = segment_matmul.segment_matmul_from_sorted_batched(sids, sg, v)
+        again = segment_matmul.segment_matmul_from_sorted_batched(sids, sg, v)
         torch.cuda.synchronize()
         ref = segment_matmul.segment_matmul_reference(sids, sg, v)
         e3 = max_rel_err([ref], [got], K3_TOL, f"K3 {label}")
         check(torch.equal(got == 0, ref == 0), f"K3 {label}: zeros differ from the plain version")
+        check(torch.equal(got, again), f"K3 {label}: two calls differ")
         longest = max(int(torch.unique_consecutive(r, return_counts=True)[1].max()) for r in sids)
         log(f"K3 vs plain [{label} T={t} C={c} N={nn} V={v}]: max|d| {e3:.3e}, "
-            f"max|ref| {ref.abs().max().item():.4g}, empty columns exact; longest run "
-            f"of one id {longest} of {nn}")
-    ms = cuda_time_ms(lambda: segment_matmul.segment_matmul_from_sorted_batched(sids, sg, v))
-    plain_ms = cuda_time_ms(lambda: segment_matmul.segment_matmul_reference(sids, sg, v), reps=20)
-    idx = sids.long()[:, None, :].expand(t, c, nn)
-    lib_ms = cuda_time_ms(lambda: torch.zeros((t, c, v), device=device).scatter_add_(2, idx, sg))
-    bnd, by, flops, moved = segmat_bound_ms(sids, sg, got)
-    rec["K3"] = {"max_abs_err": e3, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                 "bound_by": by, "library_ms": lib_ms}
-    log(f"K3 full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, library (scatter_add_) "
-        f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}; {moved / 1e6:.2f} MB), "
-        f"{moved / ms / 1e6:.1f} GB/s achieved")
+            f"max|ref| {ref.abs().max().item():.4g}, empty columns exact, two calls "
+            f"bit-equal; longest run of one id {longest} of {nn}")
+        if label == "small":
+            continue
+        ms = cuda_time_ms(lambda: segment_matmul.segment_matmul_from_sorted_batched(sids, sg, v))
+        plain_ms = cuda_time_ms(lambda: segment_matmul.segment_matmul_reference(sids, sg, v),
+                                reps=20 if label == "full" else 5)
+        idx = sids.long()[:, None, :].expand(t, c, nn)
+        lib_ms = cuda_time_ms(lambda: torch.zeros((t, c, v), device=device).scatter_add_(2, idx, sg))
+        bnd, by, flops, moved = segmat_bound_ms(sids, sg, got)
+        r = {"max_abs_err": e3, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+             "bound_by": by, "library_ms": lib_ms}
+        log(f"K3 {label} (N={nn}): {ms:.4f} ms, plain {plain_ms:.4f} ms, library (scatter_add_) "
+            f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}; {moved / 1e6:.2f} MB), "
+            f"{moved / ms / 1e6:.1f} GB/s achieved")
+        profile_device(lambda: segment_matmul.segment_matmul_from_sorted_batched(sids, sg, v), ms,
+                       f"K3 calls [{label}] (its passes by kernel)", n=3)
+        if label == "full":
+            rec["K3"] = r
+        else:
+            rec["K3"]["large_batch"] = dict(r, n=nn)
+        del got, again, ref
 
     # K7: the same ids, the cotangents split into k_emb table rows and one
     # vector row, row-major table grads
@@ -669,6 +690,8 @@ def phase_kernels(device):
     log(f"K7 full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, library (index_add_ into "
         f"(T*V, k_eff)) {lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}; {moved / 1e6:.2f} MB), "
         f"{moved / ms / 1e6:.1f} GB/s achieved; K3 at the same shape {rec['K3']['ms']:.4f} ms")
+    profile_device(lambda: segment_matmul.segment_matmul_from_sorted_batched_vk(
+        sids, sg, v, k_emb, n_vec), ms, "K7 calls [full] (its passes by kernel)", n=3)
 
     # K6: ML-100K's genres ids of the first train batch (the longest run
     # of the anchor's step), then one Criteo table of the same 8192 rows
@@ -1731,10 +1754,13 @@ def phase_split_lookup(device):
 
 
 def kernel_record(name, source, replaces, launches, rec):
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "kernel_ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+    out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+           "kernel_ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+           "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+    if "large_batch" in rec:  # K3 at the large-batch step's N as well
+        out["large_batch"] = rec["large_batch"]
+    return out
 
 
 def main():

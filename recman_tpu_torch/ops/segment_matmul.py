@@ -11,7 +11,23 @@ land nowhere, as the reference's padding ids do.
 (``csrc/segment_matmul.cu``) on a CUDA tensor and runs the plain PyTorch
 version ``segment_matmul_reference`` on a CPU tensor. The reference's
 ``SEGMAT_SEGMENT_N`` segmenting (:792-821) is a TPU VMEM workaround and
-is not ported: one launch takes any N.
+is not ported: one call takes any N.
+
+K3 on the card is four launches on the current stream, counted as one
+call, each after the first launched as a programmatic dependent of the
+one before, so that it starts while that one drains: a clear of the map
+from ids to records; the sums, partitioned by sorted position so that
+Zipf-skewed ids give every warp the same work (a warp owns one table,
+128 consecutive positions and 4 rows, and sums each run by a segmented
+scan in a fixed order) into records, with each run's record slot in the
+map; a fix-up that sums the runs which cross those chunks, in chunk
+order; and a pass that writes every output element once, in 16-byte
+stores, as its record or 0 (the zeros are most of the bytes). The map,
+the records and the chunks' partials go to a scratch that the wrapper
+allocates with ``torch.empty`` (``segment_matmul_scratch_floats`` of the
+library: T * V words for the map and about one float a position and row;
+25 MB at the training geometry, 127 MB at N 65,536). No atomics: two
+calls give the same bits.
 
 K6, one table, row-major output. Counterpart of
 ``_segment_matmul_from_sorted`` (:323-389), the kernel of a single
@@ -29,7 +45,8 @@ the cotangent rows split into k_emb table rows and n_vec vector rows,
 give the table grads (T, V, k_emb) row-major and the vector grads (T,
 n_vec, V). ``segment_matmul_from_sorted_batched_vk`` launches K7
 (``csrc/segment_matmul.cu``) on a CUDA tensor and runs
-``segment_matmul_vk_reference`` on a CPU tensor.
+``segment_matmul_vk_reference`` on a CPU tensor. K7 runs K3's passes,
+with another layout in the last, so its sums are K3's bits.
 """
 
 from __future__ import annotations
@@ -45,9 +62,6 @@ from .cuda_build import load
 LAUNCHES = 0
 ROWS_LAUNCHES = 0
 VK_LAUNCHES = 0
-
-# k_emb + n_vec that K7 takes (its shared-memory tile, csrc/segment_matmul.cu)
-MAX_VK_ROWS = 96
 
 
 def segment_matmul_reference(sids, sg_t, vocab_size: int):
@@ -81,8 +95,17 @@ def segment_matmul_reference(sids, sg_t, vocab_size: int):
 def _k3():
     fn = load("segment_matmul").segment_matmul_sorted_batched
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return fn
+
+
+def _scratch(t, c, n, v, device):
+    """K3's and K7's scratch: the records of the runs, the chunks' partials
+    and the map from ids to records."""
+    fn = load("segment_matmul").segment_matmul_scratch_floats
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 4
+    return torch.empty(fn(t, c, n, v), dtype=torch.float32, device=device)
 
 
 def _segment_matmul_cuda(sids, sg_t, vocab_size):
@@ -95,12 +118,14 @@ def _segment_matmul_cuda(sids, sg_t, vocab_size):
     if tuple(sids.shape) != (t, n) or sids.device != sg_t.device:
         raise ValueError(f"K3: sids {tuple(sids.shape)} on {sids.device} do not match "
                          f"cotangents {tuple(sg_t.shape)} on {sg_t.device}")
-    if not 1 <= t <= 65535 or min(c, n, vocab_size) < 1 or t * c * vocab_size >= 2**62:
-        raise ValueError(f"K3 takes 1 <= T <= 65535 and nonempty C, N, V; got "
-                         f"T={t}, C={c}, N={n}, V={vocab_size}")
+    if not 1 <= t * c <= 65535 or min(n, vocab_size) < 1 or t * c * vocab_size >= 2**62:
+        raise ValueError(f"K3 takes 1 <= T * C <= 65535 (the write pass's lines) and nonempty "
+                         f"N, V; got T={t}, C={c}, N={n}, V={vocab_size}")
     out = torch.empty((t, c, vocab_size), dtype=torch.float32, device=sg_t.device)
+    scratch = _scratch(t, c, n, vocab_size, sg_t.device)
     stream = torch.cuda.current_stream(sg_t.device).cuda_stream
-    err = _k3()(sids.data_ptr(), sg_t.data_ptr(), out.data_ptr(), t, c, n, vocab_size, stream)
+    err = _k3()(sids.data_ptr(), sg_t.data_ptr(), out.data_ptr(), scratch.data_ptr(), t, c, n,
+                vocab_size, stream)
     if err != 0:
         raise RuntimeError(f"K3 (segment_matmul) launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -175,7 +200,7 @@ def segment_matmul_vk_reference(sids, sg_t, vocab_size: int, k_emb: int, n_vec: 
 def _k7():
     fn = load("segment_matmul").segment_matmul_sorted_batched_vk
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return fn
 
 
@@ -189,17 +214,21 @@ def _segment_matmul_vk_cuda(sids, sg_t, vocab_size, k_emb, n_vec):
     if tuple(sids.shape) != (t, n) or sids.device != sg_t.device:
         raise ValueError(f"K7: sids {tuple(sids.shape)} on {sids.device} do not match "
                          f"cotangents {tuple(sg_t.shape)} on {sg_t.device}")
-    if k_emb < 1 or n_vec < 0 or c != k_emb + n_vec or c > MAX_VK_ROWS:
-        raise ValueError(f"K7 takes 1 <= k_emb, 0 <= n_vec, k_emb + n_vec = C <= "
-                         f"{MAX_VK_ROWS}; got k_emb={k_emb}, n_vec={n_vec}, C={c}")
-    if not 1 <= t <= 65535 or min(n, vocab_size) < 1 or t * c * vocab_size >= 2**62:
-        raise ValueError(f"K7 takes 1 <= T <= 65535 and nonempty N, V; got T={t}, N={n}, "
-                         f"V={vocab_size}")
+    if k_emb < 1 or n_vec < 0 or c != k_emb + n_vec:
+        raise ValueError(f"K7 takes 1 <= k_emb, 0 <= n_vec, k_emb + n_vec = C; got "
+                         f"k_emb={k_emb}, n_vec={n_vec}, C={c}")
+    if (not 1 <= t * max(n_vec, 1) <= 65535 or c > 262_140 or t * c > 2**24
+            or vocab_size * k_emb > 2**30 or min(n, vocab_size) < 1):
+        raise ValueError(f"K7 takes 1 <= T * max(n_vec, 1) <= 65535 (the write pass's lines), "
+                         f"C <= 262,140, T * C <= 2**24 (the sums' grid), V * k_emb <= 2**30 "
+                         f"and nonempty N, V; got T={t}, C={c}, N={n}, V={vocab_size}")
     emb = torch.empty((t, vocab_size, k_emb), dtype=torch.float32, device=sg_t.device)
     vec = torch.empty((t, n_vec, vocab_size), dtype=torch.float32, device=sg_t.device)
+    scratch = _scratch(t, c, n, vocab_size, sg_t.device)
     stream = torch.cuda.current_stream(sg_t.device).cuda_stream
     err = _k7()(sids.data_ptr(), sg_t.data_ptr(), emb.data_ptr(),
-                vec.data_ptr() if n_vec else None, t, k_emb, n_vec, n, vocab_size, stream)
+                vec.data_ptr() if n_vec else None, scratch.data_ptr(), t, k_emb, n_vec, n,
+                vocab_size, stream)
     if err != 0:
         raise RuntimeError(f"K7 (segment_matmul_vk) launch failed: CUDA error {err}")
     VK_LAUNCHES += 1

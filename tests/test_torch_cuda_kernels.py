@@ -28,7 +28,8 @@ Tolerances, per tensor, of its largest element:
   elements of other sign at most 1e-5 of them, or one, each within 1e-5
   of max|ref| of 0), at every batch.
 - K3, K6 and K7 1e-5, and exact zeros where no id falls: f32 sums of the
-  same terms in another order; K7 bit-equal to K3 (the same sums).
+  same terms in another order; each bit-equal on two calls (no atomics),
+  K7 bit-equal to K3 (the same sums).
 - One stacked train step, GPU against CPU: loss 1e-5 relative, every
   gradient 1e-3 (the K2 rounding above).
 """
@@ -314,32 +315,59 @@ def test_chain_recompute_form_on_card(cuda, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
-def _sorted_case(t, c, n, v, seed, device):
+def _sorted_case(t, c, n, v, seed, device, kind="zipf"):
+    """Sorted Zipf(1.2) ids, as the synthetic Criteo rows have them, and
+    random cotangents. ``kind`` shapes the ids where K3's and K7's
+    position chunks meet runs: "one id" makes row 0 one run across every
+    chunk; "outside" starts each row with ids below 0 and ends it with ids
+    past V; "aligned" makes runs of 64 positions, so that every chunk
+    boundary is also a run boundary."""
     rs = np.random.RandomState(seed)
     ids = np.minimum(rs.zipf(1.2, size=(t, n)) + 1, v - 1).astype(np.int32)
+    if kind == "one id":
+        ids[0] = v // 2
+    elif kind == "outside":
+        ids[:, : n // 5] = -1 - rs.randint(0, 3, size=(t, n // 5))
+        ids[:, n - n // 7:] = v + rs.randint(0, 3, size=(t, n // 7))
+    elif kind == "aligned":
+        ids = np.tile(np.arange(n, dtype=np.int32) // 64 * 3 % v, (t, 1))
     sids = torch.from_numpy(np.sort(ids, axis=1)).to(device)
     sg = torch.from_numpy(rs.randn(t, c, n).astype(np.float32)).to(device)
     return sids, sg
 
 
-@pytest.mark.parametrize("t,c,n,v", [(3, 5, 70, 50), (4, 17, 512, 1001), (2, 3, 5000, 7),
-                                     (26, 17, 8192, 100_001)])
-def test_k3_matches_plain_version(cuda, t, c, n, v):
-    sids, sg = _sorted_case(t, c, n, v, t + n, cuda)
+@pytest.mark.parametrize("kind,t,c,n,v", [
+    ("zipf", 3, 5, 70, 50), ("zipf", 4, 17, 512, 1001), ("zipf", 2, 3, 5000, 7),
+    ("zipf", 26, 17, 8192, 100_001),
+    ("zipf", 26, 17, 65_536, 100_001),  # the large-batch step's geometry
+    ("one id", 3, 17, 8192, 100_001), ("outside", 4, 5, 3001, 1001),
+    ("aligned", 2, 17, 4096, 100_001),
+    ("one id", 1, 3, 140_000, 100_001),  # the fix-up carries its scan across three tiles
+])
+def test_k3_matches_plain_version(cuda, kind, t, c, n, v):
+    sids, sg = _sorted_case(t, c, n, v, t + n, cuda, kind)
     before = segment_matmul.LAUNCHES
     got = segment_matmul.segment_matmul_from_sorted_batched(sids, sg, v)
+    again = segment_matmul.segment_matmul_from_sorted_batched(sids, sg, v)
     torch.cuda.synchronize()
-    assert segment_matmul.LAUNCHES == before + 1
+    assert segment_matmul.LAUNCHES == before + 2
     ref = segment_matmul.segment_matmul_reference(sids, sg, v)
     _close(ref, got, 1e-5)
     assert torch.equal(got == 0, ref == 0)
+    assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("t,k_emb,n_vec,n,v", [(3, 4, 1, 70, 50), (4, 16, 2, 512, 1001),
-                                               (2, 3, 0, 5000, 7), (1, 95, 1, 300, 700),
-                                               (26, 16, 1, 8192, 100_001)])
-def test_k7_matches_plain_version_and_k3(cuda, t, k_emb, n_vec, n, v):
-    sids, sg = _sorted_case(t, k_emb + n_vec, n, v, t + n + 1, cuda)
+@pytest.mark.parametrize("kind,t,k_emb,n_vec,n,v", [
+    ("zipf", 3, 4, 1, 70, 50), ("zipf", 4, 16, 2, 512, 1001), ("zipf", 2, 3, 0, 5000, 7),
+    ("zipf", 1, 95, 1, 300, 700), ("zipf", 1, 96, 1, 300, 700),
+    ("zipf", 26, 16, 1, 8192, 100_001),
+    ("zipf", 26, 16, 1, 32_768, 100_001),  # the reference's SEGMAT_SEGMENT_N
+    ("one id", 3, 16, 1, 8192, 100_001), ("outside", 4, 4, 1, 3001, 1001),
+    ("aligned", 2, 16, 1, 4096, 100_001),
+    ("one id", 1, 2, 1, 140_000, 100_001),  # the fix-up carries its scan across three tiles
+])
+def test_k7_matches_plain_version_and_k3(cuda, kind, t, k_emb, n_vec, n, v):
+    sids, sg = _sorted_case(t, k_emb + n_vec, n, v, t + n + 1, cuda, kind)
     before = segment_matmul.VK_LAUNCHES
     emb, vec = segment_matmul.segment_matmul_from_sorted_batched_vk(sids, sg, v, k_emb, n_vec)
     again = segment_matmul.segment_matmul_from_sorted_batched_vk(sids, sg, v, k_emb, n_vec)
@@ -356,15 +384,30 @@ def test_k7_matches_plain_version_and_k3(cuda, t, k_emb, n_vec, n, v):
     assert torch.equal(k3[:, :k_emb].transpose(1, 2), emb) and torch.equal(k3[:, k_emb:], vec)
 
 
+def test_k3_wrapper_raises_on_what_it_does_not_take(cuda):
+    sids, sg = _sorted_case(2, 17, 64, 100, 0, cuda)
+    with pytest.raises(ValueError, match="int32"):
+        segment_matmul.segment_matmul_from_sorted_batched(sids.long(), sg, 100)
+    with pytest.raises(ValueError, match="do not match"):
+        segment_matmul.segment_matmul_from_sorted_batched(sids[:1], sg, 100)
+    # one write-pass line a (table, row): 65,536 lines are one too many
+    sids, sg = _sorted_case(1, 65_536, 1, 100, 0, cuda)
+    with pytest.raises(ValueError, match=r"T \* C <= 65535"):
+        segment_matmul.segment_matmul_from_sorted_batched(sids, sg, 100)
+
+
 def test_k7_wrapper_raises_on_what_it_does_not_take(cuda):
     sids, sg = _sorted_case(2, 17, 64, 100, 0, cuda)
     with pytest.raises(ValueError, match="k_emb"):
         segment_matmul.segment_matmul_from_sorted_batched_vk(sids, sg, 100, 16, 2)
     with pytest.raises(ValueError, match="int32"):
         segment_matmul.segment_matmul_from_sorted_batched_vk(sids.long(), sg, 100, 16, 1)
-    wide = torch.zeros((2, 97, 64), device=cuda)
-    with pytest.raises(ValueError, match="96"):
-        segment_matmul.segment_matmul_from_sorted_batched_vk(sids, wide, 100, 96, 1)
+    # a table's grad is one line of the write pass, with int offsets
+    with pytest.raises(ValueError, match=r"V \* k_emb <= 2\*\*30"):
+        segment_matmul.segment_matmul_from_sorted_batched_vk(sids, sg, 2**26 + 1, 16, 1)
+    sids, sg = _sorted_case(1, 16 + 65_536, 1, 100, 0, cuda)
+    with pytest.raises(ValueError, match=r"T \* max\(n_vec, 1\) <= 65535"):
+        segment_matmul.segment_matmul_from_sorted_batched_vk(sids, sg, 100, 16, 65_536)
 
 
 def test_cin_with_live_dropout_takes_k4_and_k5_on_cuda_in_training(cuda):
