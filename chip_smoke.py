@@ -55,8 +55,10 @@ Phases, each failing the script (non-zero exit) when it fails:
    under "scatter", in the order segmat, scatter, scatter, segmat, each
    with a 3-step profile.
 
-The kernels phase also holds K6 (segment_matmul.cu's row-major form)
-against its twin at ML-100K's genres geometry and at one Criteo table,
+The kernels phase also holds K6 (segment_matmul.cu's row-major form, on
+K3's sums in one launch) against its twin and, bit for bit, against K7 at
+T = 1 at ML-100K's genres geometry and at one Criteo table, with its host
+cost beside index_add_'s and its profile,
 and K4 (cin_interact_fwd.cu) and K5 (cin_interact_bwd.cu), one CIN
 layer's forward and backward, against their twins at the xDeepFM paper's
 Criteo layers (B 4096, D 10; layer 0, layers 1-2 and a final layer of
@@ -242,6 +244,23 @@ def cuda_time_ms(fn, warmup=3, reps=25):
         ev.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+
+
+def host_time_ms(fn, warmup=3, reps=200):
+    """Mean host time of one fn() call: the host clock around reps
+    back-to-back calls, before the synchronise that ends them (what a call
+    costs the host where the card keeps up)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def chain_inputs(h0, units, b, d, seed, device):
@@ -646,8 +665,9 @@ def phase_kernels(device):
         log(f"K3 {label} (N={nn}): {ms:.4f} ms, plain {plain_ms:.4f} ms, library (scatter_add_) "
             f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}; {moved / 1e6:.2f} MB), "
             f"{moved / ms / 1e6:.1f} GB/s achieved")
-        profile_device(lambda: segment_matmul.segment_matmul_from_sorted_batched(sids, sg, v), ms,
-                       f"K3 calls [{label}] (its passes by kernel)", n=3)
+        r["kernel_ms"] = profile_device(
+            lambda: segment_matmul.segment_matmul_from_sorted_batched(sids, sg, v), ms,
+            f"K3 calls [{label}] (its passes by kernel)", n=3)
         if label == "full":
             rec["K3"] = r
         else:
@@ -690,7 +710,7 @@ def phase_kernels(device):
     log(f"K7 full width: {ms:.4f} ms, plain {plain_ms:.4f} ms, library (index_add_ into "
         f"(T*V, k_eff)) {lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}; {moved / 1e6:.2f} MB), "
         f"{moved / ms / 1e6:.1f} GB/s achieved; K3 at the same shape {rec['K3']['ms']:.4f} ms")
-    profile_device(lambda: segment_matmul.segment_matmul_from_sorted_batched_vk(
+    rec["K7"]["kernel_ms"] = profile_device(lambda: segment_matmul.segment_matmul_from_sorted_batched_vk(
         sids, sg, v, k_emb, n_vec), ms, "K7 calls [full] (its passes by kernel)", n=3)
 
     # K6: ML-100K's genres ids of the first train batch (the longest run
@@ -702,23 +722,40 @@ def phase_kernels(device):
         sg = torch.randn((len(ids), c), generator=torch.Generator().manual_seed(13)).to(device)
         got = segment_matmul.segment_matmul_from_sorted(sids, sg, v)
         again = segment_matmul.segment_matmul_from_sorted(sids, sg, v)
+        # K7's passes at T = 1 on the transposed cotangents: the same sums
+        k7 = segment_matmul.segment_matmul_from_sorted_batched_vk(
+            sids[None], sg.t().contiguous()[None], v, c, 0)[0][0]
         torch.cuda.synchronize()
         ref = segment_matmul.segment_matmul_rows_reference(sids, sg, v)
         e6 = max_rel_err([ref], [got], K6_TOL, f"K6 {label}")
         check(torch.equal(got == 0, ref == 0), f"K6 {label}: zeros differ from the plain version")
         check(torch.equal(got, again), f"K6 {label}: two calls differ")
+        check(torch.equal(got, k7), f"K6 {label}: differs from K7 at T = 1")
         longest = int(torch.unique_consecutive(sids, return_counts=True)[1].max())
         ms = cuda_time_ms(lambda: segment_matmul.segment_matmul_from_sorted(sids, sg, v))
         plain_ms = cuda_time_ms(lambda: segment_matmul.segment_matmul_rows_reference(sids, sg, v),
                                 reps=20)
         lib_ms = cuda_time_ms(lambda: torch.zeros((v, c), device=device).index_add_(0, sids, sg))
+        # what a call costs the host: the anchor's step is host-bound
+        host_ms = host_time_ms(lambda: segment_matmul.segment_matmul_from_sorted(sids, sg, v))
+        lib_host_ms = host_time_ms(lambda: torch.zeros((v, c), device=device)
+                                   .index_add_(0, sids, sg))
         bnd, by, flops, moved = segmat_bound_ms(sids, sg, got)
         log(f"K6 vs plain [{label} N={len(ids)} V={v} C={c}, longest run {longest}]: max|d| "
             f"{e6:.3e}, max|ref| {ref.abs().max().item():.4g}, empty rows exact, two calls "
-            f"bit-equal; {ms:.4f} ms, plain {plain_ms:.4f} ms, library (index_add_) "
-            f"{lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}; {moved / 1e6:.3f} MB)")
-        rec[f"K6 {label}"] = {"max_abs_err": e6, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                              "bound_by": by, "library_ms": lib_ms}
+            f"and K7 at T = 1 bit-equal; {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"(index_add_) {lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}; {moved / 1e6:.3f} MB); "
+            f"host {host_ms:.4f} ms a call, index_add_'s {lib_host_ms:.4f}")
+        kernel_ms = profile_device(lambda: segment_matmul.segment_matmul_from_sorted(sids, sg, v),
+                                   ms, f"K6 calls [{label}]", n=3)
+        r = {"max_abs_err": e6, "ms": ms, "kernel_ms": kernel_ms, "host_ms": host_ms,
+             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+             "library_host_ms": lib_host_ms}
+        if label == "genres":
+            rec["K6"] = r
+        else:
+            rec["K6"]["criteo"] = dict(r, n=len(ids), v=v, c=c)
+        del got, again, k7, ref
     return rec
 
 
@@ -903,6 +940,7 @@ def profile_device(fn, unit_ms, what, n=5):
         f"profile of {n} {what}: no device time traced (busy share not measured)")
     table = averages.table(sort_by="self_cuda_time_total", row_limit=16, max_name_column_width=60)
     log("\n".join(table.splitlines()[:20]))
+    return kernel_ms or None
 
 
 def phase_training(device):
@@ -1754,12 +1792,17 @@ def phase_split_lookup(device):
 
 
 def kernel_record(name, source, replaces, launches, rec):
+    """The kernel's entry in the ``kernels`` line. ``kernel_ms`` is the
+    profile's kernel time per call where the phase profiled the kernel,
+    else its event-timed ``ms``."""
     out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-           "kernel_ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-           "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-    if "large_batch" in rec:  # K3 at the large-batch step's N as well
-        out["large_batch"] = rec["large_batch"]
+           "kernel_ms": rec.get("kernel_ms") or rec["ms"], "plain_ms": rec["plain_ms"],
+           "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+           "library_ms": rec["library_ms"]}
+    for extra in ("large_batch", "criteo"):  # K3 at the large-batch N, K6 at a Criteo table
+        if extra in rec:
+            out[extra] = rec[extra]
     return out
 
 
@@ -1818,7 +1861,7 @@ def main():
         kernel_record("cin_chain_bwd", bwd, "recman_tpu/ops/cin_chain.py:249", train["K2"], rec["K2"]),
         kernel_record("segment_matmul", seg, "recman_tpu/ops/embedding.py:405", train["K3"], rec["K3"]),
         kernel_record("segment_matmul_rows", seg, "recman_tpu/ops/embedding.py:323", anchor["K6"],
-                      rec["K6 genres"]),
+                      rec["K6"]),
         kernel_record("cin_interact_fwd", "recman_tpu_torch/csrc/cin_interact_fwd.cu",
                       "recman_tpu/ops/cin_interact.py:144", per_layer["K4"], rec["K4"]),
         kernel_record("cin_interact_bwd", "recman_tpu_torch/csrc/cin_interact_bwd.cu",

@@ -1,6 +1,7 @@
 // K3: the batched segment sum of the stacked embedding backward; K7, its
 // form with row-major table output (the two share every pass below); and
-// K6, the one-table form with row-major output (after K7).
+// K6, the one-table form with row-major input and output, which runs their
+// sums and fix-up in one launch (after K7).
 //
 // K3 replaces the TPU kernel
 // recman_tpu/ops/embedding.py:_segment_matmul_from_sorted_batched (reached
@@ -71,8 +72,11 @@
 //   is 0.003 / 0.013 ms of that, the most that folding it into another
 //   pass could save.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -98,16 +102,22 @@ constexpr int kFixItems = 16;          // chunks a lane of the fix-up holds, at 
 constexpr int kClearThreads = 256;
 constexpr int kWriteThreads = 256;
 constexpr int kWriteVecs = 4;          // 16-byte stores a thread of the write pass makes
+constexpr int kRowsThreads = 256;      // K6's one launch: 8 warps a block
+constexpr int kRowsBlocksPerSm = 2;    // its grid, at most: a grid-wide barrier costs more with more blocks
 static_assert(kLanePos % 4 == 0 && kLanePos <= 32, "whole 16-byte loads, one mask bit each");
 
-// Pass 1: n zero words from p, 16-byte aligned.
-__global__ void __launch_bounds__(kClearThreads) map_clear_kernel(unsigned* p, long long n) {
-  let_next_begin();  // the sums read and scan before they wait for the clear
-  const long long stride = (long long)gridDim.x * kClearThreads;
-  const long long i = (long long)blockIdx.x * kClearThreads + threadIdx.x;
+// Pass 1: n zero words from p, 16-byte aligned; thread i of `stride`.
+__device__ __forceinline__ void clear_words(unsigned* p, long long n, long long i,
+                                            long long stride) {
   uint4* p4 = reinterpret_cast<uint4*>(p);
   for (long long k = i; k < n >> 2; k += stride) p4[k] = make_uint4(0u, 0u, 0u, 0u);
   for (long long k = (n >> 2 << 2) + i; k < n; k += stride) p[k] = 0u;
+}
+
+__global__ void __launch_bounds__(kClearThreads) map_clear_kernel(unsigned* p, long long n) {
+  let_next_begin();  // the sums read and scan before they wait for the clear
+  clear_words(p, n, (long long)blockIdx.x * kClearThreads + threadIdx.x,
+              (long long)gridDim.x * kClearThreads);
 }
 
 // Inclusive segmented scan over the lanes of a warp, in lane order: a lane
@@ -166,6 +176,8 @@ struct Scratch {
   unsigned* flags;
   float* rec;
   float* last;
+  int* run_id;  // K6's one launch (one table), in place of the map: each record's id
+  int* runs;    // and each chunk's count of records
   long long slots;
   int chunks;
 };
@@ -178,6 +190,7 @@ Scratch carve(float* base, int t, int c, int n, int v) {
   s.flags = s.map + (size_t)t * v;
   s.rec = reinterpret_cast<float*>(s.flags + (size_t)t * s.chunks);
   s.last = s.rec + (size_t)t * c * s.slots;
+  s.run_id = s.runs = nullptr;
   return s;
 }
 
@@ -186,36 +199,43 @@ long long scratch_floats(int t, int c, int n, int v) {
   return (long long)t * (v + chunks) + (long long)t * c * (chunks * kChunk + chunks);
 }
 
-// Pass 2: one warp a (table, chunk, group of kRowsInFlight rows).
-template <bool kVec>
-__global__ void __launch_bounds__(kSumThreads)
-segment_sums_kernel(const int* __restrict__ sids, const float* __restrict__ sg, int c, int n,
-                    int v, Scratch sc) {
+// Pass 2: one warp a (table t, chunk j, kRowsInFlight rows from ch0). A
+// table's cotangents lie (C, N), row c at stride N (K3, K7), or, for K6's
+// one table (kOneTable), (N, C), position p at stride C; K6 also keeps
+// each record's id and each chunk's count of records in place of the map.
+// kVec: 16-byte loads of the ids, and of the cotangents where a row's
+// positions are contiguous.
+template <bool kVec, bool kOneTable>
+__device__ __forceinline__ void sum_chunk(const int* __restrict__ sids,
+                                          const float* __restrict__ sg, int c, int n, int v,
+                                          const Scratch& sc, int j, int t, int ch0) {
   const int lane = threadIdx.x & 31;
-  const int j = blockIdx.x * (kSumThreads / 32) + (threadIdx.x >> 5);
-  if (j >= sc.chunks) return;  // a whole warp: nothing here syncs the block
-  const int t = blockIdx.y, ch0 = blockIdx.z * kRowsInFlight;
   const int p0 = j * kChunk, pend = min(p0 + kChunk, n);
   const int q0 = p0 + lane * kLanePos;
   const bool whole = q0 + kLanePos <= n;  // every position of the lane exists
 
   float x[kRowsInFlight][kLanePos];
-  const float* g = sg + ((size_t)t * c + ch0) * n + q0;
+  // the lane's first position in row ch0, and the strides of rows and positions
+  const size_t row_stride = kOneTable ? 1 : n, pos_stride = kOneTable ? c : 1;
+  const float* g = sg + (size_t)t * c * n + ch0 * row_stride + q0 * pos_stride;
 #pragma unroll
   for (int r = 0; r < kRowsInFlight; ++r) {
-    const float* gr = g + (size_t)r * n;
+    const float* gr = g + r * row_stride;
     if (ch0 + r >= c) {
 #pragma unroll
       for (int e = 0; e < kLanePos; ++e) x[r][e] = 0.0f;
-    } else if (kVec && whole) {
+    } else if (kVec && !kOneTable && whole) {
 #pragma unroll
       for (int u = 0; u < kLanePos; u += 4) {
         const float4 w = __ldg(reinterpret_cast<const float4*>(gr + u));
         x[r][u] = w.x; x[r][u + 1] = w.y; x[r][u + 2] = w.z; x[r][u + 3] = w.w;
       }
     } else {
+      // K6's rows: the warp's loads of one (row, e) lie 4 * C floats apart;
+      // the chunk's kChunk * C floats stay in L1 for the other rows
 #pragma unroll
-      for (int e = 0; e < kLanePos; ++e) x[r][e] = q0 + e < n ? __ldg(gr + e) : 0.0f;
+      for (int e = 0; e < kLanePos; ++e)
+        x[r][e] = q0 + e < n ? __ldg(gr + e * pos_stride) : 0.0f;
     }
   }
 
@@ -265,12 +285,19 @@ segment_sums_kernel(const int* __restrict__ sids, const float* __restrict__ sg, 
     if (ch0 + r < c) chunk_scan(x[r], head, 0.0f);
 
   wait_for_previous();  // the map's clear: every store of this pass comes after it
-  if (ch0 == 0) {
+  if (ch0 == 0 && kOneTable) {
+#pragma unroll
+    for (int e = 0; e < kLanePos; ++e)
+      if (tail >> e & 1) sc.run_id[rank + __popc(tail & ((1u << e) - 1))] = id[e];
+    if (lane == 31) sc.runs[j] = rank + ends - j * kChunk;
+  } else if (ch0 == 0) {
     unsigned* m = sc.map + (size_t)t * v;
 #pragma unroll
     for (int e = 0; e < kLanePos; ++e)
       if ((tail >> e & 1) && id[e] >= 0 && id[e] < v)
         m[id[e]] = rank + __popc(tail & ((1u << e) - 1)) + 1;
+  }
+  if (ch0 == 0) {
     // the chunk's flags for the fix-up: its first id continues a run from
     // the chunk before, its last id goes on into the next, it is one run
     const int first_id = __shfl_sync(kFull, id[0], 0);
@@ -300,18 +327,23 @@ segment_sums_kernel(const int* __restrict__ sids, const float* __restrict__ sg, 
   }
 }
 
+template <bool kVec>
+__global__ void __launch_bounds__(kSumThreads)
+segment_sums_kernel(const int* __restrict__ sids, const float* __restrict__ sg, int c, int n,
+                    int v, Scratch sc) {
+  const int j = blockIdx.x * (kSumThreads / 32) + (threadIdx.x >> 5);
+  if (j >= sc.chunks) return;  // a whole warp: nothing here syncs the block
+  sum_chunk<kVec, false>(sids, sg, c, n, v, sc, j, blockIdx.y, blockIdx.z * kRowsInFlight);
+}
+
 // Pass 3: one warp a (table, row). Item j is chunk j's last-position scan;
 // the scan over the items restarts at every chunk but one that is a single
 // run carried in from the left, so the scan at chunk j - 1 is what a run
 // that crosses into chunk j carries. Where such a run ends in chunk j, its
 // sum is that scan plus its record there (its first: the run's part in
-// chunk j), and the record takes the sum.
-__global__ void __launch_bounds__(kFixThreads)
-segment_fixup_kernel(int t_count, int c, Scratch sc) {
+// chunk j), and the record takes the sum. row = t * c + ch.
+__device__ __forceinline__ void fix_row(int c, const Scratch& sc, int row) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kFixThreads / 32) + (threadIdx.x >> 5);  // t * c + ch
-  wait_for_previous();
-  if (row >= t_count * c) return;
   const unsigned* flags = sc.flags + (size_t)(row / c) * sc.chunks;
   float* rec = sc.rec + (size_t)row * sc.slots;
   const float* lst = sc.last + (size_t)row * sc.chunks;
@@ -346,6 +378,13 @@ segment_fixup_kernel(int t_count, int c, Scratch sc) {
     }
     carry = __shfl_sync(kFull, x[kFixItems - 1], 31);
   }
+}
+
+__global__ void __launch_bounds__(kFixThreads)
+segment_fixup_kernel(int t_count, int c, Scratch sc) {
+  const int row = blockIdx.x * (kFixThreads / 32) + (threadIdx.x >> 5);
+  wait_for_previous();
+  if (row < t_count * c) fix_row(c, sc, row);
 }
 
 // One output of the write pass: `rows` record rows from row0, laid out
@@ -404,6 +443,46 @@ segment_write_kernel(Output o0, Output o1, int t_count, int c, int v, Scratch sc
       w = make_float4(value(k), value(k + 1), value(k + 2), value(k + 3));
     }
     d4[q] = w;
+  }
+}
+
+// K6: one table with (N, C) cotangents in one launch, over a grid that is
+// resident whole (a cooperative launch), with a grid-wide barrier after
+// each phase but the last: (1) the sums, each warp a task as in the sums
+// pass, with each record's id in place of the map, and zeros over the
+// whole output; (2) the fix-up; (3) each record's C sums to its id's row. The sums and
+// their order are the passes' own (griddepcontrol.wait is a no-op here:
+// no launch before this one is programmatic).
+template <bool kVec>
+__global__ void __launch_bounds__(kRowsThreads)
+one_table_kernel(const int* __restrict__ sids, const float* __restrict__ sg, int c, int n,
+                    int v, float* out, Scratch sc) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  const long long i = (long long)blockIdx.x * kRowsThreads + threadIdx.x;
+  const long long threads = (long long)gridDim.x * kRowsThreads;
+  // warps numbered across blocks first, so that a phase with fewer tasks
+  // than warps spreads them over every SM
+  const long long warp = (long long)(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  const long long warps = threads >> 5;
+  const long long tasks = (long long)sc.chunks * ((c + kRowsInFlight - 1) / kRowsInFlight);
+  for (long long task = warp; task < tasks; task += warps)  // neighbouring warps, neighbouring chunks
+    sum_chunk<kVec, true>(sids, sg, c, n, v, sc, (int)(task % sc.chunks), 0,
+                          (int)(task / sc.chunks) * kRowsInFlight);
+  clear_words(reinterpret_cast<unsigned*>(out), (long long)v * c, i, threads);
+  grid.sync();
+  if (sc.chunks > 1) {
+    for (long long row = warp; row < c; row += warps) fix_row(c, sc, (int)row);
+    grid.sync();
+  }
+  // neighbouring threads take one record's neighbouring rows: one id's
+  // row of the output, in order; ids outside [0, v) land nowhere
+  for (long long w = i; w < sc.slots * c; w += threads) {
+    const long long slot = w / c;
+    const int row = (int)(w - slot * c);
+    if ((int)(slot % kChunk) >= sc.runs[slot / kChunk]) continue;
+    const int id = sc.run_id[slot];
+    if (id >= 0 && id < v) out[(size_t)id * c + row] = sc.rec[(size_t)row * sc.slots + slot];
   }
 }
 
@@ -466,6 +545,52 @@ int launch_segment_sums(const int* sids, const float* sg, float* scratch, int t,
   return (int)cudaGetLastError();
 }
 
+// K6 on `stream` as one cooperative launch of one_table_kernel: sg (n, c),
+// out (v, c). Its grid is what the largest phase needs, at most
+// kRowsBlocksPerSm blocks an SM (fewer where the kernel's registers allow
+// fewer), counted once a device.
+int launch_one_table(const int* sids, const float* sg, float* scratch, int c, int n, int v,
+                float* out, cudaStream_t stream) {
+  if (!aligned16(scratch)) return (int)cudaErrorMisalignedAddress;
+  constexpr int kDevices = 64;
+  static int resident[kDevices];  // blocks that fit at once, per device (0: not counted yet)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int fit = dev < kDevices ? resident[dev] : 0;
+  if (fit == 0) {
+    int sms = 0, vec_blocks = 0, scalar_blocks = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&vec_blocks, one_table_kernel<true>,
+                                                          kRowsThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &scalar_blocks, one_table_kernel<false>, kRowsThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    fit = sms * min(kRowsBlocksPerSm, min(vec_blocks, scalar_blocks));
+    if (fit < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    if (dev < kDevices) resident[dev] = fit;
+  }
+  Scratch sc = carve(scratch, 1, c, n, v);
+  sc.run_id = reinterpret_cast<int*>(sc.last + (size_t)c * sc.chunks);
+  sc.runs = sc.run_id + sc.slots;
+  // blocks for a warp a sums task, a thread 16 bytes of zeros, or a thread
+  // an element of the records
+  const long long tasks = (long long)sc.chunks * ((c + kRowsInFlight - 1) / kRowsInFlight);
+  const long long need = std::max({(tasks * 32 + kRowsThreads - 1) / kRowsThreads,
+                                   ((long long)v * c / 4 + kRowsThreads - 1) / kRowsThreads,
+                                   (sc.slots * c + kRowsThreads - 1) / kRowsThreads});
+  const int blocks = (int)std::min<long long>(need, fit);
+  const bool vec = n % 4 == 0 && aligned16(sids);
+  void* args[] = {&sids, &sg, &c, &n, &v, &out, &sc};
+  err = cudaLaunchCooperativeKernel(
+      vec ? (void*)one_table_kernel<true> : (void*)one_table_kernel<false>, blocks,
+      kRowsThreads, args, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Floats of scratch that K3 and K7 take for t tables, c rows, n positions
@@ -473,6 +598,13 @@ int launch_segment_sums(const int* sids, const float* sg, float* scratch, int t,
 // and the (t, v) map.
 extern "C" long long segment_matmul_scratch_floats(int t, int c, int n, int v) {
   return scratch_floats(t, c, n, v);
+}
+
+// Floats of scratch that K6 takes: K3's at t = 1, then each record's id
+// and each chunk's count of records for its one launch.
+extern "C" long long segment_matmul_rows_scratch_floats(int c, int n, int v) {
+  const long long chunks = ((long long)n + kChunk - 1) / kChunk;
+  return scratch_floats(1, c, n, v) + chunks * kChunk + chunks;
 }
 
 // Launches K3 on `stream`: sids (t, n) int32, each row sorted ascending;
@@ -540,7 +672,8 @@ extern "C" int segment_matmul_sorted_batched_vk(const void* sids, const void* sg
                              static_cast<cudaStream_t>(stream));
 }
 
-// K6: the sorted segment sum of one table's lookup backward, row-major.
+// K6: the sorted segment sum of one table's lookup backward, row-major, on
+// K3's sums and fix-up.
 //
 // Replaces the TPU kernel
 // recman_tpu/ops/embedding.py:_segment_matmul_from_sorted (reached through
@@ -560,114 +693,42 @@ extern "C" int segment_matmul_sorted_batched_vk(const void* sids, const void* sg
 // 8,192, V = 100,001, C = 17) it is 7.4 MB, 2.2 us at 3.35 TB/s, and the
 // zero fill dominates.
 //
-// Design (deterministic, no atomics on the output):
-// - A block owns kRows consecutive rows of the output, whose (rows, C)
-//   tile is one contiguous stretch of memory. It finds its ids' range by
-//   binary search and marks where each row's run begins and ends.
-// - Each thread takes elements of the tile in order, so the writes of a
-//   warp coalesce, and sums a short run (at most kShort rows) for its
-//   element in position order; an empty row writes 0.
-// - A long run (ML-100K's genres: the padding ids clamp to id 0, which
-//   then takes most of 2,432 rows) is summed by the whole block: thread
-//   q*C + c takes column c of the run's rows q, q + S, q + 2S, ... with
-//   S = kThreads / C, so each pass of the block reads S whole rows, one
-//   contiguous stretch; its 4 partial sums are added in a fixed order,
-//   then the S partials of each column in order of q. Every sum has a
-//   fixed order, so two calls give the same bits.
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kShort = 32;  // longer runs are summed by the block
-constexpr int kRows = 256;  // output rows per block
-
-__device__ __forceinline__ int first_at_least(const int* s, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(s + mid) < key) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(kThreads)
-segment_rows_kernel(const int* sids, const float* sg, float* out, int c, int n, int v) {
-  __shared__ int run_begin[kRows], run_end[kRows], long_rows[kRows];
-  __shared__ float partial[kThreads];
-  __shared__ int range[2], n_long;
-  const int v0 = blockIdx.x * kRows;
-  const int v1 = min(v0 + kRows, v);
-  const int rows = v1 - v0;
-  const int tid = threadIdx.x;
-  if (tid < 2) range[tid] = first_at_least(sids, n, tid == 0 ? v0 : v1);
-  if (tid == 0) n_long = 0;
-  for (int i = tid; i < kRows; i += kThreads) run_begin[i] = run_end[i] = 0;
-  __syncthreads();
-  const int p0 = range[0], p1 = range[1];
-  for (int p = p0 + tid; p < p1; p += kThreads) {
-    const int id = __ldg(sids + p);
-    if (p == p0 || __ldg(sids + p - 1) != id) run_begin[id - v0] = p;
-    if (p == p1 - 1 || __ldg(sids + p + 1) != id) run_end[id - v0] = p + 1;
-  }
-  __syncthreads();
-  for (int i = tid; i < rows; i += kThreads)
-    if (run_end[i] - run_begin[i] > kShort)
-      long_rows[atomicAdd(&n_long, 1)] = i;  // list order does not change any sum
-
-  float* o = out + (size_t)v0 * c;
-  for (int e = tid; e < rows * c; e += kThreads) {
-    const int i = e / c, col = e - i * c;
-    const int a = run_begin[i], cnt = run_end[i] - a;
-    if (cnt > kShort) continue;
-    const float* g = sg + (size_t)a * c + col;
-    float acc = 0.0f;
-#pragma unroll 4
-    for (int p = 0; p < cnt; ++p) acc += __ldg(g + (size_t)p * c);
-    o[e] = acc;
-  }
-  __syncthreads();
-
-  const int step = kThreads / c;  // rows of a run read per pass of the block
-  const int q = tid / c, col = tid - q * c;
-  for (int r = 0; r < n_long; ++r) {
-    const int i = long_rows[r];
-    const int a = run_begin[i], cnt = run_end[i] - a;
-    if (q < step) {
-      const float* g = sg + (size_t)a * c + col;
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      int p = q;
-      for (; p + 3 * step < cnt; p += 4 * step) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[u] += __ldg(g + (size_t)(p + u * step) * c);
-      }
-#pragma unroll
-      for (int u = 0; u < 3; ++u)
-        if (p + u * step < cnt) acc[u] += __ldg(g + (size_t)(p + u * step) * c);
-      partial[tid] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-    }
-    __syncthreads();
-    if (tid < c) {
-      float sum = 0.0f;
-      for (int j = 0; j < step; ++j) sum += partial[j * c + tid];
-      o[(size_t)i * c + tid] = sum;
-    }
-    __syncthreads();
-  }
-}
-
-}  // namespace
+// Design: K3's split by position, in one launch. The first port gave each
+// block 256 consecutive ids; Zipf ids below 1,024 hold most of a Criteo
+// table's positions and ML-100K's genres put most of 2,432 rows on id 0,
+// so one block did nearly all the work while the others wrote zeros.
+// Split by position, every warp has the same work. K6 runs K7's sums
+// (sum_chunk, reading the (N, C) rows in place) and fix-up at T = 1, so
+// its sums are K7's bits at T = 1 on the transposed cotangents (k_emb =
+// C, n_vec = 0), and two calls give the same bits.
+//
+// K6 on K3's four launches cost the host 0.025 ms a call, against
+// index_add_'s 0.013, and its passes took less than that on the card, so
+// a call's time was the host's. So K6 is one cooperative launch,
+// one_table_kernel: the sums and zeros over the output, a grid-wide
+// barrier, the fix-up, a barrier, then each run's record copied to its
+// id's row. It keeps no map, so there is no map to clear and no map
+// lookup per output element.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's profiles,
+// tools/segmat_readings.py's timing and phases): at one Criteo table (N
+// 8192, V 100,001, C 17) 0.0105 ms of kernel (sums and zeros 5.8 us,
+// fix-up 2.3, scatter 1.6; a barrier 1.4), 0.037-0.040 ms a call
+// event-timed, set by the host, as index_add_'s 0.035-0.045; the first
+// port took 0.063. At the genres ids 0.0077 ms of kernel. With V
+// 1,000,001 (a 68 MB output, past L2) 0.035 ms, the zeros 26 us of it.
 
 // Launches K6 on `stream`: sids (n,) int32, sorted ascending; sg (n, c) f32
-// row-major; out (v, c) f32 row-major, every element written. Returns
-// cudaGetLastError() after the launch (or cudaErrorInvalidValue for empty
-// shapes or c > 256).
+// row-major; out (v, c) f32 row-major, every element written, 16-byte
+// aligned; scratch segment_matmul_rows_scratch_floats(c, n, v) f32,
+// 16-byte aligned. Returns cudaGetLastError() after the launch (or
+// cudaErrorInvalidValue for empty shapes, cudaErrorMisalignedAddress for
+// out or the scratch).
 extern "C" int segment_matmul_sorted_rows(const void* sids, const void* sg, void* out,
-                                          int c, int n, int v, void* stream) {
-  if (c < 1 || c > kThreads || n < 1 || v < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (int)(((long long)v + kRows - 1) / kRows);
-  segment_rows_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(sids), static_cast<const float*>(sg),
-      static_cast<float*>(out), c, n, v);
-  return (int)cudaGetLastError();
+                                          void* scratch, int c, int n, int v, void* stream) {
+  if (c < 1 || n < 1 || v < 1) return (int)cudaErrorInvalidValue;
+  if (!aligned16(out)) return (int)cudaErrorMisalignedAddress;
+  return launch_one_table(static_cast<const int*>(sids), static_cast<const float*>(sg),
+                          static_cast<float*>(scratch), c, n, v, static_cast<float*>(out),
+                          static_cast<cudaStream_t>(stream));
 }

@@ -36,7 +36,13 @@ cotangent rows permuted into that order, (N, C), give the dense grad
 (V, C), row-major as the reference writes it.
 ``segment_matmul_from_sorted`` launches K6 (``csrc/segment_matmul.cu``,
 beside K3) on a CUDA tensor and runs ``segment_matmul_rows_reference`` on
-a CPU tensor.
+a CPU tensor. K6 runs K3's sums, reading the (N, C) rows in place, and
+its fix-up on the one table, so its sums are K7's bits at T = 1 on the
+transposed cotangents, in one cooperative launch: the sums and zeros over
+the output, a grid-wide barrier, the fix-up, a barrier, then each run's
+sums copied to its id's row. Four launches cost the host more than the
+passes take on the card at K6's shapes. Its scratch is K3's at T = 1 and
+the records' ids (``segment_matmul_rows_scratch_floats``).
 
 K7, batched, row-major table output. Counterpart of
 ``_segment_matmul_from_sorted_batched_vk`` (:609-723), the kernel of the
@@ -52,6 +58,7 @@ with another layout in the last, so its sums are K3's bits.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -92,20 +99,43 @@ def segment_matmul_reference(sids, sg_t, vocab_size: int):
     return out
 
 
-def _k3():
-    fn = load("segment_matmul").segment_matmul_sorted_batched
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _entry(name, restype, argtypes):
+    """The library's C function ``name``, with its types."""
+    fn = getattr(load("segment_matmul"), name)
+    fn.restype = restype
+    fn.argtypes = argtypes
     return fn
 
 
+def _stream(tensor):
+    """The raw handle of PyTorch's current stream on the CUDA tensor's
+    device, without the Stream object that
+    ``torch.cuda.current_stream(device).cuda_stream`` builds first: K6's
+    calls are bound by the host."""
+    return torch._C._cuda_getCurrentRawStream(tensor.get_device())
+
+
+# Each C entry is bound once, at its first call.
+@functools.cache
+def _k3():
+    return _entry("segment_matmul_sorted_batched", ctypes.c_int,
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+@functools.cache
+def _scratch_floats():
+    return _entry("segment_matmul_scratch_floats", ctypes.c_longlong, [ctypes.c_int] * 4)
+
+
+@functools.cache
+def _rows_scratch_floats():
+    return _entry("segment_matmul_rows_scratch_floats", ctypes.c_longlong, [ctypes.c_int] * 3)
+
+
 def _scratch(t, c, n, v, device):
-    """K3's and K7's scratch: the records of the runs, the chunks' partials
+    """The passes' scratch: the records of the runs, the chunks' partials
     and the map from ids to records."""
-    fn = load("segment_matmul").segment_matmul_scratch_floats
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * 4
-    return torch.empty(fn(t, c, n, v), dtype=torch.float32, device=device)
+    return torch.empty(_scratch_floats()(t, c, n, v), dtype=torch.float32, device=device)
 
 
 def _segment_matmul_cuda(sids, sg_t, vocab_size):
@@ -123,7 +153,7 @@ def _segment_matmul_cuda(sids, sg_t, vocab_size):
                          f"N, V; got T={t}, C={c}, N={n}, V={vocab_size}")
     out = torch.empty((t, c, vocab_size), dtype=torch.float32, device=sg_t.device)
     scratch = _scratch(t, c, n, vocab_size, sg_t.device)
-    stream = torch.cuda.current_stream(sg_t.device).cuda_stream
+    stream = _stream(sg_t)
     err = _k3()(sids.data_ptr(), sg_t.data_ptr(), out.data_ptr(), scratch.data_ptr(), t, c, n,
                 vocab_size, stream)
     if err != 0:
@@ -150,11 +180,10 @@ def segment_matmul_rows_reference(sids, sg, vocab_size: int):
     return out_t[0].t().contiguous()
 
 
+@functools.cache
 def _k6():
-    fn = load("segment_matmul").segment_matmul_sorted_rows
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    return fn
+    return _entry("segment_matmul_sorted_rows", ctypes.c_int,
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _segment_matmul_rows_cuda(sids, sg, vocab_size):
@@ -164,15 +193,16 @@ def _segment_matmul_rows_cuda(sids, sg, vocab_size):
     if sg.dtype != torch.float32 or sg.dim() != 2 or not sg.is_contiguous():
         raise ValueError("K6 takes the cotangents as a contiguous (N, C) float32 tensor")
     n, c = sg.shape
-    if sids.shape[0] != n or sids.device != sg.device:
+    if sids.shape[0] != n or sids.get_device() != sg.get_device():
         raise ValueError(f"K6: sids {tuple(sids.shape)} on {sids.device} do not match "
                          f"cotangents {tuple(sg.shape)} on {sg.device}")
-    if not 1 <= c <= 256 or min(n, vocab_size) < 1 or vocab_size * c >= 2**62:
-        raise ValueError(f"K6 takes 1 <= C <= 256 and nonempty N, V; got C={c}, N={n}, "
-                         f"V={vocab_size}")
+    if min(n, c, vocab_size) < 1:
+        raise ValueError(f"K6 takes nonempty N, C and V; got N={n}, C={c}, V={vocab_size}")
     out = torch.empty((vocab_size, c), dtype=torch.float32, device=sg.device)
-    stream = torch.cuda.current_stream(sg.device).cuda_stream
-    err = _k6()(sids.data_ptr(), sg.data_ptr(), out.data_ptr(), c, n, vocab_size, stream)
+    scratch = torch.empty(_rows_scratch_floats()(c, n, vocab_size), dtype=torch.float32,
+                          device=sg.device)
+    err = _k6()(sids.data_ptr(), sg.data_ptr(), out.data_ptr(), scratch.data_ptr(), c, n,
+                vocab_size, _stream(sg))
     if err != 0:
         raise RuntimeError(f"K6 (segment_matmul_rows) launch failed: CUDA error {err}")
     ROWS_LAUNCHES += 1
@@ -197,11 +227,10 @@ def segment_matmul_vk_reference(sids, sg_t, vocab_size: int, k_emb: int, n_vec: 
     return out[:, :k_emb].transpose(1, 2).contiguous(), out[:, k_emb:].contiguous()
 
 
+@functools.cache
 def _k7():
-    fn = load("segment_matmul").segment_matmul_sorted_batched_vk
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    return fn
+    return _entry("segment_matmul_sorted_batched_vk", ctypes.c_int,
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _segment_matmul_vk_cuda(sids, sg_t, vocab_size, k_emb, n_vec):
@@ -225,7 +254,7 @@ def _segment_matmul_vk_cuda(sids, sg_t, vocab_size, k_emb, n_vec):
     emb = torch.empty((t, vocab_size, k_emb), dtype=torch.float32, device=sg_t.device)
     vec = torch.empty((t, n_vec, vocab_size), dtype=torch.float32, device=sg_t.device)
     scratch = _scratch(t, c, n, vocab_size, sg_t.device)
-    stream = torch.cuda.current_stream(sg_t.device).cuda_stream
+    stream = _stream(sg_t)
     err = _k7()(sids.data_ptr(), sg_t.data_ptr(), emb.data_ptr(),
                 vec.data_ptr() if n_vec else None, scratch.data_ptr(), t, k_emb, n_vec, n,
                 vocab_size, stream)

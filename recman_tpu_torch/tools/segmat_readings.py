@@ -6,24 +6,36 @@ builds of the source beside them. Each reading is one JSON line on stdout.
 - ``timing``: K3 at N 8192 and 65,536 and K7 at N 8192 on the sorted ids
   of synthetic Criteo rows (26 tables, V 100,001, C 17), beside
   ``scatter_add_`` and ``index_add_`` on the same inputs, then K6 beside
-  ``index_add_`` at one of those tables and at the ML-100K genres ids. It
+  ``index_add_`` at one of those tables, at the ML-100K genres ids and at
+  the table's ids with V 246,000 and 1,000,001 (outputs of 16.7 and 68 MB,
+  inside and past the L2 cache), with what a call of each costs the host
+  (``host_ms``). It
   goes through the wrappers of whichever checkout ``recman_tpu_torch`` is
   imported from, so ``cd <checkout> && PYTHONPATH=. python <this file>
   timing`` times another checkout's kernels in the same call.
-- ``variants``: K3 and K7 built as ``VARIANTS`` lists them (chunks of
-  128, 256 and 512 positions; the passes launched plainly, not as
-  programmatic dependents; a write pass that stores only zeros, its
-  floor), each but the floor held to the plain version and to two-call
+- ``variants``: K3, K7 and K6 built as ``VARIANTS`` lists them (chunks
+  of 128, 256 and 512 positions; the passes launched plainly, not as
+  programmatic dependents; K6's one launch at 4 blocks an SM; a write
+  pass that stores only zeros, the floor of K3's and K7's write),
+  each but the floor held to the plain version and to two-call
   bit-equality, then timed in turns (A B C .., .. C B A) beside the
-  wrapper. The reading fails where the build as it stands and the wrapper,
-  the same code on the same inputs, differ by more than ``CONTROL_REL``.
+  wrapper; K6 also beside K7 at T = 1 on the transposed cotangents, the
+  transpose included. The reading fails where the build as it stands and
+  the wrapper, the same code on the same inputs, differ by more than
+  ``CONTROL_REL`` for K3 or K7 (K6's readings are mostly the host's, and
+  the wrapper's checks are part of them).
 
 The timer (CUDA events, median of back-to-back calls), the card line and
 the inputs are chip_smoke.py's, from this file's checkout.
 
+- ``phases``: K6's one launch built with ``%globaltimer`` stamps at its
+  start, its barriers and its end, at K6's inputs: the time of each phase
+  in ns (the first two calls of seven dropped), and with one barrier more,
+  a barrier's cost.
+
 Run from the repository root:
 
-    python -m recman_tpu_torch.tools.segmat_readings timing variants
+    python -m recman_tpu_torch.tools.segmat_readings timing variants phases
 """
 
 from __future__ import annotations
@@ -68,6 +80,24 @@ def inputs(rows, device):
     return sids, sg
 
 
+def k6_inputs(device):
+    """K6's inputs as chip_smoke.py makes them: (label, sorted ids (N,),
+    V, (N, C) cotangents) at one Criteo table of the 8192 rows and at the
+    ML-100K genres ids of one train batch; then the table's ids with V
+    246,000 and 1,000,001, outputs inside and past the L2 cache."""
+    cs = smoke()
+    sids, _ = inputs(8192, device)
+    genres = torch.from_numpy(np.sort(cs.ml_genres_ids()).astype(np.int32)).to(device)
+    k = cs.HPARAMS["embedding_size"] + 1
+    for what, ids, vocab, c in (("K6 criteo", sids[0].contiguous(), cs.NUM_BUCKETS + 1, k),
+                                ("K6 genres", genres, 20, 9),
+                                # outputs of 16.7 and 68 MB: inside and past the L2 cache
+                                ("K6 V 246,000", sids[0].contiguous(), 246_000, k),
+                                ("K6 V 1,000,001", sids[0].contiguous(), 1_000_001, k)):
+        sg = torch.randn((ids.shape[0], c), generator=torch.Generator().manual_seed(13)).to(device)
+        yield what, ids, vocab, sg
+
+
 def timing():
     from recman_tpu_torch.ops import segment_matmul as sm
 
@@ -91,17 +121,15 @@ def timing():
                                   .index_add_(0, flat, rows_t))
         emit(reading="timing", kernel=what, checkout=sm.__file__, ms=ms, library_ms=lib,
              card=card)
-    # K6 as chip_smoke.py reads it: one Criteo table of the 8192 rows, and
-    # the ML-100K genres ids of one train batch
-    sids, _ = inputs(8192, device)
-    genres = torch.from_numpy(np.sort(cs.ml_genres_ids()).astype(np.int32)).to(device)
-    for what, ids, vocab, c in (("K6 criteo", sids[0], v, k_emb + 1), ("K6 genres", genres, 20, 9)):
-        sg = torch.randn((ids.shape[0], c), generator=torch.Generator().manual_seed(13)).to(device)
-        ms = cs.cuda_time_ms(lambda: sm.segment_matmul_from_sorted(ids, sg, vocab))
-        lib = cs.cuda_time_ms(lambda: torch.zeros((vocab, c), device=device)
-                              .index_add_(0, ids, sg))
-        emit(reading="timing", kernel=what, checkout=sm.__file__, ms=ms, library_ms=lib,
-             card=card)
+    for what, ids, vocab, sg in k6_inputs(device):
+        k6 = functools.partial(sm.segment_matmul_from_sorted, ids, sg, vocab)
+
+        def lib_call():
+            return torch.zeros((vocab, sg.shape[1]), device=device).index_add_(0, ids, sg)
+
+        emit(reading="timing", kernel=what, checkout=sm.__file__, ms=cs.cuda_time_ms(k6),
+             library_ms=cs.cuda_time_ms(lib_call), host_ms=cs.host_time_ms(k6),
+             library_host_ms=cs.host_time_ms(lib_call), card=card)
 
 
 # Builds of csrc/segment_matmul.cu that the "variants" reading compares:
@@ -117,17 +145,23 @@ VARIANTS = [
     ("plain launches", ("cfg.numAttrs = 1;", "cfg.numAttrs = 0;")),
     ("zero write (floor)", ("    d4[q] = w;",
                             "    d4[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);")),
+    ("K6 at 4 blocks an SM", ("constexpr int kRowsBlocksPerSm = 2;",
+                              "constexpr int kRowsBlocksPerSm = 4;")),
 ]
 
 
-def build_variant(index, edit):
+def build_variant(index, edit, extra=()):
+    """Starts nvcc on csrc/segment_matmul.cu with the edit (text,
+    replacement) and the ``extra`` edits made; returns the library's path
+    and the process."""
     from recman_tpu_torch.ops import cuda_build
 
     text = (cuda_build.CSRC / "segment_matmul.cu").read_text()
-    if edit:
-        assert edit[0] in text, edit[0]
-        text = text.replace(edit[0], edit[1])
+    for old, new in ([edit] if edit else []) + list(extra):
+        assert old in text, old
+        text = text.replace(old, new)
     src = cuda_build.BUILD_DIR / f"segmat-variant{index}.cu"
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src.write_text(text)
     out = src.with_suffix(".so")
     cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), str(src)]
@@ -136,14 +170,18 @@ def build_variant(index, edit):
 
 
 def variant_calls(lib, k_emb):
-    """K3 and K7 of one built variant, as functions of (sids, sg, v), with
-    the wrapper's arguments and allocations."""
+    """K3, K7 and K6 of one built variant, as functions of (sids, sg, v),
+    with the wrappers' arguments and allocations."""
     lib.segment_matmul_scratch_floats.restype = ctypes.c_longlong
     lib.segment_matmul_scratch_floats.argtypes = [ctypes.c_int] * 4
     k3, k7 = lib.segment_matmul_sorted_batched, lib.segment_matmul_sorted_batched_vk
-    k3.restype = k7.restype = ctypes.c_int
+    k6 = lib.segment_matmul_sorted_rows
+    lib.segment_matmul_rows_scratch_floats.restype = ctypes.c_longlong
+    lib.segment_matmul_rows_scratch_floats.argtypes = [ctypes.c_int] * 3
+    k3.restype = k7.restype = k6.restype = ctypes.c_int
     k3.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     k7.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    k6.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
     def scratch(t, c, n, v, device):
         return torch.empty(lib.segment_matmul_scratch_floats(t, c, n, v), device=device)
@@ -167,7 +205,51 @@ def variant_calls(lib, k_emb):
         assert err == 0, f"K7 variant: CUDA error {err}"
         return emb, vec
 
-    return run_k3, run_k7
+    def run_k6(sids, sg, v):
+        n, c = sg.shape
+        out = torch.empty((v, c), device=sg.device)
+        rows_scratch = torch.empty(lib.segment_matmul_rows_scratch_floats(c, n, v),
+                                   device=sg.device)
+        err = k6(sids.data_ptr(), sg.data_ptr(), out.data_ptr(), rows_scratch.data_ptr(), c, n,
+                 v, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"K6 variant: CUDA error {err}"
+        return out
+
+    return {"K3": run_k3, "K7": run_k7, "K6": run_k6}
+
+
+def k3_layout(out):
+    """K7's outputs in K3's layout, for the check only."""
+    emb, vec = out
+    return torch.cat([emb.transpose(1, 2), vec], 1)
+
+
+def in_turns(what, fns, ref, card, failed, to_ref_layout=None):
+    """Holds every function but the floor to ref (through
+    ``to_ref_layout``) and to two-call bit-equality, times them in turns
+    and emits the readings; appends to ``failed`` where the build as it
+    stands and the wrapper differ by more than CONTROL_REL."""
+    cs = smoke()
+    scale = ref.abs().max().item()
+    for name, fn in fns.items():
+        if "floor" in name:
+            continue
+        got, again = fn(), fn()
+        if to_ref_layout:
+            got, again = to_ref_layout(got), to_ref_layout(again)
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * scale, f"{what} {name}: max|d| {err} > 1e-5 * {scale}"
+        assert torch.equal(got == 0, ref == 0) and torch.equal(got, again), f"{what} {name}"
+        del got, again
+    times = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
+        times[name].append(cs.cuda_time_ms(fns[name]))
+    for name, ts in times.items():
+        emit(reading="variants", kernel=what, variant=name, ms=ts, card=card)
+    built, wrapper = (sum(times[k]) / 2 for k in (AS_BUILT, "wrapper"))
+    if abs(built - wrapper) > CONTROL_REL * wrapper:
+        failed.append(f"{what}: {AS_BUILT} {built:.4f} ms against the wrapper's "
+                      f"{wrapper:.4f} ms")
 
 
 def variants():
@@ -188,42 +270,98 @@ def variants():
     failed = []
     for what, rows in ROWS.items():
         sids, sg = inputs(rows, device)
-        is_k3 = what.startswith("K3")
+        kernel = what.split()[0]
         ref = sm.segment_matmul_reference(sids, sg, v)
-        scale = ref.abs().max().item()
-        if is_k3:
+        if kernel == "K3":
             fns = {"wrapper": lambda: sm.segment_matmul_from_sorted_batched(sids, sg, v)}
         else:
             fns = {"wrapper": lambda: sm.segment_matmul_from_sorted_batched_vk(
                 sids, sg, v, k_emb, sg.shape[1] - k_emb)}
-        for name, (run_k3, run_k7) in calls.items():
-            fns[name] = lambda f=(run_k3 if is_k3 else run_k7): f(sids, sg, v)
-        for name, fn in fns.items():
-            if "floor" in name:
-                continue
-            got, again = fn(), fn()
-            if not is_k3:  # K7's outputs in K3's layout, for the check only
-                got, again = (torch.cat([e.transpose(1, 2), w], 1) for e, w in (got, again))
-            err = (got - ref).abs().max().item()
-            assert err <= 1e-5 * scale, f"{what} {name}: max|d| {err} > 1e-5 * {scale}"
-            assert torch.equal(got == 0, ref == 0) and torch.equal(got, again), f"{what} {name}"
-            del got, again
-        times = {name: [] for name in fns}
-        for name in [*fns, *reversed(fns)]:
-            times[name].append(cs.cuda_time_ms(fns[name]))
-        for name, ts in times.items():
-            emit(reading="variants", kernel=what, variant=name, ms=ts, card=card)
-        built, wrapper = (sum(times[k]) / 2 for k in (AS_BUILT, "wrapper"))
-        if abs(built - wrapper) > CONTROL_REL * wrapper:
-            failed.append(f"{what}: {AS_BUILT} {built:.4f} ms against the wrapper's "
-                          f"{wrapper:.4f} ms")
+        for name, runs in calls.items():
+            fns[name] = lambda f=runs[kernel]: f(sids, sg, v)
+        in_turns(what, fns, ref, card, failed, k3_layout if kernel == "K7" else None)
         del ref
+    for what, ids, vocab, sg in k6_inputs(device):
+        c = sg.shape[1]
+        ref = sm.segment_matmul_rows_reference(ids, sg, vocab)
+        fns = {"wrapper": lambda: sm.segment_matmul_from_sorted(ids, sg, vocab),
+               "transpose + K7": lambda: sm.segment_matmul_from_sorted_batched_vk(
+                   ids[None], sg.t().contiguous()[None], vocab, c, 0)[0][0]}
+        for name, runs in calls.items():
+            fns[name] = lambda f=runs["K6"]: f(ids, sg, vocab)
+        # K6's readings are the host's where its output is small, and the
+        # wrapper's checks are part of them: no control
+        in_turns(what, fns, ref, card, [])
     if failed:
         raise RuntimeError("variants: the timing's control failed: " + "; ".join(failed))
 
 
+# K6's one launch with %globaltimer stamps: block 0's thread 0 at its start
+# (0) and after each barrier (1, 2), each block's thread 0 at its end (3,
+# the latest kept); PHASE_BARRIER adds one more barrier after the first
+# (stamp 4 after it), whose cost is then 4 - 1.
+_SCATTER = "    if (id >= 0 && id < v) out[(size_t)id * c + row] = sc.rec[(size_t)row * sc.slots + slot];\n  }\n"
+_TASKS = "  const long long tasks = (long long)sc.chunks * ((c + kRowsInFlight - 1) / kRowsInFlight);\n  for"
+_ZEROS = "  clear_words(reinterpret_cast<unsigned*>(out), (long long)v * c, i, threads);\n  grid.sync();\n"
+_FIXUP = "fix_row(c, sc, (int)row);\n    grid.sync();\n"
+PHASE_STAMPS = [
+    ("constexpr unsigned kFull = 0xffffffffu;\n",
+     "constexpr unsigned kFull = 0xffffffffu;\n__device__ unsigned long long g_stamp[8];\n"
+     "__device__ __forceinline__ unsigned long long now_ns() {\n"
+     "  unsigned long long t;\n  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+     "  return t;\n}\n__device__ __forceinline__ void stamp(int k) {\n"
+     "  if (blockIdx.x == 0 && threadIdx.x == 0) g_stamp[k] = now_ns();\n}\n"),
+    (_TASKS, "  stamp(0);\n" + _TASKS),
+    (_ZEROS, _ZEROS + "  stamp(1);\n"),
+    (_FIXUP, _FIXUP + "    stamp(2);\n"),
+    (_SCATTER, _SCATTER + "  __syncthreads();\n  if (threadIdx.x == 0) atomicMax(&g_stamp[3], now_ns());\n"),
+    ("}  // namespace\n",
+     "}  // namespace\nextern \"C\" int segmat_stamps(unsigned long long* out, int reset) {\n"
+     "  unsigned long long zero[8] = {0};\n"
+     "  return (int)(reset ? cudaMemcpyToSymbol(g_stamp, zero, sizeof(zero))\n"
+     "                     : cudaMemcpyFromSymbol(out, g_stamp, sizeof(zero)));\n}\n"),
+]
+PHASE_BARRIER = (_ZEROS + "  stamp(1);\n", _ZEROS + "  stamp(1);\n  grid.sync();\n  stamp(4);\n")
+
+
+def phases():
+    """K6's phases inside its one launch at K6's inputs, in ns: the sums and
+    zeros (to the first barrier's end), the fix-up (to the second's), the
+    scatter, and the barrier's own cost from the build with one more."""
+    from recman_tpu_torch.ops import segment_matmul as sm
+
+    cs = smoke()
+    device = torch.device("cuda")
+    builds = {}
+    for i, (name, edit) in enumerate((("as built", None), ("one more barrier", PHASE_BARRIER))):
+        path, proc = build_variant(f"-phases{i}", None, PHASE_STAMPS + ([edit] if edit else []))
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the phases build {name}:\n{log}")
+        lib = ctypes.CDLL(str(path))
+        lib.segmat_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        builds[name] = (lib, variant_calls(lib, cs.HPARAMS["embedding_size"])["K6"])
+    for what, ids, vocab, sg in k6_inputs(device):
+        ref = sm.segment_matmul_rows_reference(ids, sg, vocab)
+        for name, (lib, run) in builds.items():
+            rows = []
+            for _ in range(7):
+                stamps = (ctypes.c_ulonglong * 8)()
+                assert lib.segmat_stamps(None, 1) == 0
+                got = run(ids, sg, vocab)
+                torch.cuda.synchronize()
+                assert lib.segmat_stamps(stamps, 0) == 0
+                t = list(stamps)
+                after_first = t[4] or t[1]
+                rows.append({"sums_zeros": t[1] - t[0], "barrier": t[4] - t[1] if t[4] else None,
+                             "fixup": t[2] - after_first if t[2] else 0,
+                             "scatter": t[3] - (t[2] or after_first), "total": t[3] - t[0]})
+            assert (got - ref).abs().max() <= 1e-5 * ref.abs().max(), f"{what} {name}"
+            emit(reading="phases", kernel=what, build=name, ns=rows[2:], card=cs.card_line())
+
+
 def main(argv):
-    readings = {"timing": timing, "variants": variants}
+    readings = {"timing": timing, "variants": variants, "phases": phases}
     for name in argv or ["timing"]:
         readings[name]()
     return 0

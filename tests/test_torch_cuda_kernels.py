@@ -29,7 +29,7 @@ Tolerances, per tensor, of its largest element:
   of max|ref| of 0), at every batch.
 - K3, K6 and K7 1e-5, and exact zeros where no id falls: f32 sums of the
   same terms in another order; each bit-equal on two calls (no atomics),
-  K7 bit-equal to K3 (the same sums).
+  K7 bit-equal to K3 and K6 to K7 at one table (the same sums).
 - One stacked train step, GPU against CPU: loss 1e-5 relative, every
   gradient 1e-3 (the K2 rounding above).
 """
@@ -482,9 +482,19 @@ def test_stacked_train_step_on_card_matches_cpu(cuda):
 
 
 def _rows_case(n, v, c, seed, device, hot=None):
+    """Sorted Zipf(1.2) ids and random (N, C) cotangents. A float ``hot``
+    gives id 0 that share of the rows, as PAD (clamped to 0) in genres (1.0:
+    one run over every chunk); "outside" starts the ids below 0 (PAD -1)
+    and ends them past V; "aligned" makes runs of 64 positions, so that
+    every 128-position chunk of K6's sums ends where a run ends."""
     rs = np.random.RandomState(seed)
     ids = np.minimum(rs.zipf(1.2, n) - 1, v - 1)
-    if hot is not None:  # one id takes most rows, as PAD (clamped to 0) in genres
+    if hot == "outside":
+        ids[: n // 5] = -1 - rs.randint(0, 3, n // 5)
+        ids[n - n // 7:] = v + rs.randint(0, 3, n // 7)
+    elif hot == "aligned":
+        ids = np.arange(n) // 64 * 3 % v
+    elif hot is not None:
         ids = np.where(rs.rand(n) < hot, 0, ids)
     sids = torch.from_numpy(np.sort(ids).astype(np.int32)).to(device)
     sg = torch.from_numpy(rs.randn(n, c).astype(np.float32)).to(device)
@@ -496,8 +506,14 @@ K6_CASES = [
     (128, 3, 9, None),       # gender
     (2432, 20, 9, 0.85),     # genres: the longest run
     (77, 30, 3, None),       # N not a multiple of 8
-    (5000, 7, 256, 0.5),     # the widest C K6 takes
+    (5000, 7, 256, 0.5),     # the first port's widest C
     (8192, 100_001, 17, None),  # one Criteo table
+    (140_000, 100_001, 3, 1.0),  # one id: the fix-up carries its scan across three tiles
+    (3001, 1001, 9, "outside"),  # ids below 0 and past V
+    (3000, 50, 300, 0.3),    # C past the first port's 256
+    (4096, 100_001, 17, "aligned"),  # runs end on chunk boundaries
+    (8192, 1_000_001, 17, None),  # an output past the L2 cache (68 MB)
+    (140_000, 1_500_000, 3, 1.0),  # one id over 1,094 chunks, a grid-stride sums phase
 ]
 
 
@@ -515,10 +531,27 @@ def test_k6_matches_plain_version_and_is_deterministic(cuda, n, v, c, hot):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("n,v,c,hot", [(2432, 20, 9, 0.85), (8192, 100_001, 17, None),
+                                       (140_000, 100_001, 3, 1.0)])
+def test_k6_is_k7_at_one_table(cuda, n, v, c, hot):
+    """K6 runs K7's sums and fix-up at T = 1 with the cotangents read in
+    place: the same sums in the same order, bit for bit."""
+    sids, sg = _rows_case(n, v, c, n + v, cuda, hot)
+    k6 = segment_matmul.segment_matmul_from_sorted(sids, sg, v)
+    emb, _ = segment_matmul.segment_matmul_from_sorted_batched_vk(
+        sids[None], sg.t().contiguous()[None], v, c, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(k6, emb[0])
+
+
 def test_k6_wrapper_raises_on_what_it_does_not_take(cuda):
-    sids, sg = _rows_case(64, 10, 257, 0, cuda)
-    with pytest.raises(ValueError, match="C <= 256"):
-        segment_matmul.segment_matmul_from_sorted(sids, sg, 10)
+    sids, sg = _rows_case(64, 10, 17, 0, cuda)
+    with pytest.raises(ValueError, match="nonempty"):
+        segment_matmul.segment_matmul_from_sorted(sids, sg, 0)
+    with pytest.raises(ValueError, match="int32"):
+        segment_matmul.segment_matmul_from_sorted(sids.long(), sg, 10)
+    with pytest.raises(ValueError, match="do not match"):
+        segment_matmul.segment_matmul_from_sorted(sids[:-1], sg, 10)
 
 
 @pytest.mark.parametrize("kind,k6,scatter_calls", [("segmat", 1, 0), ("scatter", 0, 1),

@@ -57,10 +57,12 @@ def _k6_case(name, rs):
         return rs.randint(0, 30, 77), 30, 3
     if name == "genres":
         return _genres_ids(rs), 20, 9
+    if name == "C 300":  # past the first port's C <= 256
+        return np.minimum(rs.zipf(1.2, 200) - 1, 63), 64, 300
     raise ValueError(name)
 
 
-K6_CASES = ["hot id", "empty rows", "id at V-1", "N not a multiple of 8", "genres"]
+K6_CASES = ["hot id", "empty rows", "id at V-1", "N not a multiple of 8", "genres", "C 300"]
 
 
 @pytest.mark.parametrize("name", K6_CASES)
@@ -78,6 +80,20 @@ def test_k6_twin_matches_jax_interpret(name):
     assert (got[absent] == 0).all()
     if name == "genres":
         assert np.bincount(sids).max() > len(sids) // 2  # the longest-run case
+
+
+@pytest.mark.parametrize("name", ["genres", "hot id"])
+def test_k6_twin_is_k7_twin_at_one_table(name):
+    """K6 is K7 at T = 1 on the transposed cotangents (k_emb = C, n_vec =
+    0): the twins agree bit for bit, as the kernels must on the card."""
+    rs = np.random.RandomState(len(name))
+    ids, v, c = _k6_case(name, rs)
+    sids = torch.from_numpy(np.sort(ids.astype(np.int32)))
+    sg = torch.from_numpy(rs.randn(len(ids), c).astype(np.float32))
+    k6 = segment_matmul.segment_matmul_from_sorted(sids, sg, v)
+    emb, vec = segment_matmul.segment_matmul_from_sorted_batched_vk(
+        sids[None], sg.t().contiguous()[None], v, c, 0)
+    assert vec.shape == (1, 0, v) and torch.equal(k6, emb[0])
 
 
 def test_k6_twin_ignores_ids_outside_the_vocab():
@@ -104,7 +120,8 @@ def test_k6_cpu_path_counts_no_launch():
         (torch.zeros(7, dtype=torch.int32), torch.zeros((8, 3)), 10, "do not match"),
         (torch.zeros(16, dtype=torch.int32)[::2], torch.zeros((8, 3)), 10, "contiguous"),
         (torch.zeros(8, dtype=torch.int32), torch.zeros((3, 8)).t(), 10, "contiguous"),
-        (torch.zeros(8, dtype=torch.int32), torch.zeros((8, 257)), 10, "C <= 256"),
+        (torch.zeros(0, dtype=torch.int32), torch.zeros((0, 3)), 10, "nonempty"),
+        (torch.zeros(8, dtype=torch.int32), torch.zeros((8, 3)), 0, "nonempty"),
     ],
 )
 def test_k6_wrapper_rejects_bad_arguments(sids, sg, v, match):
