@@ -100,6 +100,25 @@ bit-equal on two calls.
    gradient held with them read on the card's side; then 3 steps each of
    concat, split with K3 and split with
    K7, in the order concat, K3, K7, K7, K3, concat, each profiled once.
+9. resilience and streaming, the bench model with Adam 1e-3 under the
+   Trainer. (a) A resilient ``Trainer.fit`` of 2 epochs on 53,248 rows (7
+   steps an epoch) preempted by a real SIGTERM at step 9 (checkpoints
+   every 4 steps, 2 kept; LATEST must read step 9) and resumed by a fresh
+   Trainer: every param, optimizer-state tensor, the step and the
+   generator bit-equal (``torch.equal``) to the uninterrupted run; the
+   resumed run launches K1 save, K2 and K3 once a step, K1 once an eval
+   batch, and never reaches ``index_add_``. (b)
+   ``Predictor.from_checkpoint`` on the final checkpoint: bit-equal to
+   ``trainer.predict`` on 65,536 rows on the card, within ``PRED_TOL`` on
+   the CPU over 2 batches; the card's checkpoint restored on the CPU
+   (params, moments, step bit-equal; ``Trainer.restore`` there refuses
+   the card's generator). (c) A Criteo-format TSV of 131,072 rows parsed
+   by the native loader in full and in chunks of 32,768 (equal), then
+   ``fit_stream(epochs=2)`` preempted at step 33 (epoch 2, chunk 2) and
+   resumed, bit-equal to the uninterrupted ``fit_stream``, and
+   ``predict_stream`` bit-equal to ``predict``. It prints the
+   checkpoint's bytes, the save and restore seconds and the parse rate
+   beside the card's name and power limit.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU it exits
@@ -108,6 +127,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -206,6 +226,14 @@ LARGE_ROWS = 2_000_000   # the example's default rows, split 95/5
 PARITY_LARGE = 4096      # the parity steps' batch (the CPU runs them too)
 TIMED_LARGE = 8          # steps timed in each form
 RECIPE_ROWS = 1_000_000  # rows of the Criteo example's large-batch recipe
+# the resilience phase: the bench model with Adam 1e-3 under Trainer.fit
+# and fit_stream
+RESUME_HP = dict(HPARAMS, optimizer="adam", learning_rate=1e-3)
+RESUME_ROWS = 6 * BATCH + BATCH // 2  # 53,248 rows: 7 steps an epoch
+PREEMPT_STEP = 9                      # mid-epoch 2
+STREAM_ROWS = 131_072                 # rows of the phase's TSV
+STREAM_CHUNK = 32_768                 # 4 chunks of 5 steps an epoch
+STREAM_PREEMPT_STEP = 33              # epoch 2, chunk 2, its 3rd batch
 
 
 def log(msg):
@@ -1791,6 +1819,309 @@ def phase_split_lookup(device):
     return k7_launches
 
 
+def preempting(directory, at_step, save_seconds, **kw):
+    """A ``Resilience`` that raises a real SIGTERM at the boundary of global
+    step ``at_step`` (the handler ``fit`` installed catches it) and
+    appends the seconds of each save that writes a checkpoint to
+    ``save_seconds``."""
+    import signal
+
+    import torch
+
+    from recman_tpu_torch.training import Resilience
+
+    class Preempting(Resilience):
+        def step_boundary(self, trainer, step, epoch, extra=None):
+            if step == at_step:
+                signal.raise_signal(signal.SIGTERM)
+            super().step_boundary(trainer, step, epoch, extra)
+
+        def save(self, trainer, step, epoch, extra=None):
+            if step == self._last_saved_step:
+                return
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().save(trainer, step, epoch, extra)
+            save_seconds.append(time.perf_counter() - t0)
+
+    return Preempting(directory, **kw)
+
+
+def states_equal(a, b, what):
+    """Params, every optimizer-state tensor, the step and (where both have
+    one) the generator's state of two TrainStates, bit for bit; b's
+    tensors are read on a's devices. Returns the optimizer-state tensors
+    compared."""
+    import torch
+
+    from recman_tpu_torch.ckpt.checkpoint import _flatten
+
+    check(list(a.params) == list(b.params), f"{what}: param names differ")
+    for k, v in a.params.items():
+        check(torch.equal(v, b.params[k].to(v.device)), f"{what}: param {k} differs")
+    fa, fb = _flatten(a.opt_state), _flatten(b.opt_state)
+    check([p for p, _ in fa] == [p for p, _ in fb], f"{what}: optimizer state paths differ")
+    n = 0
+    for (path, x), (_, y) in zip(fa, fb):
+        if isinstance(x, torch.Tensor):
+            check(x.dtype == y.dtype and torch.equal(x, y.to(x.device)),
+                  f"{what}: optimizer state {path} differs")
+            n += 1
+    check(a.step == b.step, f"{what}: step {a.step} != {b.step}")
+    if a.generator is not None and b.generator is not None:
+        check(torch.equal(a.generator.get_state(), b.generator.get_state()),
+              f"{what}: dropout generator state differs")
+    return n
+
+
+def write_criteo_tsv(path, rows, seed):
+    """A Criteo-format TSV: a 0/1 label, 13 integer fields (about 20%
+    empty, some negative) and 26 hex tokens (Zipf-skewed, about 10%
+    empty), tab-separated, one row a line."""
+    rs = np.random.RandomState(seed)
+    cols = [["1" if c else "0" for c in (rs.rand(rows) < 0.25).tolist()]]
+    for _ in range(13):
+        v, empty = rs.randint(-3, 1000, rows).tolist(), (rs.rand(rows) < 0.2).tolist()
+        cols.append(["" if e else str(x) for x, e in zip(v, empty)])
+    for _ in range(26):
+        v, empty = (rs.zipf(1.2, rows) % 1_000_003).tolist(), (rs.rand(rows) < 0.1).tolist()
+        cols.append(["" if e else f"{x:08x}" for x, e in zip(v, empty)])
+    with open(path, "w") as f:
+        f.write("\n".join("\t".join(r) for r in zip(*cols)))
+        f.write("\n")
+
+
+@contextlib.contextmanager
+def scatter_counter():
+    """Wrap the lookups' ``index_add_`` route (nondeterministic on CUDA)
+    with a call count for the block's length; yields the count's holder."""
+    from recman_tpu_torch.ops import embedding as emb
+
+    calls = [0]
+    inner = emb._scatter_sorted_rows
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return inner(*a, **k)
+
+    emb._scatter_sorted_rows = counted
+    try:
+        yield calls
+    finally:
+        emb._scatter_sorted_rows = inner
+
+
+def resilient_trainer(device):
+    from recman_tpu_torch.data import create_criteo_features
+    from recman_tpu_torch.models import XDeepFM
+    from recman_tpu_torch.training import LogLoss, Trainer
+
+    return Trainer(XDeepFM(create_criteo_features(num_buckets=NUM_BUCKETS), RESUME_HP), RESUME_HP,
+                   metrics=(LogLoss(),), epoch=2, batch_size=BATCH, random_seed=2019,
+                   device=device)
+
+
+def dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_resilience(device):
+    """Checkpoints, resilient training and streaming at full width: (a) a
+    resilient ``fit`` preempted by a real SIGTERM at step 9 and resumed
+    by a fresh Trainer, bit-equal to the uninterrupted run, its launches
+    counted; (b) ``Predictor.from_checkpoint`` on the final checkpoint, on
+    the card and on the CPU, and the checkpoint restored on the CPU; (c) a Criteo TSV parsed natively in full and
+    in chunks, ``fit_stream`` preempted inside chunk 2 of epoch 2 and
+    resumed, bit-equal, and ``predict_stream`` against ``predict``.
+    Returns the resumed runs' launches."""
+    import json as _json
+    import os
+    import tempfile
+
+    import torch
+
+    from recman_tpu_torch.data import (
+        iter_criteo_chunks,
+        load_criteo_tsv_native,
+        synthetic_criteo_arrays,
+    )
+    from recman_tpu_torch.ckpt import restore_checkpoint
+    from recman_tpu_torch.data.native_loader import get_lib
+    from recman_tpu_torch.serving import Predictor
+    from recman_tpu_torch.training import Preempted, Resilience
+
+    card = card_line()
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build", prefix="resilience_") as tmp:
+        # (a) resume bit-exact
+        data = synthetic_criteo_arrays(RESUME_ROWS, num_buckets=NUM_BUCKETS, seed=7)
+        x, y = {k: v for k, v in data.items() if k != "y"}, data["y"]
+        steps_per_epoch = RESUME_ROWS // BATCH + 1
+        ref = resilient_trainer(device)
+        ref.fit(x, y, resilience=Resilience(f"{tmp}/A", every_epochs=10**6, preempt_signals=()))
+        t1 = resilient_trainer(device)
+        save_s = []
+        res = preempting(f"{tmp}/B", PREEMPT_STEP, save_s, every_steps=4, keep=2)
+        try:
+            t1.fit(x, y, resilience=res)
+        except Preempted as e:
+            log(f"resilience (a): {e}")
+        else:
+            check(False, "fit was not preempted")
+        path, meta = res.latest()
+        check(meta["step"] == PREEMPT_STEP, f"LATEST reads step {meta['step']}, not {PREEMPT_STEP}")
+        ckpt_bytes = dir_bytes(path)
+        del t1
+        t2 = resilient_trainer(device)
+        with scatter_counter() as scatters:
+            reset_counts()
+            t2.fit(x, y, resilience=Resilience(f"{tmp}/B", every_steps=4, keep=2))
+            torch.cuda.synchronize()
+            fit_counts = kernel_counts()
+        resumed = 2 * steps_per_epoch - PREEMPT_STEP
+        eval_batches = 2 * steps_per_epoch  # the epoch-0 and epoch-2 evals
+        check_counts(fit_counts, {"K1": eval_batches, "K1 save": resumed, "K2": resumed,
+                                  "K3": resumed, "K2 recompute": 0, "K4": 0, "K5": 0, "K6": 0,
+                                  "K7": 0}, "resumed fit")
+        check(scatters[0] == 0, f"the resumed fit reached index_add_ {scatters[0]} times")
+        n_opt = states_equal(ref.state, t2.state, "resumed fit against the uninterrupted one")
+        log(f"resilience (a): resumed at step {PREEMPT_STEP} of {2 * steps_per_epoch} "
+            f"({RESUME_ROWS} rows, {steps_per_epoch} steps an epoch): {len(ref.state.params)} "
+            f"params, {n_opt} optimizer-state tensors and step {t2.state.step} bit-equal to the "
+            f"uninterrupted fit; launches {fit_counts}, index_add_ {scatters[0]}")
+        del ref
+
+        # restore, timed (page-cached files, host to card)
+        final = res.latest()[0]
+        restore_s = []
+        for _ in range(3):
+            fresh = resilient_trainer(device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh.restore(final)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t0)
+            del fresh
+        states_equal(t2.state, resilient_trainer(device).restore(final).state,
+                     "the final checkpoint restored")
+        n_params = sum(v.numel() for v in t2.state.params.values())
+
+        # (b) Predictor.from_checkpoint, on the card and on the CPU
+        rows = synthetic_criteo_arrays(N_ROWS, num_buckets=NUM_BUCKETS, seed=5)
+        rows.pop("y")
+        want = t2.predict(rows)
+        card_pred = Predictor.from_checkpoint(final, "xdeepfm", hparams=RESUME_HP,
+                                              batch_size=BATCH, device=device).predict(rows)
+        check(np.array_equal(card_pred, want), "Predictor.from_checkpoint on the card differs "
+              f"from trainer.predict: max|dp| {float(np.abs(card_pred - want).max())}")
+        cpu_rows = {k: v[:2 * BATCH] for k, v in rows.items()}
+        cpu_pred = Predictor.from_checkpoint(final, "xdeepfm", hparams=RESUME_HP,
+                                             batch_size=BATCH, device="cpu").predict(cpu_rows)
+        dp = float(np.abs(cpu_pred - want[:2 * BATCH]).max())
+        check(dp <= PRED_TOL, f"Predictor.from_checkpoint on the CPU: max|dp| {dp} > {PRED_TOL}")
+        # the card's checkpoint on the CPU: params, moments and step restore
+        # into a template without a generator; Trainer.restore refuses the
+        # card's generator
+        cpu_trainer = resilient_trainer("cpu")
+        refused = None
+        try:
+            cpu_trainer.restore(final)
+        except ValueError as e:
+            refused = e
+        check(refused is not None and "cuda dropout generator" in str(refused),
+              f"Trainer.restore on the CPU of the card's checkpoint: {refused!r}")
+        on_cpu = restore_checkpoint(final, cpu_trainer.state._replace(generator=None))
+        check(on_cpu.generator is None, "a generator restored across device types")
+        check(all(v.device.type == "cpu" for v in on_cpu.params.values()), "params not on the CPU")
+        n_cpu = states_equal(on_cpu, t2.state, "the card's checkpoint restored on the CPU")
+        log(f"resilience (b): from_checkpoint bit-equal to trainer.predict on {N_ROWS} rows on "
+            f"the card; on the CPU, {2 * BATCH} rows, max|dp| {dp:.3e} (bound {PRED_TOL}); "
+            f"the card's checkpoint restored on the CPU: params, {n_cpu} optimizer-state tensors "
+            f"and step bit-equal; Trainer.restore refused: {refused}")
+        del cpu_trainer, on_cpu
+        del t2
+
+        # (c) fit_stream on a TSV
+        tsv = f"{tmp}/day.tsv"
+        t0 = time.perf_counter()
+        write_criteo_tsv(tsv, STREAM_ROWS, seed=11)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        get_lib()  # g++ builds native/criteo_parser.cpp on first use
+        build_s = time.perf_counter() - t0
+        parse_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            full = load_criteo_tsv_native(tsv, num_buckets=NUM_BUCKETS)
+            parse_s.append(time.perf_counter() - t0)
+        parse_s = statistics.median(parse_s)
+        check(len(full["y"]) == STREAM_ROWS, f"native parse read {len(full['y'])} rows")
+        chunks = list(iter_criteo_chunks(tsv, NUM_BUCKETS, STREAM_CHUNK))
+        check([len(c["y"]) for c in chunks] == [STREAM_CHUNK] * (STREAM_ROWS // STREAM_CHUNK),
+              f"chunk rows {[len(c['y']) for c in chunks]}")
+        for k, v in full.items():
+            check(np.array_equal(np.concatenate([c[k] for c in chunks]), v),
+                  f"chunked parse differs from the full parse in {k}")
+        del chunks
+        log(f"resilience (c): TSV of {STREAM_ROWS} rows ({os.path.getsize(tsv)} bytes, written "
+            f"in {write_s:.2f} s) parsed natively in {parse_s:.4f} s (median of 3; the "
+            f"parser's g++ build {build_s:.2f} s before), {STREAM_ROWS / parse_s:.1f} rows/s; "
+            f"{STREAM_ROWS // STREAM_CHUNK} chunks of "
+            f"{STREAM_CHUNK} equal to the full parse [{card}]")
+
+        def factory():
+            return iter_criteo_chunks(tsv, NUM_BUCKETS, STREAM_CHUNK)
+
+        steps_per_chunk = STREAM_CHUNK // BATCH + 1
+        steps = 2 * (STREAM_ROWS // STREAM_CHUNK) * steps_per_chunk
+        ref = resilient_trainer(device)
+        ref.fit_stream(factory, epochs=2, resilience=Resilience(
+            f"{tmp}/C", every_epochs=10**6, preempt_signals=()))
+        t1 = resilient_trainer(device)
+        res = preempting(f"{tmp}/D", STREAM_PREEMPT_STEP, save_s, every_steps=4, keep=2)
+        try:
+            t1.fit_stream(factory, epochs=2, resilience=res)
+        except Preempted as e:
+            log(f"resilience (c): {e}")
+        else:
+            check(False, "fit_stream was not preempted")
+        _, meta = res.latest()
+        pos = {"epoch": 2, "chunk": 2,
+               "batch": STREAM_PREEMPT_STEP - (STREAM_ROWS // STREAM_CHUNK + 2) * steps_per_chunk}
+        check(meta["step"] == STREAM_PREEMPT_STEP and meta["stream"] == pos,
+              f"LATEST {_json.dumps(meta)}; expected step {STREAM_PREEMPT_STEP} at {pos}")
+        del t1
+        t2 = resilient_trainer(device)
+        with scatter_counter() as scatters:
+            reset_counts()
+            t2.fit_stream(factory, epochs=2,
+                          resilience=Resilience(f"{tmp}/D", every_steps=4, keep=2))
+            torch.cuda.synchronize()
+            stream_counts = kernel_counts()
+        resumed = steps - STREAM_PREEMPT_STEP
+        check_counts(stream_counts, {"K1": 0, "K1 save": resumed, "K2": resumed, "K3": resumed},
+                     "resumed fit_stream")
+        check(scatters[0] == 0, f"the resumed fit_stream reached index_add_ {scatters[0]} times")
+        n_opt = states_equal(ref.state, t2.state,
+                             "resumed fit_stream against the uninterrupted one")
+        streamed = t2.predict_stream(factory)
+        resident = t2.predict({k: v for k, v in full.items() if k != "y"})
+        check(np.array_equal(streamed, resident), "predict_stream differs from predict: max|dp| "
+              f"{float(np.abs(streamed - resident).max())}")
+        check(bool(np.isfinite(resident).all()), "non-finite stream predictions")
+        log(f"resilience (c): fit_stream resumed at step {STREAM_PREEMPT_STEP} of {steps} "
+            f"({_json.dumps(meta['stream'])}): params, {n_opt} optimizer-state tensors and step "
+            f"{t2.state.step} bit-equal to the uninterrupted fit_stream; launches "
+            f"{stream_counts}; predict_stream bit-equal to predict on {STREAM_ROWS} rows")
+        log(f"resilience: checkpoint {ckpt_bytes} bytes on disk ({n_params} params); save "
+            f"{statistics.median(save_s):.3f} s (median of {len(save_s)}: "
+            f"{[round(v, 3) for v in save_s]}), restore "
+            f"{statistics.median(restore_s):.3f} s (median of 3) [{card}]")
+    return {"fit": fit_counts, "fit_stream": stream_counts}
+
+
 def kernel_record(name, source, replaces, launches, rec):
     """The kernel's entry in the ``kernels`` line. ``kernel_ms`` is the
     profile's kernel time per call where the phase profiled the kernel,
@@ -1851,6 +2182,9 @@ def main():
     t0 = time.perf_counter()
     split = phase_split_lookup(device)
     log(f"split-lookup phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    resilience = phase_resilience(device)
+    log(f"resilience phase {time.perf_counter() - t0:.1f} s [{card}]; launches {resilience}")
 
     fwd, bwd, seg = ("recman_tpu_torch/csrc/cin_chain_fwd.cu", "recman_tpu_torch/csrc/cin_chain_bwd.cu",
                      "recman_tpu_torch/csrc/segment_matmul.cu")

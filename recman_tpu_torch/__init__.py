@@ -10,7 +10,10 @@ The slices ported so far are xDeepFM serving (``serving.Predictor`` over
 ``models.XDeepFM`` in eval mode), its stacked-storage train step
 (``training.make_train_step_stacked`` with Adam), the ``Trainer`` with
 the ML-100K example (``examples.xdeepfm_ml``) and the per-layer CIN path
-with the Criteo example (``examples.criteo_xdeepfm``). Their kernels are
+with the Criteo example (``examples.criteo_xdeepfm``), large-batch
+training, and checkpoints (``ckpt``, ``Trainer.save``/``restore``),
+resilient training (``training.Resilience``) and streaming
+(``Trainer.fit_stream`` over ``data.streaming``). Their kernels are
 hand-written CUDA (sources in ``csrc/``): the CIN tower forward (K1) and
 backward (K2) in ``ops/cin_chain.py``, one CIN layer's forward (K4) and
 backward (K5) in ``ops/cin_interact.py``, and the embedding tables'

@@ -1,7 +1,12 @@
-"""Data pipelines. ``criteo.py`` is a verbatim copy of
-``recman_tpu/data/criteo.py`` (numpy only); ``ml_100k.py`` reimplements
-the reference's pandas loader in numpy. The other loaders of the
-reference are not ported yet."""
+"""Data pipelines. ``criteo.py`` and ``streaming.py`` are verbatim copies
+of the reference's (``recman_tpu/data/``); ``native_loader.py`` is one but
+for where it caches the built parser (the checkout's ``build/native/``, not
+``/tmp``). All three use numpy, ctypes and subprocess only; the native
+loader builds the repository's ``native/criteo_parser.cpp`` with g++, the
+same source the reference builds. ``ml_100k.py`` reimplements the
+reference's pandas loader in numpy. The ML-100K sequence features
+(``add_history_feature``, ``create_ml_sequence_features``) are not ported
+yet (ROADMAP.md queue 1: the model zoo, with din)."""
 
 from .criteo import (
     CAT_NAMES,
@@ -12,6 +17,8 @@ from .criteo import (
     synthetic_criteo_arrays,
 )
 from .ml_100k import concat_rows, create_ml_features, get_data, get_ml_dataset
+from .native_loader import load_criteo_tsv_native, load_criteo_tsv_range_native
+from .streaming import iter_array_chunks, iter_criteo_chunks
 
 __all__ = [
     "CAT_NAMES",
@@ -22,6 +29,10 @@ __all__ = [
     "create_ml_features",
     "get_data",
     "get_ml_dataset",
+    "iter_array_chunks",
+    "iter_criteo_chunks",
     "load_criteo_tsv",
+    "load_criteo_tsv_native",
+    "load_criteo_tsv_range_native",
     "synthetic_criteo_arrays",
 ]

@@ -5,9 +5,12 @@ hashed categorical fields and 13 log1p dense ones, batch 4096, Adam at
 0.001, one epoch, a 90/10 train/valid split, then the VALID logloss and
 streaming AUC. Without ``tsv`` the rows are synthetic
 (``synthetic_criteo_arrays``, or the calibrated generator with
-``calibrated=True``). ``tsv`` reads a Criteo TSV with the pandas loader
-(``data.load_criteo_tsv``); the reference's native C++ loader is not
-ported (ROADMAP.md queue 1, item 8).
+``calibrated=True``). ``tsv`` reads a Criteo TSV with the native C++
+parser (``data.load_criteo_tsv_native``, one multithreaded pass straight
+to encoded arrays, as the reference's ``native=True``), or with the
+pandas loader (``data.load_criteo_tsv``) under ``native=False`` or, with
+a warning, when the parser does not build. A machine without pandas has
+only the native path.
 
 ``large_batch=True`` is the reference's config-5 recipe (:72-89): batch
 65,536 when ``batch_size <= 4096`` (the command line's default), a peak
@@ -21,6 +24,7 @@ the fused chain.
 Run on the GPU (or with ``--device cpu``):
 
     python -m recman_tpu_torch.examples.criteo_xdeepfm [--rows 200000] [--embedding-size 10]
+    python -m recman_tpu_torch.examples.criteo_xdeepfm --tsv day_0.tsv [--no-native]
 """
 
 import argparse
@@ -31,8 +35,10 @@ from recman_tpu_torch.data import (
     calibrated_criteo_arrays,
     create_criteo_features,
     load_criteo_tsv,
+    load_criteo_tsv_native,
     synthetic_criteo_arrays,
 )
+from recman_tpu_torch.data.native_loader import NativeBuildError
 from recman_tpu_torch.models import XDeepFM
 from recman_tpu_torch.training import (
     LogLoss,
@@ -47,16 +53,23 @@ log = logging.getLogger(__name__)
 
 
 def main(tsv=None, rows=200_000, num_buckets=100_000, epoch=1, batch_size=4096,
-         learning_rate=0.001, embedding_size=16, optimizer="adam", calibrated=False,
-         large_batch=False, device=None):
+         learning_rate=0.001, embedding_size=16, native=True, optimizer="adam",
+         calibrated=False, large_batch=False, device=None):
     """Returns (trainer, [valid logloss, valid auc])."""
     recman_tpu_torch.config_logger()
     feat_dict = create_criteo_features(num_buckets=num_buckets)
 
     if tsv:
-        raw = load_criteo_tsv(tsv, max_rows=rows)
-        y = raw.pop("y")
-        data = feat_dict.transform(raw, y=y)
+        data = None
+        if native:
+            try:
+                data = load_criteo_tsv_native(tsv, num_buckets=num_buckets, max_rows=rows)
+            except NativeBuildError as e:  # no g++ toolchain: the pandas path
+                log.warning("native parser unavailable (%s); pandas path", e)
+        if data is None:
+            raw = load_criteo_tsv(tsv, max_rows=rows)
+            y = raw.pop("y")
+            data = feat_dict.transform(raw, y=y)
     elif calibrated:
         data = calibrated_criteo_arrays(rows, num_buckets=num_buckets)
     else:
@@ -109,6 +122,8 @@ if __name__ == "__main__":
     ap.add_argument("--buckets", type=int, default=100_000)
     ap.add_argument("--epoch", type=int, default=1)
     ap.add_argument("--batch-size", type=int, default=4096)
+    ap.add_argument("--no-native", action="store_true",
+                    help="read the TSV with the pandas loader, not the native C++ parser")
     ap.add_argument("--embedding-size", type=int, default=16)
     ap.add_argument("--optimizer", default="adam",
                     help="adam | adam_bf16m | rowwise_adam | adagrad | lamb | ...")
@@ -121,5 +136,5 @@ if __name__ == "__main__":
     args = ap.parse_args()
     main(tsv=args.tsv, rows=args.rows, num_buckets=args.buckets, epoch=args.epoch,
          batch_size=args.batch_size, embedding_size=args.embedding_size,
-         optimizer=args.optimizer, calibrated=args.calibrated,
+         native=not args.no_native, optimizer=args.optimizer, calibrated=args.calibrated,
          large_batch=args.large_batch, device=args.device)

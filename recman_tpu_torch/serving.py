@@ -9,8 +9,11 @@ runs the eval forward and returns the first ``n`` predictions. The
 inference-time linear overrides (``feat.set_weights``) apply unless
 ``apply_overrides=False``.
 
-``from_checkpoint``, ``export`` and ``ExportedPredictor`` are not ported
-yet.
+``from_checkpoint`` rebuilds the model from a ``Trainer.save``
+checkpoint's sidecars and reads its params alone, so a checkpoint written
+on the card serves on the CPU and the other way round. ``export`` and
+``ExportedPredictor`` are not ported yet (ROADMAP.md queue 1: the rest of
+serving).
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ckpt import load_feat_dict, load_hparams, restore_params
 from .device import resolve_device
+from .models import model_class
 from .training import batch_indices, gather_batch
 
 __all__ = ["Predictor", "batch_indices"]
@@ -33,6 +38,27 @@ class Predictor:
         self.model = model
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.batch_size = batch_size
+
+    @classmethod
+    def from_checkpoint(cls, directory, model_name_or_cls, hparams=None, task="classification",
+                        batch_size=4096, device=None):
+        """Rebuild the model and its params from a ``Trainer.save`` or
+        ``BestModelFinder`` checkpoint directory. ``hparams`` update the
+        saved ones (the hparams sidecar keeps a tuple as its string)."""
+        feat_dict = load_feat_dict(directory)
+        try:
+            saved_hp = load_hparams(directory)
+        except FileNotFoundError:
+            saved_hp = {}
+        hp = dict(saved_hp)
+        hp.update(hparams or {})
+        model_cls = (model_class(model_name_or_cls) if isinstance(model_name_or_cls, str)
+                     else model_name_or_cls)
+        model = model_cls(feat_dict, hp, task=task)
+        device = resolve_device(device)
+        template = model.init_params(torch.Generator().manual_seed(0), device)
+        return cls(model, restore_params(directory, template), batch_size=batch_size,
+                   device=device)
 
     def predict(self, X, apply_overrides=True) -> np.ndarray:
         """Batched scoring of a dataframe or an encoded-array dict."""

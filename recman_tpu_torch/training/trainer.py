@@ -1,4 +1,4 @@
-"""Trainer: sklearn-style fit / predict / evaluate.
+"""Trainer: sklearn-style fit / predict / evaluate, streaming, checkpoints.
 
 Counterpart of ``recman_tpu/training/trainer.py``: the dataset is encoded
 once and lives on the device; a mini-batch is a device-side gather of a
@@ -7,16 +7,21 @@ partial batch is padded to the batch size and masked. Eval during fit
 defaults to training=False (``eval_in_training_mode=True`` keeps the
 reference's dropout-in-eval quirk).
 
-Not ported yet, and raising where called: ``resilience=`` (checkpointing
-and resume), ``fit_stream``/``predict_stream``/``evaluate_stream`` and
-``save``/``restore`` (ROADMAP.md queue 1, item 8), and Dice calibration
-(item 10).
+``fit(resilience=...)`` and ``fit_stream`` take a ``training.Resilience``
+policy: periodic and preemption checkpoints (``save``/``restore``,
+``ckpt/checkpoint.py``) and a bit-exact resume from LATEST. ``fit_stream``,
+``predict_stream`` and ``evaluate_stream`` double-buffer encoded host
+chunks (``data/streaming.py``) through the device.
+
+Not ported yet, and raising where called: Dice moment capture in
+``calibrate`` (ROADMAP.md queue 1: the model zoo, with Dice).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+from concurrent.futures import ThreadPoolExecutor
 from time import time
 
 import numpy as np
@@ -60,10 +65,6 @@ def _first_row(X):
     if isinstance(X, dict):
         return {k: v[:1] for k, v in X.items()}
     return X[:1] if hasattr(X, "__getitem__") else None
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, item {item})")
 
 
 class Trainer:
@@ -178,20 +179,173 @@ class Trainer:
         return loss
 
     def fit_stream(self, chunks, epochs=None, shuffle_in_chunk=True, resilience=None):
-        raise _not_ported("Trainer.fit_stream", 8)
+        """Train over a stream of encoded host chunks ({name: array, 'y':
+        ...} dicts, ``data.streaming``'s iterators) with double buffering:
+        a prefetch thread reads, packs and copies chunk c + 1 while the
+        steps of chunk c run, so the device holds at most two chunks
+        whatever the dataset's size.
+
+        ``chunks``: an iterable (one pass) or a zero-arg callable returning
+        a fresh iterator (required when ``epochs`` > 1 or with
+        ``resilience``). Rows shuffle within each chunk per epoch when
+        ``shuffle_in_chunk``, with the seed ``random_seed + 7919 * epoch +
+        chunk``. Returns self.
+
+        The copies run on the prefetch thread's current stream, the
+        default stream, which orders them before the steps that read them;
+        a copy also waits there behind the steps already queued, so only
+        the host's read, parse and pack overlap the steps, not the copy.
+
+        ``resilience``: checkpoints record the stream position (epoch,
+        chunk, batches done in the chunk) in LATEST.json; a resume restores
+        the state and fast-forwards the chunk source to it, so the resumed
+        run replays the remaining batches exactly (bit-exact, like fit's
+        mid-epoch resume). The chunk factory's order must be deterministic.
+        """
+        epochs = self.epoch if epochs is None else epochs
+        if not callable(chunks):
+            assert epochs == 1 and resilience is None, (
+                "a plain iterator can only be consumed once; pass a "
+                "zero-arg callable for multi-epoch or resumable streams"
+            )
+            chunk_iter = chunks
+            chunks = lambda: chunk_iter  # noqa: E731
+
+        start_epoch, resume_chunk, resume_batch = 1, 0, 0
+        steps_done = 0
+        if resilience is not None:
+            meta = resilience.resume(self)
+            if meta is not None:
+                steps_done = int(meta["step"])
+                pos = meta.get("stream")
+                if pos is None:
+                    log.warning(
+                        "Resilience: checkpoint has no stream position (written by fit()?); "
+                        "restarting the stream from epoch %d chunk 0 with the restored state",
+                        int(meta["epoch"]),
+                    )
+                    start_epoch = int(meta["epoch"])
+                else:
+                    start_epoch = int(pos["epoch"])
+                    resume_chunk = int(pos["chunk"])
+                    resume_batch = int(pos["batch"])
+                    if start_epoch > epochs:
+                        log.info("Resilience: stream run already complete at step %d",
+                                 steps_done)
+                        return self
+            resilience.install()
+
+        last_chunk = None
+        try:
+            for epoch in range(start_epoch, epochs + 1):
+                it = iter(chunks())
+                skip_chunks = resume_chunk if epoch == start_epoch else 0
+                skip_batches = resume_batch if epoch == start_epoch else 0
+                for _ in range(skip_chunks):
+                    if next(it, None) is None:
+                        break
+                if skip_chunks:
+                    log.info("Resilience: resuming stream epoch %d at chunk %d, batch %d",
+                             epoch, skip_chunks, skip_batches)
+
+                def prepare(c_i):
+                    # the prefetch thread: read, pack and copy the next chunk
+                    chunk = next(it, None)
+                    if chunk is None:
+                        return None
+                    nonlocal last_chunk
+                    last_chunk = chunk  # calibrate's sample
+                    data, layout = self._to_device(chunk, chunk.get("y"))
+                    n = int(len(next(iter(chunk.values()))))
+                    seed = self.random_seed + 7919 * epoch + c_i if shuffle_in_chunk else None
+                    return data, layout, self._idx(self._batch_index_matrix(n, shuffle_seed=seed))
+
+                total, batches, c_i = 0.0, 0, skip_chunks
+                with ThreadPoolExecutor(max_workers=1) as pool:
+                    cur = prepare(c_i)
+                    while cur is not None:
+                        data, layout, idx = cur
+                        offset = skip_batches if c_i == skip_chunks else 0
+                        c_i += 1
+                        fut = pool.submit(prepare, c_i)
+                        losses = []
+                        for i in range(offset, idx.shape[0]):
+                            losses.append(self.fit_on_batch(data, idx[i], layout))
+                            steps_done += 1
+                            if resilience is not None:
+                                resilience.step_boundary(
+                                    self, steps_done, epoch,
+                                    extra={"stream": {"epoch": epoch, "chunk": c_i - 1,
+                                                      "batch": i + 1}},
+                                )
+                        # one read of the chunk's losses
+                        total += float(torch.stack(losses).double().sum()) if losses else 0.0
+                        batches += len(losses)
+                        del data, losses
+                        cur = fut.result()
+                mean_loss = total / max(batches, 1)
+                log.info("fit_stream epoch %d: %d chunks, %d batches, mean loss %.5f",
+                         epoch, c_i, batches, mean_loss)
+                if resilience is not None:
+                    resilience.epoch_boundary(
+                        self, steps_done, epoch, mean_loss,
+                        extra={"stream": {"epoch": epoch + 1, "chunk": 0, "batch": 0}},
+                    )
+                if last_chunk is not None:
+                    self.calibrate(last_chunk)
+        finally:
+            if resilience is not None:
+                resilience.uninstall()
+        return self
 
     def predict_stream(self, chunks, training=False):
-        raise _not_ported("Trainer.predict_stream", 8)
+        """Batched forward over a stream of encoded host chunks ('y'
+        allowed and ignored), double-buffered as in ``fit_stream``.
+        Returns the (N,) predictions in stream order."""
+        it = iter(chunks() if callable(chunks) else chunks)
+        override = None if training else self._override()
+
+        def prepare():
+            chunk = next(it, None)
+            if chunk is None:
+                return None
+            n = int(len(next(iter(chunk.values()))))
+            data, layout = self._to_device({k: v for k, v in chunk.items() if k != "y"})
+            return data, layout, self._idx(self._batch_index_matrix(n)), n
+
+        out = []
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            cur = prepare()
+            while cur is not None:
+                data, layout, idx, n = cur
+                fut = pool.submit(prepare)
+                preds = self._eval_scan(self.state.params, data, idx, override, training, layout)
+                out.append(self._unshard_preds(preds.cpu().numpy(), n))
+                del data, preds
+                cur = fut.result()
+        return np.concatenate(out) if out else np.zeros((0,), np.float32)
 
     def evaluate_stream(self, chunks, training=False):
-        raise _not_ported("Trainer.evaluate_stream", 8)
+        """[metric(y, pred)] over a chunk stream; chunks must carry 'y'."""
+        ys = []
+        it = iter(chunks() if callable(chunks) else chunks)
+
+        def labelled():
+            for chunk in it:
+                ys.append(np.asarray(chunk["y"], dtype=np.float32))
+                yield chunk
+
+        ps = self.predict_stream(labelled(), training=training)
+        y = np.concatenate(ys) if ys else np.zeros((0,), np.float32)
+        return [metric(y, ps) for metric in self.metrics]
 
     def calibrate(self, X, max_rows=65536) -> bool:
         """Freeze Dice normalization moments into params (fit calls it
         before each eval). Dice is not ported, so no model of the port has
         moments to freeze: returns False."""
         if any("_dice_mean_" in k for k in self.state.params):
-            raise _not_ported("Dice moment capture", 10)
+            raise NotImplementedError("Dice moment capture is not ported yet "
+                                      "(ROADMAP.md queue 1: the model zoo, with Dice)")
         return False
 
     def _eval_at_epoch(self, data_train, y_train, X_valid, y_valid, start_time, epoch,
@@ -251,9 +405,12 @@ class Trainer:
         device)."""
         return preds[:n]
 
-    def _fit_grouped(self, data, idx, layout):
-        """Steps in groups of ``steps_per_dispatch`` (stacked storage when
-        active), the non-divisible tail one step at a time."""
+    def _fit_grouped(self, data, idx, layout, step_done=None):
+        """Steps in groups of ``steps_per_dispatch``, the non-divisible
+        tail one step at a time; ``step_done(i)`` after the group or step
+        that ends with row i. Stacked storage only without ``step_done``:
+        a resilience checkpoint reads ``self.state`` between steps, so a
+        resilient run keeps per-table storage."""
         from .train_step import (
             make_train_step_stacked,
             make_train_step_unrolled,
@@ -264,7 +421,7 @@ class Trainer:
         u = self.steps_per_dispatch
         full = (idx.shape[0] // u) * u
         losses = []
-        if self._stacked_active():
+        if step_done is None and self._stacked_active():
             if self._train_step_stacked is None:
                 self._train_step_stacked = make_train_step_stacked(
                     self.model, self.optimizer, u, self.model.packed.stackable())
@@ -282,8 +439,12 @@ class Trainer:
             for s in range(0, full, u):
                 self.state, lvec = self._train_step_unrolled(self.state, data, idx[s:s + u], layout)
                 losses.append(lvec)
+                if step_done is not None:
+                    step_done(s + u - 1)
         for i in range(full, idx.shape[0]):
             losses.append(self.fit_on_batch(data, idx[i], layout)[None])
+            if step_done is not None:
+                step_done(i)
         return torch.cat(losses)
 
     def fit(
@@ -303,10 +464,15 @@ class Trainer:
         trace), then per epoch a reshuffle (``np.random.randint(1, 2019)``
         as the seed, the reference's quirk, unless
         ``random_seed_for_mini_batch=False``), the steps, the eval, the TB
-        log and the callback."""
+        log and the callback.
+
+        ``resilience``: a ``training.Resilience`` policy: periodic and
+        preemption checkpoints, a mid-epoch resume from LATEST, divergence
+        rollback. It forces the deterministic per-epoch seed
+        ``(random_seed + 104729 * epoch) % (2**31 - 1)``, so a restored
+        step count regenerates the epoch's index matrix and the resume is
+        bit-exact."""
         assert X_train is not None and y_train is not None
-        if resilience is not None:
-            raise _not_ported("Trainer.fit(resilience=...)", 8)
         try:
             import tqdm
 
@@ -322,57 +488,94 @@ class Trainer:
         y_np = np.asarray(y_train, dtype=np.float32)
         n = len(y_np)
 
-        if tb_logger is not None:
-            tb_logger.trace_on(epoch=0)
-        self.calibrate(X_train)
-        eval_results = self._eval_at_epoch(data, y_np, X_valid, y_valid, time(), epoch=0,
-                                           layout=layout)
-        if tb_logger is not None:
-            tb_logger.trace_off(epoch=0)
-            tb_logger.log_params(epoch=0, eval_results=eval_results, metrics=self.metrics,
-                                 variables=self._host_params())
+        steps_per_epoch = self._steps_per_epoch(n)
+        start_epoch, resume_offset = 1, 0
+        if resilience is not None:
+            meta = resilience.resume(self)
+            if meta is not None:
+                done = int(meta["step"])
+                start_epoch = done // steps_per_epoch + 1
+                resume_offset = done % steps_per_epoch
+                if start_epoch > self.epoch and resume_offset == 0:
+                    log.info("Resilience: run already complete at step %d", done)
+                    return self
+            resilience.install()
 
-        for epoch in range(1, self.epoch + 1):
-            start_time = time()
-            if random_seed_for_mini_batch:
-                seed = np.random.randint(1, 2019)  # reference DeepModel.py:183
-            else:
-                seed = self.random_seed
-            idx = self._idx(self._batch_index_matrix(n, shuffle_seed=seed))
-
-            if tb_logger is None and self.epoch_in_one_dispatch:
-                self.state, losses = self._train_epoch(self.state, data, idx, layout)
-            elif tb_logger is None and self.steps_per_dispatch > 1:
-                losses = self._fit_grouped(data, idx, layout)
-            else:
-                losses = []
-                for i in range(idx.shape[0]):
-                    show = i % batch_number_to_show_progress == 0
-                    if tb_logger is not None and show:
-                        tb_logger.trace_on(epoch)
-                    losses.append(self.fit_on_batch(data, idx[i], layout))
-                    if tb_logger is not None and show:
-                        tb_logger.trace_off(epoch)
-                    if show:
-                        log.debug("Fit: %d/%d batches", i + 1, idx.shape[0])
-                losses = torch.stack(losses)
-            # one read of the epoch's losses, averaged in float64
-            mean_loss = float(losses.double().mean())
-            self.last_mean_loss = mean_loss
-            log.info("Fit epoch %d: %d batches, mean loss %.5f", epoch, idx.shape[0], mean_loss)
-
-            self.calibrate(X_train)
-            eval_results = self._eval_at_epoch(data, y_np, X_valid, y_valid, start_time,
-                                               epoch=epoch, layout=layout)
+        try:
             if tb_logger is not None:
-                tb_logger.log_params(epoch=epoch, eval_results=eval_results,
-                                     metrics=self.metrics, variables=self._host_params())
-            if epoch_callback:
-                epoch_callback(model=self, eval_results=eval_results,
-                               df_all=_first_row(X_train))
-            progress.update(1)
-        if hasattr(progress, "close"):
-            progress.close()
+                tb_logger.trace_on(epoch=0)
+            self.calibrate(X_train)
+            eval_results = self._eval_at_epoch(data, y_np, X_valid, y_valid, time(), epoch=0,
+                                               layout=layout)
+            if tb_logger is not None:
+                tb_logger.trace_off(epoch=0)
+                tb_logger.log_params(epoch=0, eval_results=eval_results, metrics=self.metrics,
+                                     variables=self._host_params())
+
+            for epoch in range(start_epoch, self.epoch + 1):
+                start_time = time()
+                if resilience is not None:
+                    # a restored step count regenerates this epoch's index matrix
+                    seed = (self.random_seed + 104729 * epoch) % (2**31 - 1)
+                elif random_seed_for_mini_batch:
+                    seed = np.random.randint(1, 2019)  # reference DeepModel.py:183
+                else:
+                    seed = self.random_seed
+                idx = self._idx(self._batch_index_matrix(n, shuffle_seed=seed))
+                epoch_base = (epoch - 1) * steps_per_epoch
+                offset = resume_offset if epoch == start_epoch else 0
+                if offset:
+                    idx = idx[offset:]
+                    log.info("Resilience: resuming epoch %d at batch %d/%d",
+                             epoch, offset, steps_per_epoch)
+
+                step_done = None
+                if resilience is not None:
+                    def step_done(local_i, epoch=epoch, base=epoch_base + offset):
+                        resilience.step_boundary(self, base + local_i + 1, epoch)
+
+                if tb_logger is None and self.epoch_in_one_dispatch:
+                    self.state, losses = self._train_epoch(self.state, data, idx, layout)
+                elif tb_logger is None and self.steps_per_dispatch > 1:
+                    losses = self._fit_grouped(data, idx, layout, step_done)
+                else:
+                    losses = []
+                    for i in range(idx.shape[0]):
+                        show = i % batch_number_to_show_progress == 0
+                        if tb_logger is not None and show:
+                            tb_logger.trace_on(epoch)
+                        losses.append(self.fit_on_batch(data, idx[i], layout))
+                        if step_done is not None:
+                            step_done(i)
+                        if tb_logger is not None and show:
+                            tb_logger.trace_off(epoch)
+                        if show:
+                            log.debug("Fit: %d/%d batches", i + 1, idx.shape[0])
+                    losses = torch.stack(losses)
+                # one read of the epoch's losses, averaged in float64
+                mean_loss = float(losses.double().mean())
+                self.last_mean_loss = mean_loss
+                log.info("Fit epoch %d: %d batches, mean loss %.5f", epoch, idx.shape[0],
+                         mean_loss)
+                if resilience is not None:
+                    resilience.epoch_boundary(self, epoch_base + steps_per_epoch, epoch,
+                                              mean_loss)
+
+                self.calibrate(X_train)
+                eval_results = self._eval_at_epoch(data, y_np, X_valid, y_valid, start_time,
+                                                   epoch=epoch, layout=layout)
+                if tb_logger is not None:
+                    tb_logger.log_params(epoch=epoch, eval_results=eval_results,
+                                         metrics=self.metrics, variables=self._host_params())
+                if epoch_callback:
+                    epoch_callback(model=self, eval_results=eval_results,
+                                   df_all=_first_row(X_train))
+                progress.update(1)
+            if hasattr(progress, "close"):
+                progress.close()
+        finally:
+            if resilience is not None:
+                resilience.uninstall()
         return self
 
     def _host_params(self) -> dict:
@@ -380,7 +583,18 @@ class Trainer:
 
     # -- checkpointing -----------------------------------------------------
     def save(self, directory):
-        raise _not_ported("Trainer.save (checkpoints)", 8)
+        """The whole TrainState and the hparams and feat_dict sidecars
+        (``ckpt.save_checkpoint``)."""
+        from ..ckpt import save_checkpoint
+
+        save_checkpoint(directory, state=self.state, hparams=self.hparams,
+                        feat_dict=self.model.feat_dict)
 
     def restore(self, directory):
-        raise _not_ported("Trainer.restore (checkpoints)", 8)
+        """The state of a ``save`` directory, on this Trainer's device. A
+        checkpoint whose dropout generator was on another device type
+        raises ValueError (``ckpt.restore_checkpoint``)."""
+        from ..ckpt import restore_checkpoint
+
+        self.state = restore_checkpoint(directory, self.state)
+        return self

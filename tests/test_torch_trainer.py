@@ -194,16 +194,16 @@ def test_profiler_hooks_trace_with_torch_profiler(tmp_path):
 
 
 def test_trainer_raises_on_what_is_not_ported(ml):
+    """Dice is not ported, so calibrate raises on a state with Dice moments
+    and returns False on every other; the stream methods have no sharded
+    path to refuse (the port has no ShardedTrainer)."""
     trainer = _small_trainer(ml)
-    _, xtr, ytr, _ = ml["port"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trainer.fit(xtr, ytr, resilience=object())
-    for call in (lambda: trainer.fit_stream([]), lambda: trainer.predict_stream([]),
-                 lambda: trainer.evaluate_stream([]), lambda: trainer.save("x"),
-                 lambda: trainer.restore("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    _, xtr, _, _ = ml["port"]
     assert trainer.calibrate(xtr) is False
+    params = dict(trainer.state.params, dnn_dice_mean_0=torch.zeros(4))
+    trainer.state = trainer.state._replace(params=params)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: the model zoo, with Dice"):
+        trainer.calibrate(xtr)
     assert trainer.steps_per_dispatch == 1 and not trainer._stacked_active()
 
 

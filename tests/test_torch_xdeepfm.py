@@ -317,6 +317,7 @@ COPIED = [
     "features/__init__.py", "features/encoders.py", "features/schema.py",
     "features/serialize.py", "config/__init__.py", "config/hparams.py",
     "data/criteo.py", "training/metrics.py", "obs/__init__.py", "obs/best_model.py",
+    "ckpt/transfer.py", "training/resilient.py", "data/streaming.py",
 ]
 
 
@@ -326,3 +327,27 @@ def test_host_module_copies_match_the_reference(rel):
     must not drift from the reference."""
     assert (REPO / "recman_tpu_torch" / rel).read_bytes() == \
         (REPO / "recman_tpu" / rel).read_bytes()
+
+
+# the port's native loader is the reference's but for where it caches the
+# built parser: under the checkout's build/native/, not a path shared by
+# every checkout on the host
+NATIVE_LOADER_CHANGES = [
+    ("this image; plain C ABI + ctypes) and cached next to the source with a\n"
+     "content-hash suffix so source edits rebuild automatically.\n",
+     "this image; plain C ABI + ctypes) and cached under build/native/ at the\n"
+     "checkout's root with a content-hash suffix so source edits rebuild\n"
+     "automatically.\n"),
+    ('    out = os.path.join("/tmp", f"libcriteo_parser_{tag}.so")\n',
+     '    out = os.path.join(os.path.dirname(os.path.dirname(_SRC)), "build", "native",\n'
+     '                       f"libcriteo_parser_{tag}.so")\n'
+     '    os.makedirs(os.path.dirname(out), exist_ok=True)\n'),
+]
+
+
+def test_native_loader_differs_from_the_reference_only_in_its_build_dir():
+    want = (REPO / "recman_tpu" / "data" / "native_loader.py").read_text()
+    for old, new in NATIVE_LOADER_CHANGES:
+        assert want.count(old) == 1, old
+        want = want.replace(old, new)
+    assert (REPO / "recman_tpu_torch" / "data" / "native_loader.py").read_text() == want
