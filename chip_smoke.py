@@ -119,6 +119,22 @@ bit-equal on two calls.
    ``predict_stream`` bit-equal to ``predict``. It prints the
    checkpoint's bytes, the save and restore seconds and the parse rate
    beside the card's name and power limit.
+10. the zoo: FM, DeepFM, DCN, FwFM, Wide&Deep, NFM and AFM. (a) Each
+   through ``examples.model_zoo_ml.run_model`` on MovieLens-100K (frac
+   0.5, 1 epoch, Adam 1e-3, batch 128, the reference's seed-2019 params,
+   numpy's global generator seeded 2019) under ``grad_kernel("segmat")``: TEST logloss within 0.02 and AUC
+   within 0.015 of the model's ``docs/model_zoo.md`` row; K6 once per
+   embedded field a step (from the schema), no other kernel, never
+   ``index_add_``; the epoch and its median step by CUDA events. (b)
+   ``dcn_paper_criteo``, the DCN paper's Criteo setting (arXiv:1708.05123
+   section 4.3) on the bench's hashed fields: k 107, DNN (1024, 1024)
+   relu, 6 cross layers, batch 512, Adam 1e-3. ``Predictor.predict`` on
+   65,536 rows, its first batch within 1e-5 of the CPU's; step 1's
+   gradients in stacked storage against the CPU with the DNN's relu read
+   on the card's side of 0, and a 4-step trace; 32 timed stacked steps
+   with K3 once a step, a profile and the peak memory; a 1-epoch
+   ``Trainer.fit`` on 180,000 rows (K3 once a step), VALID logloss
+   finite and AUC over 0.5.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU it exits
@@ -234,6 +250,27 @@ PREEMPT_STEP = 9                      # mid-epoch 2
 STREAM_ROWS = 131_072                 # rows of the phase's TSV
 STREAM_CHUNK = 32_768                 # 4 chunks of 5 steps an epoch
 STREAM_PREEMPT_STEP = 33              # epoch 2, chunk 2, its 3rd batch
+# the zoo phase: (a) the seven FM-family and DCN models of the ML-100K
+# quality protocol (docs/model_zoo.md:9-12, tools/zoo_quality.py), each
+# held to a band around its row there (JAX on the CPU: TEST logloss, AUC)
+# of the xDeepFM anchor's widths (bench.py:251: 0.575-0.615, 0.718-0.748
+# around 0.594 / 0.733)
+ZOO_ROWS = {"fm": (0.6275, 0.6920), "deepfm": (0.6265, 0.6970), "dcn": (0.6217, 0.7007),
+            "fwfm": (0.6221, 0.7029), "wide_deep": (0.6315, 0.6902), "nfm": (0.6508, 0.6690),
+            "afm": (0.6614, 0.6577)}
+ZOO_LOGLOSS_BAND, ZOO_AUC_BAND = 0.02, 0.015
+# (b) dcn_paper_criteo: the DCN paper's Criteo setting (arXiv:1708.05123
+# section 4.3: 2 deep layers of 1024, 6 cross layers, batch 512, Adam;
+# embedding size 6 * cardinality ** 0.25 = 107 for the 100,001-row hashed
+# tables) on the bench's 26 x 100,000-bucket hashed fields and 13 dense
+DCN_HP = {"learning_rate": 1e-3, "optimizer": "adam", "embedding_size": 107,
+          "deep_hidden_units": (1024, 1024), "deep_dropout": (1.0, 1.0, 1.0),
+          "deep_activation": "relu", "cross_layer_num": 6}
+DCN_BATCH = 512
+DCN_SERVE_ROWS = 65_536
+DCN_SERVE_BATCH = 8192
+DCN_FIT_ROWS = 200_000  # the Criteo example's rows, split 90/10
+DCN_PRED_TOL = 1e-5     # card against CPU: f32 sums in another order, TF32 off
 
 
 def log(msg):
@@ -1475,10 +1512,11 @@ def rel_err(ref, got):
     return (got - ref).abs().max().item() / (scale or 1.0)
 
 
-def recorded_grads(model, params, ub, w, card=None):
-    """Step-1 gradients of an xDeepFM whose CIN takes the chain with saved
-    fmaps, recording each DNN layer's pre-activation and the CIN's fmaps
-    (on the CPU). With ``card``, another run's record: where this run's
+def recorded_grads(model, params, ub, w, card=None, names=None):
+    """Step-1 gradients of a model with a DNN and, if it has a CIN, one
+    that takes the chain with saved fmaps, recording each DNN layer's
+    pre-activation and the CIN's fmaps (on the CPU); ``names``: the params
+    are in stacked storage. With ``card``, another run's record: where this run's
     pre-activation or fmap has the other sign than the card's, the
     activation (piecewise linear through 0) is taken on the card's side of
     0, and its derivative with it; every value is this run's own but the
@@ -1512,10 +1550,11 @@ def recorded_grads(model, params, ub, w, card=None):
 
     model.dnn.activation, cin_chain.cin_chain_fwd = dnn_act, fwd
     try:
-        grads = loss_and_grads(model, params, ub, w)[1]
+        grads = loss_and_grads(model, params, ub, w, names=names)[1]
     finally:
         model.dnn.activation, cin_chain.cin_chain_fwd = real_act, real_fwd
-    check(len(seen["dnn"]) == len(model.dnn.hidden_units) and seen["cin"],
+    check(len(seen["dnn"]) == len(model.dnn.hidden_units)
+          and bool(seen["cin"]) == hasattr(model, "cin"),
           "the step did not run the DNN and the CIN chain with saved fmaps")
     return grads, seen
 
@@ -2122,6 +2161,254 @@ def phase_resilience(device):
     return {"fit": fit_counts, "fit_stream": stream_counts}
 
 
+@contextlib.contextmanager
+def step_events():
+    """A CUDA event recorded before the first and after every
+    ``Trainer.fit_on_batch`` of the block, the loop of ``Trainer.fit``;
+    yields the list."""
+    import torch
+
+    from recman_tpu_torch.training import Trainer
+
+    events = []
+    inner = Trainer.fit_on_batch
+
+    def timed(self, *a, **k):
+        if not events:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        out = inner(self, *a, **k)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return out
+
+    Trainer.fit_on_batch = timed
+    try:
+        yield events
+    finally:
+        Trainer.fit_on_batch = inner
+
+
+def lookup_launches(model):
+    """Segment-sum launches a train step makes under ``grad_kernel("segmat")``
+    with per-table storage, from the schema: the packed lookup groups its
+    tables by (table shape, id shape); a group of one runs K6, a larger one
+    K3."""
+    import collections
+
+    from recman_tpu_torch.features import MultiValCsvFeat, MultiValSparseFeat
+
+    groups = collections.Counter(
+        (f.feat_size, isinstance(f, (MultiValCsvFeat, MultiValSparseFeat)))
+        for f in model.packed.packable)
+    return {"K6": sum(n == 1 for n in groups.values()), "K3": sum(n > 1 for n in groups.values())}
+
+
+def phase_zoo(device):
+    """The FM family and DCN: (a) the seven models of the ML-100K quality
+    protocol through ``examples.model_zoo_ml.run_model`` under "segmat",
+    each in its band, with its launches; (b) dcn_paper_criteo: serving,
+    step-1 gradients and a 4-step trace against the CPU, 32 timed stacked
+    steps, a 1-epoch fit. Returns the launches of (a) and (b)."""
+    import torch
+
+    from recman_tpu_torch.data import (
+        create_criteo_features, get_ml_dataset, synthetic_criteo_arrays,
+    )
+    from recman_tpu_torch.examples.model_zoo_ml import RANDOM_SEED, run_model
+    from recman_tpu_torch.models import DCN
+    from recman_tpu_torch.ops.embedding import grad_kernel
+    from recman_tpu_torch.serving import Predictor
+    from recman_tpu_torch.training import (
+        LogLoss, StreamingAUC, Trainer, TrainState, batch_indices, create_optimizer,
+        gather_batch, make_train_step_stacked, pack_dataset, stack_table_params, unpack_batch,
+    )
+
+    card = card_line()
+    # (a) ML-100K, the reference's protocol, counts from 0 around each run
+    t0 = time.perf_counter()
+    train, valid, _, domains = get_ml_dataset(frac=0.5, random_seed=RANDOM_SEED)
+    steps = len(train["label"]) // 128 + 1
+    zoo_counts, rows = {}, {}
+    for name, (ref_ll, ref_auc) in ZOO_ROWS.items():
+        # numpy's global generator draws the epoch's shuffle seed (the
+        # reference's quirk): seeded as the anchor seeds it, so a run repeats
+        np.random.seed(RANDOM_SEED)
+        reset_counts()
+        t1 = time.perf_counter()
+        with grad_kernel("segmat"), scatter_counter() as scatters, step_events() as events:
+            trainer, (logloss, auc) = run_model(name, device=device)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        counts = kernel_counts()
+        check(trainer.device == device and all(v.is_cuda for v in trainer.params.values()),
+              f"{name} did not train on the GPU")
+        per_step = lookup_launches(trainer.model)
+        expected = {k: 0 for k in counts}
+        expected.update({k: n * steps for k, n in per_step.items()})
+        check_counts(counts, expected, f"{name} run_model (segmat)")
+        check(scatters[0] == 0, f"{name}: index_add_ reached {scatters[0]} times under segmat")
+        check(len(events) == steps + 1, f"{name}: {len(events) - 1} steps timed, expected {steps}")
+        epoch_s = events[0].elapsed_time(events[-1]) / 1e3
+        step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+        rows[name] = (logloss, auc)
+        zoo_counts[name] = counts
+        log(f"zoo {name} (GPU, segmat): TEST logloss {logloss:.4f} auc {auc:.4f} (JAX CPU row "
+            f"{ref_ll:.4f} / {ref_auc:.4f}); epoch {epoch_s:.3f} s for {steps} steps, step "
+            f"(CUDA events, median) {step_ms:.4f} ms; run_model {run_s:.1f} s; launches "
+            f"{ {k: v for k, v in counts.items() if v} } = {per_step} a step; index_add_ 0")
+    for name, (ref_ll, ref_auc) in ZOO_ROWS.items():
+        logloss, auc = rows[name]
+        check(abs(logloss - ref_ll) <= ZOO_LOGLOSS_BAND,
+              f"{name} TEST logloss {logloss} outside {ref_ll} +- {ZOO_LOGLOSS_BAND}")
+        check(abs(auc - ref_auc) <= ZOO_AUC_BAND,
+              f"{name} TEST auc {auc} outside {ref_auc} +- {ZOO_AUC_BAND}")
+    log(f"zoo ML-100K: all {len(ZOO_ROWS)} models within their bands ({time.perf_counter() - t0:.1f}"
+        f" s) [{card}]")
+
+    # (b) dcn_paper_criteo: serving on the card, against the CPU
+    t0 = time.perf_counter()
+    model = DCN(create_criteo_features(num_buckets=NUM_BUCKETS), DCN_HP)
+    names = model.packed.stackable()
+    check(names is not None and len(names) == 26, "dcn_paper_criteo is not stackable")
+    check(model.dnn.input_dim == 26 * 107 + 13 and model.cross.num_layers == 6
+          and model.dnn.hidden_units == (1024, 1024), "dcn_paper_criteo widths")
+    params = model.init_params(torch.Generator().manual_seed(0), device)
+    n_params = sum(v.numel() for v in params.values())
+    data = synthetic_criteo_arrays(DCN_SERVE_ROWS, num_buckets=NUM_BUCKETS, seed=2019)
+    data.pop("y")
+    predictor = Predictor(model, params, batch_size=DCN_SERVE_BATCH, device=device)
+    preds = predictor.predict(data)
+    torch.cuda.synchronize()
+    check(preds.shape == (DCN_SERVE_ROWS,) and bool(np.isfinite(preds).all())
+          and bool(((preds > 0) & (preds < 1)).all()), "dcn predictions")
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        predictor.predict(data)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    wall = statistics.median(walls)
+    params_cpu = {k: v.cpu() for k, v in params.items()}
+    batch_cpu = {k: torch.as_tensor(v[:DCN_SERVE_BATCH]) for k, v in data.items()}
+    with torch.inference_mode():
+        preds_cpu = model.apply(params_cpu, batch_cpu).numpy()
+    dp = float(np.abs(preds_cpu - preds[:DCN_SERVE_BATCH]).max())
+    check(dp <= DCN_PRED_TOL, f"dcn GPU vs CPU first batch: max|dp| {dp} > {DCN_PRED_TOL}")
+    log(f"dcn_paper_criteo serving: {n_params} params ({4 * n_params / 1e9:.2f} GB f32), x0 "
+        f"{model.dnn.input_dim} wide; predict {DCN_SERVE_ROWS} rows {wall * 1e3:.3f} ms (median "
+        f"of 3), {DCN_SERVE_ROWS / wall:.1f} examples/s; GPU vs CPU, first batch of "
+        f"{DCN_SERVE_BATCH}: max|dp| {dp:.3e} [{card}]")
+    del predictor, params_cpu
+
+    # training in stacked storage: step 1 and a 4-step trace against the CPU
+    opt = create_optimizer("adam", DCN_HP["learning_rate"])
+    sparams, names = stack_table_params(model, params)
+    del params
+    n_rows = (TIMED_STEPS + 4) * DCN_BATCH
+    packed, layout = pack_dataset(synthetic_criteo_arrays(n_rows, num_buckets=NUM_BUCKETS, seed=11))
+    idx_np = batch_indices(n_rows, DCN_BATCH, shuffle_seed=3)
+    idx_np = idx_np[(idx_np >= 0).all(axis=1)]
+    d = {k: torch.as_tensor(v).to(device) for k, v in packed.items()}
+    idx = torch.as_tensor(idx_np).to(device)
+    batch, w = gather_batch(d, idx[0])
+    ub = unpack_batch(batch, layout)
+    reset_counts()
+    g_gpu, seen_gpu = recorded_grads(model, sparams, ub, w, names=names)
+    check_counts(kernel_counts(), {"K3": 1, "K6": 0, "K7": 0}, "dcn step 1")
+
+    def trace(p, dd, ix):
+        state = TrainState(p, opt.init(p), 0, None)
+        return make_train_step_stacked(model, opt, CPU_STEPS, names)(state, dd, ix, layout)[1]
+
+    tg = trace(sparams, d, idx).cpu().numpy()
+    t1 = time.perf_counter()
+    p_cpu = {k: v.cpu() for k, v in sparams.items()}
+    ub_cpu = {k: v.cpu() for k, v in ub.items()}
+    g_cpu, seen_cpu = recorded_grads(model, p_cpu, ub_cpu, w.cpu(), names=names)
+    g_signs = recorded_grads(model, p_cpu, ub_cpu, w.cpu(), card=seen_gpu, names=names)[0]
+    tc = trace(p_cpu, {k: torch.as_tensor(v) for k, v in packed.items()},
+               torch.as_tensor(idx_np)).numpy()
+    cpu_s = time.perf_counter() - t1
+    del p_cpu
+    g_gpu = {k: v.cpu() for k, v in g_gpu.items()}
+    plain_rel = max(rel_err(g_cpu[k], g_gpu[k]) for k in g_cpu)
+    flips = sign_flips(seen_cpu["dnn"], seen_gpu["dnn"], DNN_Z_TOL, "dcn step 1 dnn, GPU vs CPU",
+                       near_tol=DNN_Z_TOL)
+    rel, worst = grads_match(g_signs, g_gpu, "dcn step-1 grad GPU vs CPU on the card's signs")
+    max_d, final_rel = trace_match(tg, tc, "dcn loss trace")
+    log(f"dcn_paper_criteo training GPU vs CPU (CPU {cpu_s:.1f} s): step-1 grads of "
+        f"{len(g_gpu)} leaves, worst max|d|/max|ref| {plain_rel:.3e} as run, {rel:.3e} ({worst}) "
+        f"on the card's signs; relu derivatives read on the other side of 0: {flips} of "
+        f"{sum(z.numel() for z in seen_cpu['dnn'])}; trace GPU {tg.tolist()} CPU {tc.tolist()}: "
+        f"max|d| {max_d:.3e}, final rel {final_rel:.3e}")
+    del g_gpu, g_cpu, g_signs, seen_gpu, seen_cpu
+
+    # TIMED_STEPS stacked steps, counts from 0
+    step = make_train_step_stacked(model, opt, 1, names)
+    state = TrainState(sparams, opt.init(sparams), 0, None)
+    for i in range(3):
+        state, _ = step(state, d, idx[i:i + 1], layout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    losses = []
+    t1 = time.perf_counter()
+    events[0].record()
+    for i in range(TIMED_STEPS):
+        j = i % len(idx_np)
+        state, loss = step(state, d, idx[j:j + 1], layout)
+        losses.append(loss)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    dcn_counts = kernel_counts()
+    check_counts(dcn_counts, {k: TIMED_STEPS * (k == "K3") for k in dcn_counts},
+                 f"dcn {TIMED_STEPS} stacked steps")
+    check(bool(torch.isfinite(torch.cat(losses)).all()), "dcn: non-finite loss in the timed steps")
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    peak = torch.cuda.max_memory_allocated()
+    box = {"state": state}
+
+    def one_step():
+        box["state"], _ = step(box["state"], d, idx[:1], layout)
+
+    kernel_ms = profile_device(one_step, step_ms, "dcn_paper_criteo train steps", n=3)
+    log(f"dcn_paper_criteo train steady: {TIMED_STEPS} stacked steps at batch {DCN_BATCH}, "
+        f"launches K3 {dcn_counts['K3']}; step (CUDA events, median) {step_ms:.4f} ms, "
+        f"{DCN_BATCH / step_ms * 1e3:.1f} examples/s; wall {wall * 1e3 / TIMED_STEPS:.3f} ms/step; "
+        f"busy share {kernel_ms / step_ms if kernel_ms else 'not measured'}; peak memory "
+        f"{peak / 1e9:.3f} GB [{card}]")
+    del state, box, d, sparams
+
+    # a 1-epoch Trainer.fit, per-table storage (K3 once a step)
+    arrays = synthetic_criteo_arrays(DCN_FIT_ROWS, num_buckets=NUM_BUCKETS, seed=2019)
+    n_train = int(0.9 * DCN_FIT_ROWS)
+    tr_x = {k: v[:n_train] for k, v in arrays.items() if k != "y"}
+    va_x = {k: v[n_train:] for k, v in arrays.items() if k != "y"}
+    trainer = Trainer(DCN(create_criteo_features(num_buckets=NUM_BUCKETS), DCN_HP), DCN_HP,
+                      metrics=(LogLoss(), StreamingAUC()), epoch=1, batch_size=DCN_BATCH,
+                      random_seed=2019, device=device)
+    reset_counts()
+    t1 = time.perf_counter()
+    with step_events() as events:
+        trainer.fit(tr_x, arrays["y"][:n_train])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    fit_counts = kernel_counts()
+    fit_steps = n_train // DCN_BATCH + 1
+    check_counts(fit_counts, {k: fit_steps * (k == "K3") for k in fit_counts}, "dcn fit")
+    logloss, auc = trainer.evaluate(va_x, arrays["y"][n_train:])
+    check(np.isfinite(logloss) and auc > 0.5, f"dcn fit: VALID logloss {logloss}, auc {auc}")
+    epoch_s = events[0].elapsed_time(events[-1]) / 1e3
+    log(f"dcn_paper_criteo fit: {n_train} rows, {fit_steps} steps in {epoch_s:.3f} s (CUDA "
+        f"events, {n_train / epoch_s:.1f} examples/s), fit {fit_s:.1f} s with its evals; VALID "
+        f"logloss {logloss:.4f} auc {auc:.4f}; K3 {fit_counts['K3']} ({time.perf_counter() - t0:.1f}"
+        f" s) [{card}]")
+    return {"ml": zoo_counts, "dcn": dcn_counts}
+
+
 def kernel_record(name, source, replaces, launches, rec):
     """The kernel's entry in the ``kernels`` line. ``kernel_ms`` is the
     profile's kernel time per call where the phase profiled the kernel,
@@ -2131,7 +2418,8 @@ def kernel_record(name, source, replaces, launches, rec):
            "kernel_ms": rec.get("kernel_ms") or rec["ms"], "plain_ms": rec["plain_ms"],
            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
            "library_ms": rec["library_ms"]}
-    for extra in ("large_batch", "criteo"):  # K3 at the large-batch N, K6 at a Criteo table
+    # K3 at the large-batch N, K6 at a Criteo table, the launches of the zoo phase
+    for extra in ("large_batch", "criteo", "zoo_launches"):
         if extra in rec:
             out[extra] = rec[extra]
     return out
@@ -2185,6 +2473,11 @@ def main():
     t0 = time.perf_counter()
     resilience = phase_resilience(device)
     log(f"resilience phase {time.perf_counter() - t0:.1f} s [{card}]; launches {resilience}")
+    t0 = time.perf_counter()
+    zoo = phase_zoo(device)
+    log(f"zoo phase {time.perf_counter() - t0:.1f} s [{card}]")
+    rec["K6"]["zoo_launches"] = sum(c["K6"] for c in zoo["ml"].values())
+    rec["K3"]["zoo_launches"] = zoo["dcn"]["K3"]
 
     fwd, bwd, seg = ("recman_tpu_torch/csrc/cin_chain_fwd.cu", "recman_tpu_torch/csrc/cin_chain_bwd.cu",
                      "recman_tpu_torch/csrc/segment_matmul.cu")

@@ -41,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.cin_chain import chain_supported, cin_chain_fm, k1_unsupported_reason
 from ..ops.cin_interact import cin_interact, cin_interact_fm, pallas_cin_active
-from ..utils import glorot_normal, glorot_uniform, l2_loss
+from ..utils import glorot_normal, glorot_uniform, l2_loss, split_rng
 from .common import apply_mask, dropout, dropout_mask, resolve_activation
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -92,18 +92,19 @@ class CIN:
         self.final_size = final_size
 
     def init(self, generator, device=None) -> dict:
+        keys = split_rng(generator, len(self.cross_layer_units) + 1)
         params = {}
         h0 = self.field_nums[0]
         for i, size in enumerate(self.cross_layer_units):
             hk = self.field_nums[i]
             params[f"{self.prefix}cin_filter_{i}"] = glorot_normal(
-                generator, (h0 * hk, size), device=device
+                keys[i], (h0 * hk, size), device=device
             )
             params[f"{self.prefix}cin_bias_{i}"] = torch.zeros(
                 (size,), dtype=torch.float32, device=device
             )
         params[f"{self.prefix}cin_w"] = glorot_uniform(
-            generator, (self.final_size, 1), device=device
+            keys[-1], (self.final_size, 1), device=device
         )
         params[f"{self.prefix}cin_w0"] = torch.zeros((1,), dtype=torch.float32, device=device)
         return params

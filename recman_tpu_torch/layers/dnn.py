@@ -3,14 +3,16 @@
 Counterpart of ``recman_tpu/layers/dnn.py``: keep-probability dropout on
 the input (keep[0]) and after every activation (keep[i+1]) in training.
 The matmuls are ``torch.matmul`` in f32, as the reference leaves them to
-XLA; Dice is not ported yet.
+XLA. A hidden_units with any ``None`` entry is sized whole by the 2/3
+rule (``compute_hidden_units_s2``, reference dnn.py:52-53). Dice is not
+ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils import glorot_normal, l2_loss
+from ..utils import compute_hidden_units_s2, glorot_normal, l2_loss, split_rng
 from .common import dropout, resolve_activation
 
 
@@ -36,7 +38,7 @@ class DNN:
         assert len(hidden_units) > 0
         assert len(hidden_units) + 1 == len(dropout_keep)
         if any(u is None for u in hidden_units):
-            raise NotImplementedError("auto-sized DNN layers not ported yet")
+            hidden_units = compute_hidden_units_s2(len(hidden_units), input_dim)
         self.input_dim = input_dim
         self.hidden_units = tuple(hidden_units)
         self.dropout_keep = tuple(dropout_keep)
@@ -46,15 +48,16 @@ class DNN:
 
     def init(self, generator, device=None) -> dict:
         dims = (self.input_dim,) + self.hidden_units
+        keys = split_rng(generator, len(self.hidden_units) + 1)
         params = {}
         for i in range(len(self.hidden_units)):
             params[f"{self.prefix}dnn_layer_{i}_weights"] = glorot_normal(
-                generator, (dims[i], dims[i + 1]), device=device
+                keys[i], (dims[i], dims[i + 1]), device=device
             )
             params[f"{self.prefix}dnn_layer_{i}_bias"] = torch.zeros(
                 (dims[i + 1],), dtype=torch.float32, device=device
             )
-        params[f"{self.prefix}dnn_w"] = glorot_normal(generator, (dims[-1], 1), device=device)
+        params[f"{self.prefix}dnn_w"] = glorot_normal(keys[-1], (dims[-1], 1), device=device)
         params[f"{self.prefix}dnn_w0"] = torch.zeros((1,), dtype=torch.float32, device=device)
         return params
 

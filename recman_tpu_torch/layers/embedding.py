@@ -9,7 +9,10 @@ Counterpart of ``recman_tpu/layers/embedding.py``. Lookup by feature type:
                        padding rows zeroed                        (B, L, k)
 
 Embeddings mask padding (PAD_ID = -1, so ids >= 0 take part) and keep the
-OOV id 0. QR compositional tables (``qr_collisions``) are not ported yet.
+OOV id 0. ``apply`` concatenates every feature's lookup along the field
+axis, the plain sparse feats through one ``embedding_lookup_grouped``
+call (and their bias tables through another). QR compositional tables
+(``qr_collisions``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ from ..features import (
     SparseFeat,
     SparseValueFeat,
 )
-from ..ops.embedding import _stacked_ctx, embedding_lookup
-from ..utils import glorot_normal, l2_loss
+from ..ops.embedding import _stacked_ctx, embedding_lookup, embedding_lookup_grouped
+from ..utils import glorot_normal, l2_loss, split_rng
 
 
 def sqrtn_combine(table, ids):
@@ -72,11 +75,10 @@ class EmbeddingLayer:
 
     def init(self, generator, device=None) -> dict:
         params = {}
-        for feat in self.feats:
-            if not self._owns_table(feat):
-                continue
+        owners = [f for f in self.feats if self._owns_table(f)]
+        for sub, feat in zip(split_rng(generator, max(len(owners), 1)), owners):
             params[f"{self.prefix}{feat.name}_feat_embed"] = glorot_normal(
-                generator, (feat.feat_size, self.embedding_size), device=device
+                sub, (feat.feat_size, self.embedding_size), device=device
             )
             if self.use_bias:
                 params[f"{self.prefix}{feat.name}_feat_bias"] = torch.zeros(
@@ -113,6 +115,42 @@ class EmbeddingLayer:
         embeds = one(table)
         bias = one(bias_table) if bias_table is not None else None
         return embeds, bias
+
+    def apply(self, params, batch):
+        """Every feature's lookup, concatenated along the field axis in the
+        feats' order -> (embeds (B, F, k), bias (B, F, 1) | None), the
+        reference's ``apply`` (embedding.py:173-213). Plain sparse feats
+        take one grouped lookup, whose same-shape tables share the batched
+        backward (K3 on CUDA)."""
+        plain = [f for f in self.feats
+                 if isinstance(f, SparseFeat) and not isinstance(f, SparseValueFeat)]
+        embeds_by_name, bias_by_name = {}, {}
+        if plain:
+            ids = [batch[f.name] for f in plain]
+            rows = embedding_lookup_grouped(
+                [params[f"{self.prefix}{f.name}_feat_embed"] for f in plain], ids)
+            embeds_by_name = {f.name: r[:, None, :] for f, r in zip(plain, rows)}
+            if self.use_bias:
+                brows = embedding_lookup_grouped(
+                    [params[f"{self.prefix}{f.name}_feat_bias"][:, None] for f in plain], ids)
+                bias_by_name = {f.name: r[:, None, :] for f, r in zip(plain, brows)}
+
+        embeds, biases = [], []
+        for feat in self.feats:
+            if feat.name in embeds_by_name:
+                e, b = embeds_by_name[feat.name], bias_by_name.get(feat.name)
+            else:
+                e, b = self._lookup(params, feat, batch)
+            embeds.append(e)
+            if b is not None:
+                biases.append(b)
+        bias = torch.cat(biases, dim=1) if (self.use_bias and biases) else None
+        return torch.cat(embeds, dim=1), bias
+
+    def apply_dict(self, params, batch) -> dict:
+        """Per-feature embeddings keyed by name (DIN's query/key split,
+        reference embedding.py:215-219)."""
+        return {f.name: self._lookup(params, f, batch)[0] for f in self.feats}
 
     def l2(self, params):
         """Summed per-table L2 (reference layers.py:188-193, 263-267).

@@ -1,7 +1,14 @@
+from .afm import AFM
 from .base import Model
+from .dcn import DCN
+from .deepfm import DeepFM
+from .fm import FM
+from .fwfm import FwFM
+from .nfm import NFM
+from .wide_deep import WideDeep
 from .xdeepfm import XDeepFM
 
-MODEL_REGISTRY = {m.name: m for m in (XDeepFM,)}
+MODEL_REGISTRY = {m.name: m for m in (FM, FwFM, DeepFM, WideDeep, NFM, DCN, XDeepFM, AFM)}
 
 
 def model_class(name: str):
@@ -14,4 +21,7 @@ def model_class(name: str):
     return MODEL_REGISTRY[name]
 
 
-__all__ = ["MODEL_REGISTRY", "Model", "XDeepFM", "model_class"]
+__all__ = [
+    "AFM", "DCN", "DeepFM", "FM", "FwFM", "MODEL_REGISTRY", "Model", "NFM", "WideDeep",
+    "XDeepFM", "model_class",
+]

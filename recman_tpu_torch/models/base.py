@@ -7,9 +7,11 @@ A model owns static structure (feature schema + hparams) and exposes
     loss(params, batch, training=True, generator=None, weights=None) -> scalar
 
 Parameter names and shapes are the reference's, so a JAX param dict
-carried over by ``convert.params_from_jax`` loads as it is. ``generator``
-draws the dropout masks in training; it cannot reproduce the reference's
-``jax.random`` bits.
+carried over by ``convert.params_from_jax`` loads as it is. A
+``utils.JaxKey`` in ``init_params``'s generator's place draws the
+reference's initial params for that key. ``generator`` draws the dropout
+masks in training; it cannot reproduce the reference's ``jax.random``
+bits.
 """
 
 from __future__ import annotations
@@ -22,6 +24,12 @@ class Model:
     """Base for the ported models."""
 
     name = "model"
+    # models that need a SequenceFeat (the DIN family) set this, so that a
+    # generic runner (examples/model_zoo_ml.py) can tell them apart
+    requires_sequence = False
+    # models whose apply() takes moment_capture (Dice's batch moments,
+    # Trainer.calibrate) set this
+    supports_moment_capture = False
 
     def __init__(self, feat_dict: FeatureSet, task="classification"):
         assert task in ("classification", "regression")
@@ -51,3 +59,7 @@ class Model:
     def dense_columns(self, batch) -> list:
         """Dense inputs in schema order as (B, 1) columns."""
         return [batch[f.name][:, None] for f in self.feat_dict.dense_feats]
+
+    @staticmethod
+    def inference_dropout(keep_list):
+        return tuple(1.0 for _ in keep_list)

@@ -11,6 +11,7 @@ import torch
 
 from ..config import xDeepFMHyperParams as HP
 from ..device import resolve_device
+from ..utils import split_rng
 from ..layers import (
     CIN,
     DNN,
@@ -61,14 +62,16 @@ class XDeepFM(Model):
         self.head = PredictionLayer(task)
 
     def init_params(self, generator: torch.Generator, device=None) -> dict:
-        """Random params drawn from ``generator`` (on its own device), placed
-        on ``device`` (default CUDA; raises without a GPU)."""
+        """Random params drawn from ``generator`` (on its own device; a
+        ``utils.JaxKey`` draws the reference's), placed on ``device``
+        (default CUDA; raises without a GPU)."""
         device = resolve_device(device)
+        k_emb, k_cin, k_dnn = split_rng(generator, 3)
         params = {}
-        params.update(self.embeddings.init(generator, device))
+        params.update(self.embeddings.init(k_emb, device))
         params.update(self.linear.init(device))
-        params.update(self.cin.init(generator, device))
-        params.update(self.dnn.init(generator, device))
+        params.update(self.cin.init(k_cin, device))
+        params.update(self.dnn.init(k_dnn, device))
         params.update(self.head.init(device))
         return params
 

@@ -32,6 +32,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.embedding import stacked_tables
+from ..utils import JaxKey
 
 
 class MaskedNode(NamedTuple):
@@ -314,13 +315,21 @@ class TrainState(NamedTuple):
     generator: torch.Generator | None
 
 
-def init_state(model, optimizer, generator: torch.Generator, device=None) -> TrainState:
+def init_state(model, optimizer, generator, device=None) -> TrainState:
     """Params from ``generator`` on ``device`` (default CUDA; raises without
     a GPU unless ``device="cpu"``), zero optimizer state, step 0, and a
-    dropout generator on ``device`` seeded from ``generator``."""
+    dropout generator on ``device`` seeded from ``generator``. A
+    ``utils.JaxKey`` is split as the reference's ``init_state`` splits its
+    key, so the params are the reference's for the same key."""
     device = resolve_device(device)
-    params = model.init_params(generator, device)
-    seed = int(torch.randint(0, 2**62, (), generator=generator))
+    if isinstance(generator, JaxKey):
+        init_key, state_key = generator.split(2)
+        params = model.init_params(init_key, device)
+        hi, lo = state_key.words
+        seed = ((hi << 32) | lo) % 2**62
+    else:
+        params = model.init_params(generator, device)
+        seed = int(torch.randint(0, 2**62, (), generator=generator))
     dropout_gen = torch.Generator(device=device).manual_seed(seed)
     return TrainState(params, optimizer.init(params), 0, dropout_gen)
 

@@ -181,9 +181,9 @@ class Trainer:
     def fit_stream(self, chunks, epochs=None, shuffle_in_chunk=True, resilience=None):
         """Train over a stream of encoded host chunks ({name: array, 'y':
         ...} dicts, ``data.streaming``'s iterators) with double buffering:
-        a prefetch thread reads, packs and copies chunk c + 1 while the
-        steps of chunk c run, so the device holds at most two chunks
-        whatever the dataset's size.
+        a prefetch thread reads and packs chunk c + 1 while the steps of
+        chunk c run, then copies it to the device behind them, so the
+        device holds at most two chunks whatever the dataset's size.
 
         ``chunks``: an iterable (one pass) or a zero-arg callable returning
         a fresh iterator (required when ``epochs`` > 1 or with

@@ -1,19 +1,28 @@
 from .initializers import calc_fan, glorot_normal, glorot_uniform
+from .jax_random import JaxKey, split_rng
 from .numerics import (
     bce_per_example,
     binary_cross_entropy,
+    compute_hidden_units_s1,
+    compute_hidden_units_s2,
+    count_parameters,
     l2_loss,
     mean_squared_error,
     mse_per_example,
 )
 
 __all__ = [
+    "JaxKey",
     "bce_per_example",
     "binary_cross_entropy",
     "calc_fan",
+    "compute_hidden_units_s1",
+    "compute_hidden_units_s2",
+    "count_parameters",
     "glorot_normal",
     "glorot_uniform",
     "l2_loss",
     "mean_squared_error",
     "mse_per_example",
+    "split_rng",
 ]

@@ -7,6 +7,8 @@ differ from ``jax.random`` for the same seed, so parity with the JAX
 package goes through ``convert.params_from_jax``, not through the seed.
 
 Values are drawn on the generator's device and then moved to ``device``.
+A ``utils.jax_random.JaxKey`` in the generator's place draws the values
+``jax.random`` draws from that key (on the host).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import math
 
 import numpy as np
 import torch
+
+from .jax_random import JaxKey, truncated_normal, uniform
 
 
 def calc_fan(weight_shape):
@@ -38,6 +42,9 @@ def glorot_normal(generator: torch.Generator, shape, gain=1.0, device=None):
     """Truncated-normal Glorot at ±2σ (reference utils.py:180-183)."""
     fan_in, fan_out = calc_fan(shape)
     std = gain * math.sqrt(2.0 / (fan_in + fan_out))
+    if isinstance(generator, JaxKey):
+        out = np.float32(std) * truncated_normal(generator, -2.0, 2.0, tuple(shape))
+        return torch.from_numpy(out).to(device)
     out = _empty(generator, shape)
     torch.nn.init.trunc_normal_(
         out, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std, generator=generator
@@ -49,5 +56,7 @@ def glorot_uniform(generator: torch.Generator, shape, gain=1.0, device=None):
     """Uniform Glorot (reference utils.py:186-189)."""
     fan_in, fan_out = calc_fan(shape)
     b = gain * math.sqrt(6.0 / (fan_in + fan_out))
+    if isinstance(generator, JaxKey):
+        return torch.from_numpy(uniform(generator, tuple(shape), -b, b)).to(device)
     out = _empty(generator, shape).uniform_(-b, b, generator=generator)
     return out.to(device) if device is not None else out

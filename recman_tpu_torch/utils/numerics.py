@@ -1,5 +1,6 @@
-"""Loss and regularization helpers (counterpart of
-``recman_tpu/utils/numerics.py:8-44``)."""
+"""Loss, regularization and sizing helpers (counterpart of
+``recman_tpu/utils/numerics.py:8-62``; ``split_train_test`` takes a
+pandas DataFrame and is not ported)."""
 
 from __future__ import annotations
 
@@ -37,3 +38,21 @@ def binary_cross_entropy(y_true, y_pred, weights=None, eps=1e-7) -> torch.Tensor
 def mean_squared_error(y_true, y_pred, weights=None) -> torch.Tensor:
     """Regression loss, weighted like ``binary_cross_entropy``."""
     return _weighted_mean(mse_per_example(y_true, y_pred), weights)
+
+
+def compute_hidden_units_s1(num_hidden_layers, input_neurons, output_neurons=1):
+    """Geometric-pyramid sizing (reference utils.py:126-132). Python's
+    ``round``, which rounds halves to even, as the reference's."""
+    r = (input_neurons + output_neurons) ** (1 / (num_hidden_layers + 1))
+    return [round(output_neurons * (r**i)) for i in range(num_hidden_layers, 0, -1)]
+
+
+def compute_hidden_units_s2(num_hidden_layers, input_neurons, output_neurons=1):
+    """2/3-rule sizing of the ``None`` entries of a DNN's hidden_units
+    (reference utils.py:135-139)."""
+    return [round((input_neurons + output_neurons) * 2 / 3) for _ in range(num_hidden_layers)]
+
+
+def count_parameters(params: dict) -> int:
+    """Total parameter count over a flat params dict (reference utils.py:216-225)."""
+    return sum(int(v.numel()) for v in params.values())

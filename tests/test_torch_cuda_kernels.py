@@ -31,7 +31,9 @@ Tolerances, per tensor, of its largest element:
   same terms in another order; each bit-equal on two calls (no atomics),
   K7 bit-equal to K3 and K6 to K7 at one table (the same sums).
 - One stacked train step, GPU against CPU: loss 1e-5 relative, every
-  gradient 1e-3 (the K2 rounding above).
+  gradient 1e-3 (the K2 rounding above); one ML-100K step of each
+  FM-family model and DCN the same (K6's f32 sums in another order, the
+  DNN's relu read on either side of 0).
 """
 
 import numpy as np
@@ -609,6 +611,39 @@ def test_ml_train_step_on_card_launches_k6_per_field(cuda):
             results[str(dev)] = loss_and_grads(model, p, unpack_batch(batch, layout), w)
         after = (cin_chain.LAUNCHES, cin_chain.BWD_LAUNCHES, segment_matmul.ROWS_LAUNCHES)
         assert [a - c for a, c in zip(after, counts)] == ([0, 0, 0] if dev == "cpu" else [1, 1, 6])
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(cuda)]
+    assert abs(l_gpu.item() - l_cpu.item()) <= 1e-5 * abs(l_cpu.item())
+    for k in g_cpu:
+        _close(g_cpu[k], g_gpu[k].cpu(), 1e-3)
+
+
+@pytest.mark.parametrize("name", ["fm", "deepfm", "dcn", "fwfm", "wide_deep", "nfm", "afm"])
+def test_zoo_train_step_on_card_launches_k6_per_field(cuda, name):
+    """One ML-100K train step of each FM-family model and DCN under
+    "segmat", every keep 1: K6 once per embedded field and no other kernel,
+    and the loss and every gradient against the same step on the CPU."""
+    from recman_tpu_torch.data import concat_rows, create_ml_features, get_ml_dataset
+    from recman_tpu_torch.models import model_class
+    from recman_tpu_torch.ops import embedding as emb
+    from recman_tpu_torch.training import gather_batch, pack_dataset, unpack_batch
+    from recman_tpu_torch.training.train_step import loss_and_grads
+
+    train, valid, _, domains = get_ml_dataset(frac=0.05)
+    fs = create_ml_features(concat_rows(train, valid), domains)
+    model = model_class(name)(fs, {"deep_dropout": (1.0, 1.0, 1.0)})
+    params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    data, layout = pack_dataset(fs.transform(train, y=train["label"]))
+    idx = torch.arange(128)
+    results = {}
+    for dev in ("cpu", cuda):
+        tdata = {k: torch.as_tensor(v).to(dev) for k, v in data.items()}
+        batch, w = gather_batch(tdata, idx.to(dev))
+        p = {k: v.to(dev) for k, v in params.items()}
+        counts = (cin_chain.LAUNCHES, segment_matmul.LAUNCHES, segment_matmul.ROWS_LAUNCHES)
+        with emb.fused_grad(True), emb.grad_kernel("segmat"):
+            results[str(dev)] = loss_and_grads(model, p, unpack_batch(batch, layout), w)
+        after = (cin_chain.LAUNCHES, segment_matmul.LAUNCHES, segment_matmul.ROWS_LAUNCHES)
+        assert [a - c for a, c in zip(after, counts)] == ([0, 0, 0] if dev == "cpu" else [0, 0, 6])
     (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(cuda)]
     assert abs(l_gpu.item() - l_cpu.item()) <= 1e-5 * abs(l_cpu.item())
     for k in g_cpu:
