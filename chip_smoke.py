@@ -57,8 +57,9 @@ Phases, each failing the script (non-zero exit) when it fails:
 
 The kernels phase also holds K6 (segment_matmul.cu's row-major form, on
 K3's sums in one launch) against its twin and, bit for bit, against K7 at
-T = 1 at ML-100K's genres geometry and at one Criteo table, with its host
-cost beside index_add_'s and its profile,
+T = 1 at ML-100K's genres geometry, at one Criteo table and at the
+sequence family's history (128 x 10 ids into item_id's 1,574 rows), with
+its host cost beside index_add_'s and its profile,
 and K4 (cin_interact_fwd.cu) and K5 (cin_interact_bwd.cu), one CIN
 layer's forward and backward, against their twins at the xDeepFM paper's
 Criteo layers (B 4096, D 10; layer 0, layers 1-2 and a final layer of
@@ -135,6 +136,24 @@ bit-equal on two calls.
    with K3 once a step, a profile and the peak memory; a 1-epoch
    ``Trainer.fit`` on 180,000 rows (K3 once a step), VALID logloss
    finite and AUC over 0.5.
+11. the behaviour-sequence family: DIN, BST and DIEN at their defaults (k
+   8, history max_len 10; DIN's attention (80, 40) and DNN (80, 40) with
+   Dice, BST 1 block of 2 heads and FF 32, DIEN GRU 8 and DNN (80, 40)
+   with Dice). (a) Each through ``run_model`` on MovieLens-100K as in 10
+   (a), with the history feature, under ``grad_kernel("segmat")``: TEST
+   logloss within 0.02 and AUC within 0.015 of its ``docs/model_zoo.md``
+   row; K6 seven times a step (the history looks up item_id's table a
+   second time), no other kernel, never ``index_add_``; the epoch and its
+   median step by CUDA events, a 3-step profile. (b) Card against CPU
+   from the seed-2019 params on the first batch of 128: step-1 gradients
+   (BST's leaky_relu read on the card's side of 0, its flips counted), a
+   4-step trace, ``Trainer.calibrate`` on 8,192 rows and the predictions
+   of 2,048 valid rows after it. (c) DIN's calibrated params served by
+   ``Predictor`` on ``ua.test`` at batch 128 and 1,024: within 1e-6 of
+   each other, and the predict rate. (d) ``examples.din_synthetic.main``
+   for din (3 epochs), bst and dien (15) under "segmat": VALID logloss
+   and AUC within the zoo's bands of the JAX example's CPU readings
+   (``SYNTH_ROWS``), K6 twice a step.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU it exits
@@ -271,6 +290,22 @@ DCN_SERVE_ROWS = 65_536
 DCN_SERVE_BATCH = 8192
 DCN_FIT_ROWS = 200_000  # the Criteo example's rows, split 90/10
 DCN_PRED_TOL = 1e-5     # card against CPU: f32 sums in another order, TF32 off
+# the sequence phase: (a) DIN, BST and DIEN through run_model at their
+# hparam defaults, held to the docs/model_zoo.md rows with the zoo's bands
+SEQ_ROWS = {"din": (0.6077, 0.7149), "bst": (0.6104, 0.7097), "dien": (0.6045, 0.7209)}
+SEQ_BATCH = 128
+SEQ_PRED_TOL = 1e-5    # (b) predictions after calibrate, card against CPU
+SEQ_MOMENT_TOL = 1e-5  # of max|ref|: the moments calibrate writes, card against CPU
+SEQ_SERVE_TOL = 1e-6   # (c) the same rows served at batch 128 and at 1,024
+# (d) examples.din_synthetic.main: (epochs, VALID logloss, AUC) of the JAX
+# package's own example on the CPU, each held to the zoo's bands. Read with
+# numpy's global generator seeded 2019 before each run:
+#   JAX_PLATFORMS=cpu python -c "import numpy as np; np.random.seed(2019);
+#   from recman_tpu.examples.din_synthetic import main; print(main(epoch=3,
+#   model_name='din')[1])"   (epoch 15 for bst and dien)
+SYNTH_ROWS = {"din": (3, 0.5060006467483583, 0.8664864458962229),
+              "bst": (15, 0.5379909579748231, 0.8724437435858927),
+              "dien": (15, 0.4248114416757104, 0.8875622637731221)}
 
 
 def log(msg):
@@ -779,10 +814,13 @@ def phase_kernels(device):
         sids, sg, v, k_emb, n_vec), ms, "K7 calls [full] (its passes by kernel)", n=3)
 
     # K6: ML-100K's genres ids of the first train batch (the longest run
-    # of the anchor's step), then one Criteo table of the same 8192 rows
+    # of the anchor's step), one Criteo table of the same 8192 rows, then
+    # the sequence family's history ids of its first train batch
     genres = ml_genres_ids()
+    history, item_v = ml_history_ids()
     for label, ids, v, c in (("genres", genres, 20, 9),
-                             ("criteo", full_ids[0], vocab_full, HPARAMS["embedding_size"] + 1)):
+                             ("criteo", full_ids[0], vocab_full, HPARAMS["embedding_size"] + 1),
+                             ("history", history, item_v, 8)):
         sids = torch.from_numpy(np.sort(ids).astype(np.int32)).to(device)
         sg = torch.randn((len(ids), c), generator=torch.Generator().manual_seed(13)).to(device)
         got = segment_matmul.segment_matmul_from_sorted(sids, sg, v)
@@ -819,7 +857,7 @@ def phase_kernels(device):
         if label == "genres":
             rec["K6"] = r
         else:
-            rec["K6"]["criteo"] = dict(r, n=len(ids), v=v, c=c)
+            rec["K6"][label] = dict(r, n=len(ids), v=v, c=c)
         del got, again, k7, ref
     return rec
 
@@ -981,6 +1019,32 @@ def phase_serving(device):
         f"{BATCH / batch_ms * 1e3:.1f} examples/s")
     profile_device(forward, batch_ms, "batch forwards")
     return launches
+
+
+def ml_seq_tables():
+    """run_model's sequence tables: the splits with the history feature,
+    the sequence schema, the encoded splits. Returns (tables, fs, x)."""
+    from recman_tpu_torch.data import (
+        add_history_feature, concat_rows, create_ml_sequence_features, get_ml_dataset,
+    )
+
+    train, valid, test, domains, index = get_ml_dataset(frac=0.5, random_seed=ML_SEED,
+                                                        return_index=True)
+    tables = add_history_feature(train, valid, test, index=index)
+    fs = create_ml_sequence_features(concat_rows(*tables[:2]), domains)
+    return tables, fs, [fs.transform(t) for t in tables]
+
+
+def ml_history_ids():
+    """The history ids of the sequence family's first train batch (rows
+    shuffled with seed 2019), PAD clamped to 0 as the lookup does:
+    N = 128 x 10 rows of item_id's table. Returns (ids, V)."""
+    from recman_tpu_torch.training import batch_indices
+
+    _, fs, (x_train, _, _) = ml_seq_tables()
+    hist = x_train["hist_items"]
+    rows = batch_indices(len(hist), SEQ_BATCH, shuffle_seed=ML_SEED)[0]
+    return np.maximum(hist[rows], 0).reshape(-1), fs["item_id"].feat_size
 
 
 def profile_device(fn, unit_ms, what, n=5):
@@ -2193,14 +2257,21 @@ def lookup_launches(model):
     """Segment-sum launches a train step makes under ``grad_kernel("segmat")``
     with per-table storage, from the schema: the packed lookup groups its
     tables by (table shape, id shape); a group of one runs K6, a larger one
-    K3."""
+    K3. A model with no packed layer (the sequence family) looks up each
+    feature on its own (``EmbeddingLayer.apply_dict``): K6 once per
+    feature, the history's into item_id's table among them, and once more
+    per feature for its bias table where the layer has them."""
     import collections
 
     from recman_tpu_torch.features import MultiValCsvFeat, MultiValSparseFeat
 
+    packed = getattr(model, "packed", None)
+    if packed is None:
+        emb = model.embeddings
+        return {"K6": len(emb.feats) * (2 if emb.use_bias else 1), "K3": 0}
     groups = collections.Counter(
         (f.feat_size, isinstance(f, (MultiValCsvFeat, MultiValSparseFeat)))
-        for f in model.packed.packable)
+        for f in packed.packable)
     return {"K6": sum(n == 1 for n in groups.values()), "K3": sum(n > 1 for n in groups.values())}
 
 
@@ -2409,6 +2480,233 @@ def phase_zoo(device):
     return {"ml": zoo_counts, "dcn": dcn_counts}
 
 
+def seq_recorded_grads(model, params, ub, w, card=None):
+    """Step-1 gradients of a sequence model, recording the pre-activation of
+    each piecewise-linear activation it runs (BST's encoders' FFN and its
+    DNN; Dice is smooth and records nothing), on the CPU. With ``card``,
+    another run's record: where this run's pre-activation has the other
+    sign, the activation and its derivative are taken on the card's side
+    of 0, as ``recorded_grads`` does. Returns (grads, [pre-activations])."""
+    import torch
+
+    from recman_tpu_torch.training.train_step import loss_and_grads
+
+    holders = [enc for encs in getattr(model, "encoders", {}).values() for enc in encs]
+    holders += [model.dnn] if model.dnn.activation is not None else []
+    seen = []
+
+    def wrap(act):
+        def recorded(z):
+            i = len(seen)
+            seen.append(z.detach().cpu())
+            if card is None:
+                return act(z)
+            pos = card[i].to(z.device) > 0
+            return torch.where(pos == (z > 0), act(z), torch.where(pos, z, -act(-z)))
+        return recorded
+
+    real = [h.activation for h in holders]
+    for h in holders:
+        h.activation = wrap(h.activation)
+    try:
+        grads = loss_and_grads(model, params, ub, w)[1]
+    finally:
+        for h, act in zip(holders, real):
+            h.activation = act
+    return grads, seen
+
+
+def phase_seq(device):
+    """The behaviour-sequence family: (a) DIN, BST and DIEN through
+    ``run_model`` under "segmat", each in its band, with its launches, step
+    time and busy share; (b) per model, card against CPU on one batch from
+    the seed-2019 params: step-1 gradients, a 4-step trace, ``calibrate``
+    and the predictions after it; (c) DIN served by ``Predictor`` at two
+    batch sizes; (d) ``examples.din_synthetic.main`` for each model.
+    Returns the launches of (a)."""
+    import torch
+
+    from recman_tpu_torch.examples import din_synthetic
+    from recman_tpu_torch.examples.model_zoo_ml import RANDOM_SEED, run_model
+    from recman_tpu_torch.ops.embedding import grad_kernel
+    from recman_tpu_torch.serving import Predictor
+    from recman_tpu_torch.training import (
+        Trainer, TrainState, batch_indices, gather_batch, init_state, make_train_step,
+        pack_dataset, unpack_batch,
+    )
+    from recman_tpu_torch.utils import JaxKey
+
+    card = card_line()
+    (train, valid, test), _, (x_train, x_valid, x_test) = ml_seq_tables()
+    n_train = len(train["label"])
+    steps = n_train // SEQ_BATCH + 1
+    idx_np = batch_indices(n_train, SEQ_BATCH, shuffle_seed=ML_SEED)
+    packed, layout = pack_dataset(dict(x_train, y=train["label"].astype(np.float32)))
+    data = {dev: {k: torch.as_tensor(v).to(dev) for k, v in packed.items()}
+            for dev in {device, torch.device("cpu")}}
+
+    # (a) the ML-100K rows, counts from 0 around each run
+    t0 = time.perf_counter()
+    seq_counts, rows, trainers = {}, {}, {}
+    for name, (ref_ll, ref_auc) in SEQ_ROWS.items():
+        np.random.seed(RANDOM_SEED)
+        reset_counts()
+        t1 = time.perf_counter()
+        with grad_kernel("segmat"), scatter_counter() as scatters, step_events() as events:
+            trainer, (logloss, auc) = run_model(name, device=device)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        counts = kernel_counts()
+        check(trainer.device == device and all(v.is_cuda for v in trainer.params.values()),
+              f"{name} did not train on the GPU")
+        check(trainer.model.embeddings.embedding_size == 8 and
+              trainer.model.feat_dict["hist_items"].max_len == 10, f"{name}: k or max_len")
+        per_step = lookup_launches(trainer.model)
+        check(per_step == {"K6": 7, "K3": 0}, f"{name}: {per_step} a step, expected K6 7")
+        expected = {k: 0 for k in counts}
+        expected["K6"] = per_step["K6"] * steps
+        check_counts(counts, expected, f"{name} run_model (segmat)")
+        check(scatters[0] == 0, f"{name}: index_add_ reached {scatters[0]} times under segmat")
+        check(len(events) == steps + 1, f"{name}: {len(events) - 1} steps timed, expected {steps}")
+        epoch_s = events[0].elapsed_time(events[-1]) / 1e3
+        step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+        box = {"i": 0}
+        d_card, idx_card = data[device], torch.as_tensor(idx_np).to(device)
+
+        def one_step(trainer=trainer, d=d_card, ix=idx_card):
+            with grad_kernel("segmat"):
+                trainer.fit_on_batch(d, ix[box["i"] % steps], layout)
+            box["i"] += 1
+
+        kernel_ms = profile_device(one_step, step_ms, f"{name} train steps", n=3)
+        rows[name], seq_counts[name], trainers[name] = (logloss, auc), counts, trainer
+        log(f"seq {name} (GPU, segmat): TEST logloss {logloss:.4f} auc {auc:.4f} (row "
+            f"{ref_ll:.4f} / {ref_auc:.4f}); epoch {epoch_s:.3f} s for {steps} steps, step "
+            f"(CUDA events, median) {step_ms:.4f} ms, busy share "
+            f"{kernel_ms / step_ms if kernel_ms else 'not measured'}; run_model {run_s:.1f} s; "
+            f"launches { {k: v for k, v in counts.items() if v} } = {per_step} a step; "
+            f"index_add_ 0 [{card}]")
+    for name, (ref_ll, ref_auc) in SEQ_ROWS.items():
+        logloss, auc = rows[name]
+        check(abs(logloss - ref_ll) <= ZOO_LOGLOSS_BAND,
+              f"{name} TEST logloss {logloss} outside {ref_ll} +- {ZOO_LOGLOSS_BAND}")
+        check(abs(auc - ref_auc) <= ZOO_AUC_BAND,
+              f"{name} TEST auc {auc} outside {ref_auc} +- {ZOO_AUC_BAND}")
+    log(f"seq ML-100K: all {len(SEQ_ROWS)} models within their bands "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # (b) card against CPU on the first shuffled batch, from the seed's params
+    t0 = time.perf_counter()
+    x_cal = {k: v[:8192] for k, v in x_train.items()}
+    x_val = {k: v[:2048] for k, v in x_valid.items()}
+    for name in SEQ_ROWS:
+        model = trainers[name].model
+        hp = dict(trainers[name].hparams)
+        results = []
+        for on_card, dev in ((True, device), (False, torch.device("cpu"))):
+            tr = Trainer(model, hp, batch_size=SEQ_BATCH, device=dev)
+            tr.state = init_state(model, tr.optimizer, JaxKey(RANDOM_SEED), device=dev)
+            params = tr.state.params
+            idx = torch.as_tensor(idx_np).to(dev)
+            batch, w = gather_batch(data[dev], idx[0])
+            ub = unpack_batch(batch, layout)
+            with grad_kernel("segmat"):
+                if on_card:
+                    reset_counts()
+                grads, seen = seq_recorded_grads(model, params, ub, w)
+                if on_card:
+                    check_counts(kernel_counts(), {"K6": 7, "K3": 0, "K7": 0},
+                                 f"{name} step 1")
+                    card_seen = seen
+                else:
+                    signs = seq_recorded_grads(model, params, ub, w, card=card_seen)[0]
+                state = TrainState(params, tr.optimizer.init(params), 0, None)
+                step = make_train_step(model, tr.optimizer)
+                losses = []
+                for i in range(CPU_STEPS):
+                    state, loss = step(state, data[dev], idx[i], layout)
+                    losses.append(loss)
+            trace = torch.stack(losses).cpu().numpy()
+            calibrated = tr.calibrate(x_cal)
+            preds = tr.predict(x_val)
+            moments = {k: v.cpu() for k, v in tr.state.params.items() if "_dice_" in k}
+            results.append((grads, seen, trace, calibrated, preds, moments))
+        (g_gpu, s_gpu, tg, cal_g, p_gpu, m_gpu), (g_cpu, s_cpu, tc, cal_c, p_cpu, m_cpu) = results
+        g_gpu = {k: v.cpu() for k, v in g_gpu.items()}
+        plain_rel = max(rel_err(g_cpu[k], g_gpu[k]) for k in g_cpu)
+        flips = (sign_flips(s_cpu, s_gpu, DNN_Z_TOL, f"{name} step 1 leaky_relu, GPU vs CPU",
+                            near_tol=DNN_Z_TOL) if s_cpu else 0)
+        rel, worst = grads_match(signs, g_gpu, f"{name} step-1 grad GPU vs CPU on the card's signs")
+        max_d, final_rel = trace_match(tg, tc, f"{name} loss trace")
+        check(cal_g == cal_c == (name != "bst"), f"{name}: calibrate returned {cal_g}, {cal_c}")
+        m_rel = max((rel_err(m_cpu[k], m_gpu[k]) for k in m_cpu), default=0.0)
+        check(m_rel <= SEQ_MOMENT_TOL, f"{name}: calibrated moments GPU vs CPU {m_rel}")
+        dp = float(np.abs(p_gpu - p_cpu).max())
+        check(np.isfinite(p_gpu).all() and dp <= SEQ_PRED_TOL,
+              f"{name} predictions after calibrate GPU vs CPU: max|dp| {dp} > {SEQ_PRED_TOL}")
+        log(f"seq {name} GPU vs CPU at batch {SEQ_BATCH}: step-1 grads of {len(g_gpu)} leaves, "
+            f"worst max|d|/max|ref| {plain_rel:.3e} as run, {rel:.3e} ({worst}) on the card's "
+            f"signs; leaky_relu derivatives read on the other side of 0: {flips} of "
+            f"{sum(z.numel() for z in s_cpu)}; trace GPU {tg.tolist()} CPU {tc.tolist()}: "
+            f"max|d| {max_d:.3e}, final rel {final_rel:.3e}; calibrate {cal_g}, "
+            f"{len(m_gpu) // 3 if cal_g else 0} Dice layers' moments max|d|/max|ref| "
+            f"{m_rel:.3e}; predictions of {len(p_gpu)} valid rows max|dp| {dp:.3e}")
+    log(f"seq parity ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # (c) DIN served on the card with the moments its fit calibrated
+    t0 = time.perf_counter()
+    din = trainers["din"]
+    check(not all(bool(v.eq(0).all()) for k, v in din.params.items() if "_dice_mean_" in k),
+          "din serves the init moments")
+    reset_counts()
+    served = {}
+    for bs in (SEQ_BATCH, 1024):
+        predictor = Predictor(din.model, din.params, batch_size=bs, device=device)
+        served[bs] = predictor.predict(x_test)
+    torch.cuda.synchronize()
+    check(sum(kernel_counts().values()) == 0, f"serving launched {kernel_counts()}")
+    check(served[SEQ_BATCH].shape == (len(test["label"]),)
+          and bool(np.isfinite(served[SEQ_BATCH]).all()), "din served predictions")
+    check(np.array_equal(served[SEQ_BATCH], din.predict(x_test)),
+          "din: Predictor at batch 128 differs from Trainer.predict")
+    ds = float(np.abs(served[SEQ_BATCH] - served[1024]).max())
+    check(ds <= SEQ_SERVE_TOL, f"din served at batch 128 and 1024: max|dp| {ds} > {SEQ_SERVE_TOL}")
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        predictor.predict(x_test)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    wall = statistics.median(walls)
+    log(f"seq din serving: {len(test['label'])} ua.test rows at batch 128 and 1024, max|dp| "
+        f"{ds:.3e}; predict at batch 1024 {wall * 1e3:.3f} ms (median of 3), "
+        f"{len(test['label']) / wall:.1f} rows/s ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # (d) the synthetic sequence example, counts from 0 around each run
+    t0 = time.perf_counter()
+    for name, (epochs, ref_ll, ref_auc) in SYNTH_ROWS.items():
+        np.random.seed(RANDOM_SEED)
+        reset_counts()
+        t1 = time.perf_counter()
+        with grad_kernel("segmat"), scatter_counter() as scatters:
+            ex, (logloss, auc) = din_synthetic.main(epoch=epochs, model_name=name, device=device)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        ex_steps = epochs * (1600 // SEQ_BATCH + 1)
+        check(ex.device == device, f"din_synthetic {name} did not train on the GPU")
+        check_counts(counts, {k: 2 * ex_steps * (k == "K6") for k in counts},
+                     f"din_synthetic {name}")
+        check(scatters[0] == 0, f"din_synthetic {name}: index_add_ reached {scatters[0]} times")
+        check(abs(logloss - ref_ll) <= ZOO_LOGLOSS_BAND and abs(auc - ref_auc) <= ZOO_AUC_BAND,
+              f"din_synthetic {name}: VALID {logloss}, {auc} outside {ref_ll} / {ref_auc} +- "
+              f"{ZOO_LOGLOSS_BAND} / {ZOO_AUC_BAND}")
+        log(f"seq din_synthetic {name} ({epochs} epochs, GPU, segmat, "
+            f"{time.perf_counter() - t1:.1f} s): VALID logloss {logloss:.4f} auc {auc:.4f} (JAX "
+            f"CPU {ref_ll:.4f} / {ref_auc:.4f}); K6 {counts['K6']} = 2 x {ex_steps} steps")
+    log(f"seq din_synthetic ({time.perf_counter() - t0:.1f} s) [{card}]")
+    return seq_counts
+
+
 def kernel_record(name, source, replaces, launches, rec):
     """The kernel's entry in the ``kernels`` line. ``kernel_ms`` is the
     profile's kernel time per call where the phase profiled the kernel,
@@ -2418,8 +2716,9 @@ def kernel_record(name, source, replaces, launches, rec):
            "kernel_ms": rec.get("kernel_ms") or rec["ms"], "plain_ms": rec["plain_ms"],
            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
            "library_ms": rec["library_ms"]}
-    # K3 at the large-batch N, K6 at a Criteo table, the launches of the zoo phase
-    for extra in ("large_batch", "criteo", "zoo_launches"):
+    # K3 at the large-batch N, K6 at a Criteo table and at the history, the
+    # launches of the zoo and sequence phases
+    for extra in ("large_batch", "criteo", "history", "zoo_launches", "seq_launches"):
         if extra in rec:
             out[extra] = rec[extra]
     return out
@@ -2476,6 +2775,10 @@ def main():
     t0 = time.perf_counter()
     zoo = phase_zoo(device)
     log(f"zoo phase {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    seq = phase_seq(device)
+    log(f"sequence phase {time.perf_counter() - t0:.1f} s [{card}]")
+    rec["K6"]["seq_launches"] = sum(c["K6"] for c in seq.values())
     rec["K6"]["zoo_launches"] = sum(c["K6"] for c in zoo["ml"].values())
     rec["K3"]["zoo_launches"] = zoo["dcn"]["K3"]
 

@@ -4,9 +4,8 @@ for where it caches the built parser (the checkout's ``build/native/``, not
 ``/tmp``). All three use numpy, ctypes and subprocess only; the native
 loader builds the repository's ``native/criteo_parser.cpp`` with g++, the
 same source the reference builds. ``ml_100k.py`` reimplements the
-reference's pandas loader in numpy. The ML-100K sequence features
-(``add_history_feature``, ``create_ml_sequence_features``) are not ported
-yet (ROADMAP.md queue 1: the model zoo, with din)."""
+reference's pandas loader in numpy, the ML-100K sequence features
+(``add_history_feature``, ``create_ml_sequence_features``) with it."""
 
 from .criteo import (
     CAT_NAMES,
@@ -16,17 +15,26 @@ from .criteo import (
     load_criteo_tsv,
     synthetic_criteo_arrays,
 )
-from .ml_100k import concat_rows, create_ml_features, get_data, get_ml_dataset
+from .ml_100k import (
+    add_history_feature,
+    concat_rows,
+    create_ml_features,
+    create_ml_sequence_features,
+    get_data,
+    get_ml_dataset,
+)
 from .native_loader import load_criteo_tsv_native, load_criteo_tsv_range_native
 from .streaming import iter_array_chunks, iter_criteo_chunks
 
 __all__ = [
     "CAT_NAMES",
     "INT_NAMES",
+    "add_history_feature",
     "calibrated_criteo_arrays",
     "concat_rows",
     "create_criteo_features",
     "create_ml_features",
+    "create_ml_sequence_features",
     "get_data",
     "get_ml_dataset",
     "iter_array_chunks",

@@ -16,9 +16,13 @@ float64), holding exactly the reference's rows in the reference's order:
   order (``df_all.drop(df_train.index)``).
 - ``create_ml_features``: the reference's schema over a column dict
   (``FeatureSet`` reads ``X[name]``).
-
-``add_history_feature`` and ``create_ml_sequence_features`` come with
-the sequence models.
+- ``add_history_feature``: each row's previously rated items, built over
+  the union of the tables in the reference's stable order (user,
+  timestamp, table, row label). ``get_ml_dataset(return_index=True)``
+  gives the row labels, which are the pandas frames' index: they order
+  the rows of one table that tie on user and timestamp.
+- ``create_ml_sequence_features``: the schema and the history
+  ``SequenceFeat`` tied to item_id's table, which DIN, BST and DIEN take.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import os
 
 import numpy as np
 
-from ..features import DenseFeat, FeatureSet, MultiValCsvFeat, SparseFeat
+from ..features import DenseFeat, FeatureSet, MultiValCsvFeat, SequenceFeat, SparseFeat
 
 DEFAULT_DATA_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "data")
 
@@ -112,19 +116,25 @@ def _sample_positions(n, frac, random_state):
     return np.random.RandomState(random_state).choice(n, round(frac * n), replace=False)
 
 
-def get_ml_dataset(frac=0.5, random_seed=2019, data_dir=DEFAULT_DATA_DIR):
+def get_ml_dataset(frac=0.5, random_seed=2019, data_dir=DEFAULT_DATA_DIR, return_index=False):
     """Binarize + subsample + 70/30 split (reference ml_100k.py:79-89).
     Returns (train, valid, test, domains), column dicts with a float64
-    ``label`` (rating >= 4)."""
+    ``label`` (rating >= 4). ``return_index`` appends the three tables'
+    row labels, the reference frames' index (a row's position in its
+    joined table), which ``add_history_feature`` takes."""
     all_rows, test, domains = get_data(data_dir)
-    all_rows = take_rows(all_rows, _sample_positions(len(all_rows["rating"]), frac, random_seed))
+    sampled = _sample_positions(len(all_rows["rating"]), frac, random_seed)
+    all_rows = take_rows(all_rows, sampled)
     for t in (all_rows, test):
         t["label"] = (t["rating"] >= 4).astype(np.float64)
     m = len(all_rows["rating"])
     in_train = _sample_positions(m, 0.7, random_seed)
     valid = np.ones(m, dtype=bool)
     valid[in_train] = False
-    return take_rows(all_rows, in_train), take_rows(all_rows, valid), test, domains
+    out = (take_rows(all_rows, in_train), take_rows(all_rows, valid), test, domains)
+    if return_index:
+        out += ((sampled[in_train], sampled[valid], np.arange(len(test["rating"]))),)
+    return out
 
 
 def create_ml_features(df_data, domains) -> FeatureSet:
@@ -137,4 +147,51 @@ def create_ml_features(df_data, domains) -> FeatureSet:
     fs["age"] = DenseFeat("age", scaler="minmax")
     fs["genres"] = MultiValCsvFeat("genres", tags=tuple(domains["genres"]))
     fs.initialize(df_data)
+    return fs
+
+
+def add_history_feature(*tables, max_len=10, index=None):
+    """Copies of the column dicts ``tables``, each with a ``hist_items``
+    column: per row, an int64 array of the item_ids its user rated
+    strictly before it, most recent last, the last ``max_len`` of them
+    (reference ml_100k.py:105-146).
+
+    The history is built over the union of the tables, ordered stably by
+    (user_id, timestamp, table, row label): rows that tie on user and
+    timestamp follow table order, then row label. ``index``: per table,
+    its row labels (``get_ml_dataset(return_index=True)``); default each
+    table's positions. Labels are never read."""
+    if index is None:
+        index = [np.arange(len(t["user_id"])) for t in tables]
+    sizes = [len(t["user_id"]) for t in tables]
+    user = np.concatenate([np.asarray(t["user_id"]) for t in tables])
+    stamp = np.concatenate([np.asarray(t["timestamp"]) for t in tables])
+    items = np.concatenate([np.asarray(t["item_id"]) for t in tables]).astype(np.int64)
+    src = np.repeat(np.arange(len(tables)), sizes)
+    label = np.concatenate([np.asarray(i) for i in index])
+    order = np.lexsort((label, src, stamp, user))  # last key first
+
+    hist = np.empty(len(order), dtype=object)
+    sorted_user, sorted_items = user[order], items[order]
+    start = 0  # first sorted position of the current user
+    for pos, row in enumerate(order.tolist()):
+        if sorted_user[pos] != sorted_user[start]:
+            start = pos
+        hist[row] = sorted_items[max(start, pos - max_len):pos]
+
+    out, offset = [], 0
+    for t, n in zip(tables, sizes):
+        t = dict(t)
+        t["hist_items"] = hist[offset:offset + n]
+        out.append(t)
+        offset += n
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def create_ml_sequence_features(df_data, domains, max_len=10) -> FeatureSet:
+    """The canonical schema + a SequenceFeat over ``hist_items`` tied to
+    item_id's table (reference ml_100k.py:149-157): the schema DIN, BST
+    and DIEN train on for the ML-100K rows."""
+    fs = create_ml_features(df_data, domains)
+    fs["hist_items"] = SequenceFeat("hist_items", id_feat=fs["item_id"], max_len=max_len)
     return fs

@@ -9,8 +9,9 @@ reference's for seed 2019, drawn from its key without JAX
 0.01 between init seeds, as much as the band the rows of
 ``docs/model_zoo.md`` are held to. The tables come from the port's
 numpy loader; the feature set encodes them once and the Trainer takes
-the encoded dicts. Sequence models (``requires_sequence``) need the
-ML-100K history feature, which is not ported yet.
+the encoded dicts. Sequence models (``requires_sequence``: DIN, BST,
+DIEN) train on the schema with each row's rated-item history
+(``add_history_feature``, built over all three splits in time order).
 
 Run on the GPU (or with ``--device cpu``):
 
@@ -21,7 +22,13 @@ import argparse
 import logging
 
 import recman_tpu_torch
-from recman_tpu_torch.data import concat_rows, create_ml_features, get_ml_dataset
+from recman_tpu_torch.data import (
+    add_history_feature,
+    concat_rows,
+    create_ml_features,
+    create_ml_sequence_features,
+    get_ml_dataset,
+)
 from recman_tpu_torch.models import MODEL_REGISTRY, model_class
 from recman_tpu_torch.training import LogLoss, RocAucScore, Trainer, init_state
 from recman_tpu_torch.utils import JaxKey
@@ -35,13 +42,15 @@ def run_model(model_name, frac=0.5, epoch=1, batch_size=128, hparams=None, devic
     """Train ``model_name`` for ``epoch`` epochs and evaluate it on the TEST
     split. Returns (trainer, [test logloss, test auc])."""
     model_cls = model_class(model_name)
-    if model_cls.requires_sequence:
-        raise NotImplementedError(
-            f"{model_name!r} needs the ML-100K history feature (add_history_feature), "
-            "not ported yet (ROADMAP.md queue 1: the model zoo, DIN with the sequence features)")
     recman_tpu_torch.config_logger()
-    train, valid, test, domains = get_ml_dataset(frac=frac, random_seed=RANDOM_SEED)
-    feat_dict = create_ml_features(concat_rows(train, valid), domains)
+    train, valid, test, domains, index = get_ml_dataset(frac=frac, random_seed=RANDOM_SEED,
+                                                        return_index=True)
+    if model_cls.requires_sequence:
+        # the per-user rated-item history, built in time order over all splits
+        train, valid, test = add_history_feature(train, valid, test, index=index)
+        feat_dict = create_ml_sequence_features(concat_rows(train, valid), domains)
+    else:
+        feat_dict = create_ml_features(concat_rows(train, valid), domains)
     x_train, x_valid, x_test = (feat_dict.transform(t) for t in (train, valid, test))
 
     hp = {"learning_rate": 0.001, "optimizer": "adam"}

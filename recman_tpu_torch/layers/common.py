@@ -1,4 +1,6 @@
-"""Shared layer utilities: keep-probability dropout, activations by name.
+"""Shared layer utilities: keep-probability dropout, activations by name,
+Dice (``batch_moments``, ``dice``, and ``dice_params`` / ``apply_dice``
+for the layers that hold Dice params).
 
 Dropout arguments are KEEP probabilities, as in the reference
 (``recman_tpu/layers/common.py:14-23``): keep=1.0 is a no-op, keep=0.8
@@ -50,6 +52,52 @@ def leaky_relu(x):
     return torch.nn.functional.leaky_relu(x, negative_slope=0.2)
 
 
+def batch_moments(x):
+    """Per-unit mean and population variance over the batch axis, the
+    moments Dice normalizes with in training (``jnp.var`` is the
+    population variance, hence ``correction=0``). The gradient flows
+    through both, as in the reference."""
+    return x.mean(dim=0), x.var(dim=0, correction=0)
+
+
+def dice(x, alpha, mean=None, var=None, eps=1e-8):
+    """Dice activation (DIN paper, arXiv:1706.06978 §4.3; reference
+    ``recman_tpu/layers/common.py:46-62``): p = sigmoid((x - mean) *
+    rsqrt(var + eps)), out = p * x + (1 - p) * alpha * x. ``mean`` and
+    ``var`` None take the batch's moments (training); the stored moments
+    make inference independent of which rows share a batch."""
+    if mean is None or var is None:
+        mean, var = batch_moments(x)
+    p = torch.sigmoid((x - mean) * torch.rsqrt(var + eps))
+    return p * x + (1.0 - p) * alpha * x
+
+
+def dice_params(prefix, i, width, device=None) -> dict:
+    """Layer ``i``'s Dice params: ``{prefix}_alpha_{i}`` (zeros) and the
+    frozen inference moments ``{prefix}_mean_{i}`` (zeros) and
+    ``{prefix}_var_{i}`` (ones), which get no gradient."""
+    def full(v):
+        return torch.full((width,), v, dtype=torch.float32, device=device)
+
+    return {f"{prefix}_alpha_{i}": full(0.0), f"{prefix}_mean_{i}": full(0.0),
+            f"{prefix}_var_{i}": full(1.0)}
+
+
+def apply_dice(params, prefix, i, x, training, moment_capture=None):
+    """Dice of layer ``i``'s pre-activations ``x`` (rows on axis 0): the
+    batch's moments in training, recorded into ``moment_capture`` when
+    given, the stored ``{prefix}_mean_{i}`` / ``{prefix}_var_{i}`` at
+    inference (reference dnn.py:88-101, din_attention.py:99-111)."""
+    if training:
+        mean, var = batch_moments(x)
+        if moment_capture is not None:
+            moment_capture[f"{prefix}_mean_{i}"] = mean
+            moment_capture[f"{prefix}_var_{i}"] = var
+    else:
+        mean, var = params[f"{prefix}_mean_{i}"], params[f"{prefix}_var_{i}"]
+    return dice(x, params[f"{prefix}_alpha_{i}"], mean, var)
+
+
 ACTIVATIONS = {
     "relu": torch.relu,
     "leaky_relu": leaky_relu,
@@ -60,10 +108,11 @@ ACTIVATIONS = {
 
 
 def resolve_activation(act):
-    """Accept either a callable or a registry name. ``"dice"`` is not
-    ported yet."""
+    """Accept either a callable or a registry name. ``"dice"`` resolves
+    to ``dice`` with batch moments; the layers that hold Dice params
+    (``DNN``, ``ASPLayer``) apply it themselves."""
     if callable(act):
         return act
     if act == "dice":
-        raise NotImplementedError("Dice activation not ported yet")
+        return dice
     return ACTIVATIONS[act]

@@ -1,14 +1,18 @@
 from .afm import AFM
 from .base import Model
+from .bst import BST
 from .dcn import DCN
 from .deepfm import DeepFM
+from .dien import DIEN
+from .din import DIN
 from .fm import FM
 from .fwfm import FwFM
 from .nfm import NFM
 from .wide_deep import WideDeep
 from .xdeepfm import XDeepFM
 
-MODEL_REGISTRY = {m.name: m for m in (FM, FwFM, DeepFM, WideDeep, NFM, DCN, XDeepFM, AFM)}
+MODEL_REGISTRY = {m.name: m for m in (FM, FwFM, DeepFM, WideDeep, NFM, DCN, XDeepFM, AFM, DIN,
+                                       BST, DIEN)}
 
 
 def model_class(name: str):
@@ -22,6 +26,6 @@ def model_class(name: str):
 
 
 __all__ = [
-    "AFM", "DCN", "DeepFM", "FM", "FwFM", "MODEL_REGISTRY", "Model", "NFM", "WideDeep",
-    "XDeepFM", "model_class",
+    "AFM", "BST", "DCN", "DIEN", "DIN", "DeepFM", "FM", "FwFM", "MODEL_REGISTRY", "Model", "NFM",
+    "WideDeep", "XDeepFM", "model_class",
 ]

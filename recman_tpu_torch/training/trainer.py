@@ -11,16 +11,15 @@ reference's dropout-in-eval quirk).
 policy: periodic and preemption checkpoints (``save``/``restore``,
 ``ckpt/checkpoint.py``) and a bit-exact resume from LATEST. ``fit_stream``,
 ``predict_stream`` and ``evaluate_stream`` double-buffer encoded host
-chunks (``data/streaming.py``) through the device.
-
-Not ported yet, and raising where called: Dice moment capture in
-``calibrate`` (ROADMAP.md queue 1: the model zoo, with Dice).
+chunks (``data/streaming.py``) through the device. ``calibrate`` freezes
+Dice's batch moments into the params before each eval.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from time import time
 
@@ -340,13 +339,51 @@ class Trainer:
         return [metric(y, ps) for metric in self.metrics]
 
     def calibrate(self, X, max_rows=65536) -> bool:
-        """Freeze Dice normalization moments into params (fit calls it
-        before each eval). Dice is not ported, so no model of the port has
-        moments to freeze: returns False."""
-        if any("_dice_mean_" in k for k in self.state.params):
-            raise NotImplementedError("Dice moment capture is not ported yet "
-                                      "(ROADMAP.md queue 1: the model zoo, with Dice)")
-        return False
+        """Freeze Dice's normalization moments into the params (reference
+        trainer.py:382-449).
+
+        Dice normalizes with the batch's moments in training; inference
+        reads the stored ``*_dice_mean_*`` / ``*_dice_var_*`` params, so
+        that a prediction does not depend on which rows share its batch.
+        This runs one training-mode forward under ``torch.no_grad()``, with
+        no generator (dropout off), over the first ``max_rows`` rows of
+        ``X`` (a dataframe or an encoded dict), and writes the moments it
+        captured into the state's params. ``fit`` and ``fit_stream`` call it
+        before each eval; call it yourself after driving ``fit_on_batch``.
+
+        Returns True when the model has Dice moments and they were written.
+        A model with Dice moments whose apply takes no ``moment_capture``
+        warns and returns False: it would serve with the init moments."""
+        has_dice = any("_dice_mean_" in k for k in self.state.params)
+        if not getattr(self.model, "supports_moment_capture", False):
+            if has_dice:
+                warnings.warn(
+                    f"{type(self.model).__name__} has Dice moment params but "
+                    "does not support moment capture: training=False "
+                    "eval/serving will use the untrained init moments "
+                    "(mean=0, var=1). Thread moment_capture through apply() "
+                    "and set supports_moment_capture=True.",
+                    stacklevel=2,
+                )
+            return False
+        if not has_dice:
+            return False
+
+        if isinstance(X, dict):
+            data = {k: np.asarray(v)[:max_rows] for k, v in X.items()}
+        else:
+            Xs = X.iloc[:max_rows] if hasattr(X, "iloc") else X[:max_rows]
+            data = self.model.feat_dict.transform(Xs)
+        data.pop("y", None)
+        batch = {k: torch.as_tensor(v).to(self.device) for k, v in data.items()}
+        captured = {}
+        with torch.no_grad():
+            self.model.apply(self.state.params, batch, training=True, generator=None,
+                             moment_capture=captured)
+        params = dict(self.state.params)
+        params.update({k: v.to(torch.float32) for k, v in captured.items()})
+        self.state = self.state._replace(params=params)
+        return True
 
     def _eval_at_epoch(self, data_train, y_train, X_valid, y_valid, start_time, epoch,
                        layout=()):

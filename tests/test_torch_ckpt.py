@@ -295,7 +295,7 @@ def test_predictor_from_checkpoint_matches_jax(synthetic_df, tmp_path):
                                atol=1e-5)
     np.testing.assert_array_equal(tp.predict(synthetic_df), tt.predict(synthetic_df))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: the model zoo"):
-        Predictor.from_checkpoint(tmp_path / "port", "din", hparams=hp, device="cpu")
+        Predictor.from_checkpoint(tmp_path / "port", "autoint", hparams=hp, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: the model zoo"):
         Predictor.from_checkpoint(tmp_path / "port", "no_such_model", device="cpu")
 

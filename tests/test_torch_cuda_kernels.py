@@ -32,8 +32,8 @@ Tolerances, per tensor, of its largest element:
   K7 bit-equal to K3 and K6 to K7 at one table (the same sums).
 - One stacked train step, GPU against CPU: loss 1e-5 relative, every
   gradient 1e-3 (the K2 rounding above); one ML-100K step of each
-  FM-family model and DCN the same (K6's f32 sums in another order, the
-  DNN's relu read on either side of 0).
+  FM-family model, DCN, DIN, BST and DIEN the same (K6's f32 sums in
+  another order, the DNN's relu read on either side of 0).
 """
 
 import numpy as np
@@ -507,6 +507,7 @@ K6_CASES = [
     (128, 944, 9, None),     # ML-100K user_id
     (128, 3, 9, None),       # gender
     (2432, 20, 9, 0.85),     # genres: the longest run
+    (1280, 1574, 8, 0.085),  # ML-100K history, 128 x 10 into item_id's table, PAD at id 0
     (77, 30, 3, None),       # N not a multiple of 8
     (5000, 7, 256, 0.5),     # the first port's widest C
     (8192, 100_001, 17, None),  # one Criteo table
@@ -617,19 +618,30 @@ def test_ml_train_step_on_card_launches_k6_per_field(cuda):
         _close(g_cpu[k], g_gpu[k].cpu(), 1e-3)
 
 
-@pytest.mark.parametrize("name", ["fm", "deepfm", "dcn", "fwfm", "wide_deep", "nfm", "afm"])
+@pytest.mark.parametrize("name", ["fm", "deepfm", "dcn", "fwfm", "wide_deep", "nfm", "afm",
+                                  "din", "bst", "dien"])
 def test_zoo_train_step_on_card_launches_k6_per_field(cuda, name):
-    """One ML-100K train step of each FM-family model and DCN under
-    "segmat", every keep 1: K6 once per embedded field and no other kernel,
-    and the loss and every gradient against the same step on the CPU."""
-    from recman_tpu_torch.data import concat_rows, create_ml_features, get_ml_dataset
+    """One ML-100K train step of each FM-family model, DCN and the sequence
+    family under "segmat", every keep 1: K6 once per embedded field (and
+    once more for the sequence models' history, which looks up item_id's
+    table a second time) and no other kernel, and the loss and every
+    gradient against the same step on the CPU."""
+    from recman_tpu_torch.data import (
+        add_history_feature, concat_rows, create_ml_features, create_ml_sequence_features,
+        get_ml_dataset,
+    )
     from recman_tpu_torch.models import model_class
     from recman_tpu_torch.ops import embedding as emb
     from recman_tpu_torch.training import gather_batch, pack_dataset, unpack_batch
     from recman_tpu_torch.training.train_step import loss_and_grads
 
-    train, valid, _, domains = get_ml_dataset(frac=0.05)
-    fs = create_ml_features(concat_rows(train, valid), domains)
+    train, valid, test, domains, index = get_ml_dataset(frac=0.05, return_index=True)
+    sequence = model_class(name).requires_sequence
+    if sequence:
+        train, valid, _ = add_history_feature(train, valid, test, index=index)
+        fs = create_ml_sequence_features(concat_rows(train, valid), domains)
+    else:
+        fs = create_ml_features(concat_rows(train, valid), domains)
     model = model_class(name)(fs, {"deep_dropout": (1.0, 1.0, 1.0)})
     params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
     data, layout = pack_dataset(fs.transform(train, y=train["label"]))
@@ -643,7 +655,8 @@ def test_zoo_train_step_on_card_launches_k6_per_field(cuda, name):
         with emb.fused_grad(True), emb.grad_kernel("segmat"):
             results[str(dev)] = loss_and_grads(model, p, unpack_batch(batch, layout), w)
         after = (cin_chain.LAUNCHES, segment_matmul.LAUNCHES, segment_matmul.ROWS_LAUNCHES)
-        assert [a - c for a, c in zip(after, counts)] == ([0, 0, 0] if dev == "cpu" else [0, 0, 6])
+        k6 = 7 if sequence else 6
+        assert [a - c for a, c in zip(after, counts)] == ([0, 0, 0] if dev == "cpu" else [0, 0, k6])
     (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results[str(cuda)]
     assert abs(l_gpu.item() - l_cpu.item()) <= 1e-5 * abs(l_cpu.item())
     for k in g_cpu:

@@ -274,8 +274,14 @@ class TestScope:
         fs["u"] = recman_tpu_torch.SparseFeat("u", feat_size=10, qr_collisions=3)
         with pytest.raises(NotImplementedError, match="QR"):
             XDeepFM(fs)
-        with pytest.raises(NotImplementedError, match="Dice"):
-            XDeepFM(_schema(recman_tpu_torch, synthetic_df), {"deep_activation": "dice"})
+        # Dice is ported: xDeepFM's DNN takes it, with the reference's
+        # params and its eval forward on the stored moments
+        jm, tm, np_params = _pair(synthetic_df, {"deep_activation": "dice"})
+        own = tm.init_params(torch.Generator().manual_seed(0), device="cpu")
+        assert list(own) == list(np_params) and "dnn_dice_mean_0" in own
+        batch = tm.feat_dict.transform(synthetic_df)
+        np.testing.assert_allclose(_torch_preds(tm, np_params, batch),
+                                   _jax_preds(jm, np_params, batch), rtol=0, atol=PRED_TOL)
 
 
 def _port_files():

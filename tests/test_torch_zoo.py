@@ -469,19 +469,23 @@ def test_run_model_and_unported_models(capsys):
     trainer, (logloss, auc) = run_model("fm", frac=0.02, device="cpu")
     assert isinstance(trainer.model, models.FM) and trainer.device.type == "cpu"
     assert np.isfinite(logloss) and 0.0 <= auc <= 1.0
-    assert set(models.MODEL_REGISTRY) == set(ZOO) | {"xdeepfm"}
-    for name in ("din", "dcn_v2", "pnn", "no_such_model"):
+    assert "hist_items" not in trainer.model.feat_dict
+    assert set(models.MODEL_REGISTRY) == set(ZOO) | {"xdeepfm", "din", "bst", "dien"}
+    for name in ("autoint", "dcn_v2", "pnn", "no_such_model"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: the model zoo"):
             run_model(name, frac=0.02, device="cpu")
 
+    # a model that sets requires_sequence trains on the history schema
     class SequenceFM(models.FM):
         requires_sequence = True
 
     models.MODEL_REGISTRY["sequence_fm"] = SequenceFM
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            run_model("sequence_fm", frac=0.02, device="cpu")
+        trainer, (logloss, auc) = run_model("sequence_fm", frac=0.02, device="cpu")
     finally:
         del models.MODEL_REGISTRY["sequence_fm"]
+    hist = trainer.model.feat_dict["hist_items"]
+    assert hist.id_feat is trainer.model.feat_dict["item_id"] and hist.max_len == 10
+    assert np.isfinite(logloss) and 0.0 <= auc <= 1.0
     assert not models.Model.requires_sequence and not models.Model.supports_moment_capture
     assert models.Model.inference_dropout((0.5, 0.8)) == (1.0, 1.0)
