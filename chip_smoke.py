@@ -120,13 +120,19 @@ bit-equal on two calls.
    ``predict_stream`` bit-equal to ``predict``. It prints the
    checkpoint's bytes, the save and restore seconds and the parse rate
    beside the card's name and power limit.
-10. the zoo: FM, DeepFM, DCN, FwFM, Wide&Deep, NFM and AFM. (a) Each
+10. the zoo outside the sequence family: FM, DeepFM, DCN, FwFM,
+   Wide&Deep, NFM, AFM, GDCN, DCN-V2 (full rank and rank 4), FinalMLP,
+   FiBiNET, PNN, MaskNet, DLRM and AutoInt. (a) Each
    through ``examples.model_zoo_ml.run_model`` on MovieLens-100K (frac
    0.5, 1 epoch, Adam 1e-3, batch 128, the reference's seed-2019 params,
    numpy's global generator seeded 2019) under ``grad_kernel("segmat")``: TEST logloss within 0.02 and AUC
-   within 0.015 of the model's ``docs/model_zoo.md`` row; K6 once per
-   embedded field a step (from the schema), no other kernel, never
-   ``index_add_``; the epoch and its median step by CUDA events. (b)
+   within 0.015 of the run's ``docs/model_zoo.md`` row; K6 once per
+   embedded field a step (from the schema and the lookup the model's
+   forward calls: ``lookup_spy``, ``lookup_launches``), no other kernel,
+   never ``index_add_``; the epoch and its median step by CUDA events.
+   (c) GDCN's trainer saved with ``Trainer.save`` and served by
+   ``Predictor.from_checkpoint`` on the card: its ``ua.test`` predictions
+   equal to the trainer's ``predict``. (b)
    ``dcn_paper_criteo``, the DCN paper's Criteo setting (arXiv:1708.05123
    section 4.3) on the bench's hashed fields: k 107, DNN (1024, 1024)
    relu, 6 cross layers, batch 512, Adam 1e-3. ``Predictor.predict`` on
@@ -136,7 +142,19 @@ bit-equal on two calls.
    with K3 once a step, a profile and the peak memory; a 1-epoch
    ``Trainer.fit`` on 180,000 rows (K3 once a step), VALID logloss
    finite and AUC over 0.5.
-11. the behaviour-sequence family: DIN, BST and DIEN at their defaults (k
+11. ``dlrm_mlperf_criteo``: DLRM at the widths of MLPerf Training's DLRM
+   reference (embedding 128, bottom MLP 13-512-256-128, top MLP
+   1024-1024-512-256-1 over 128 + 351 inputs, relu, no L2, SGD at lr 0.1)
+   on the bench's hashed fields, about 335 M params. ``Predictor.predict``
+   on 65,536 rows at 8192, its first batch within 1e-5 of the CPU's; at
+   batch 2048 in per-table storage, step 1's gradients against the CPU
+   with the bottom and top MLPs' relus read on the card's side of 0, a
+   4-step trace, and K3 once a step at (T, C, N) = (26, 128, 2048) under
+   "auto" (K6, K7, ``index_add_`` never); 32 timed steps with a profile and
+   the peak memory; a 1-epoch ``Trainer.fit`` on 180,000 rows. The kernels
+   phase holds K3 at that shape against its twin and times it beside
+   ``scatter_add_`` and its bound.
+12. the behaviour-sequence family: DIN, BST and DIEN at their defaults (k
    8, history max_len 10; DIN's attention (80, 40) and DNN (80, 40) with
    Dice, BST 1 block of 2 heads and FF 32, DIEN GRU 8 and DNN (80, 40)
    with Dice). (a) Each through ``run_model`` on MovieLens-100K as in 10
@@ -269,15 +287,21 @@ PREEMPT_STEP = 9                      # mid-epoch 2
 STREAM_ROWS = 131_072                 # rows of the phase's TSV
 STREAM_CHUNK = 32_768                 # 4 chunks of 5 steps an epoch
 STREAM_PREEMPT_STEP = 33              # epoch 2, chunk 2, its 3rd batch
-# the zoo phase: (a) the seven FM-family and DCN models of the ML-100K
-# quality protocol (docs/model_zoo.md:9-12, tools/zoo_quality.py), each
-# held to a band around its row there (JAX on the CPU: TEST logloss, AUC)
-# of the xDeepFM anchor's widths (bench.py:251: 0.575-0.615, 0.718-0.748
-# around 0.594 / 0.733)
+# the zoo phase: (a) the sixteen runs of the ML-100K quality protocol
+# (docs/model_zoo.md:9-12, tools/zoo_quality.py) outside the sequence
+# family, each held to a band around its row there (JAX on the CPU: TEST
+# logloss, AUC) of the xDeepFM anchor's widths (bench.py:251: 0.575-0.615,
+# 0.718-0.748 around 0.594 / 0.733). A label that is not a model's name
+# runs ZOO_RUNS' model and hparams.
 ZOO_ROWS = {"fm": (0.6275, 0.6920), "deepfm": (0.6265, 0.6970), "dcn": (0.6217, 0.7007),
             "fwfm": (0.6221, 0.7029), "wide_deep": (0.6315, 0.6902), "nfm": (0.6508, 0.6690),
-            "afm": (0.6614, 0.6577)}
+            "afm": (0.6614, 0.6577), "gdcn": (0.6014, 0.7244), "dcn_v2": (0.6022, 0.7226),
+            "dcn_v2_rank4": (0.6047, 0.7239), "final_mlp": (0.6064, 0.7215),
+            "fibinet": (0.6103, 0.7123), "pnn": (0.6135, 0.7068), "masknet": (0.6148, 0.7081),
+            "dlrm": (0.6170, 0.7077), "autoint": (0.6334, 0.6859)}
+ZOO_RUNS = {"dcn_v2_rank4": ("dcn_v2", {"cross_rank": 4})}
 ZOO_LOGLOSS_BAND, ZOO_AUC_BAND = 0.02, 0.015
+ZOO_CHECKPOINT = "gdcn"  # (c) the run saved and served from its checkpoint
 # (b) dcn_paper_criteo: the DCN paper's Criteo setting (arXiv:1708.05123
 # section 4.3: 2 deep layers of 1024, 6 cross layers, batch 512, Adam;
 # embedding size 6 * cardinality ** 0.25 = 107 for the 100,001-row hashed
@@ -290,6 +314,21 @@ DCN_SERVE_ROWS = 65_536
 DCN_SERVE_BATCH = 8192
 DCN_FIT_ROWS = 200_000  # the Criteo example's rows, split 90/10
 DCN_PRED_TOL = 1e-5     # card against CPU: f32 sums in another order, TF32 off
+# dlrm_mlperf_criteo: DLRM at the widths of MLPerf Training's DLRM reference
+# (mlcommons/training recommendation; facebookresearch/dlrm
+# bench/run_and_time.sh): embedding 128, bottom MLP 13-512-256-128, top MLP
+# 1024-1024-512-256-1 over the bottom output and the 351 pairs of 27 fields,
+# relu, no L2, plain SGD at lr 0.1 (the DLRM repository's Criteo scripts),
+# on the bench's 26 x 100,000-bucket hashed fields and 13 dense; batch 2048
+DLRM_HP = {"learning_rate": 0.1, "optimizer": "sgd", "embedding_size": 128,
+           "embedding_l2_reg": 0.0, "bot_hidden_units": (512, 256), "bot_activation": "relu",
+           "bot_l2_reg": 0.0, "top_hidden_units": (1024, 1024, 512, 256),
+           "top_dropout": (1.0,) * 5, "top_activation": "relu", "top_l2_reg": 0.0}
+DLRM_BATCH = 2048
+DLRM_SERVE_ROWS = 65_536
+DLRM_SERVE_BATCH = 8192
+DLRM_FIT_ROWS = 200_000  # split 90/10, as dcn_paper_criteo's
+DLRM_PRED_TOL = 1e-5     # card against CPU, TF32 off
 # the sequence phase: (a) DIN, BST and DIEN through run_model at their
 # hparam defaults, held to the docs/model_zoo.md rows with the zoo's bands
 SEQ_ROWS = {"din": (0.6077, 0.7149), "bst": (0.6104, 0.7097), "dien": (0.6045, 0.7209)}
@@ -735,10 +774,13 @@ def phase_kernels(device):
     small_ids = np.sort(np.minimum(rs.zipf(1.2, size=(3, 70)) + 1, 49).astype(np.int32), axis=1)
     full_ids = criteo_ids(BATCH)
     vocab_full = NUM_BUCKETS + 1
-    for label, ids, v in (("small", small_ids, 50), ("full", full_ids, vocab_full),
-                          ("large batch", criteo_ids(LARGE_BATCH), vocab_full)):
+    c_bench = HPARAMS["embedding_size"] + 1
+    # and dlrm_mlperf_criteo's grouped lookup: one batch's ids at C 128
+    for label, ids, v, c in (("small", small_ids, 50, 5), ("full", full_ids, vocab_full, c_bench),
+                             ("large batch", criteo_ids(LARGE_BATCH), vocab_full, c_bench),
+                             ("C 128", criteo_ids(DLRM_BATCH), vocab_full,
+                              DLRM_HP["embedding_size"])):
         t, nn = ids.shape
-        c = 5 if label == "small" else HPARAMS["embedding_size"] + 1
         sids = torch.from_numpy(ids).to(device)
         sg = torch.randn((t, c, nn), generator=torch.Generator().manual_seed(12)).to(device)
         got = segment_matmul.segment_matmul_from_sorted_batched(sids, sg, v)
@@ -746,6 +788,7 @@ def phase_kernels(device):
         torch.cuda.synchronize()
         ref = segment_matmul.segment_matmul_reference(sids, sg, v)
         e3 = max_rel_err([ref], [got], K3_TOL, f"K3 {label}")
+        rel3 = e3 / ref.abs().max().item()
         check(torch.equal(got == 0, ref == 0), f"K3 {label}: zeros differ from the plain version")
         check(torch.equal(got, again), f"K3 {label}: two calls differ")
         longest = max(int(torch.unique_consecutive(r, return_counts=True)[1].max()) for r in sids)
@@ -770,8 +813,10 @@ def phase_kernels(device):
             f"K3 calls [{label}] (its passes by kernel)", n=3)
         if label == "full":
             rec["K3"] = r
-        else:
+        elif label == "large batch":
             rec["K3"]["large_batch"] = dict(r, n=nn)
+        else:
+            rec["K3"]["dlrm_mlperf_criteo"] = dict(r, n=nn, c=c, max_rel_err=rel3)
         del got, again, ref
 
     # K7: the same ids, the cotangents split into k_emb table rows and one
@@ -2253,34 +2298,78 @@ def step_events():
         Trainer.fit_on_batch = inner
 
 
-def lookup_launches(model):
+@contextlib.contextmanager
+def lookup_spy():
+    """Record which embedding lookup the block's forwards call: "packed"
+    (``PackedEmbeddingLinear.apply``), "apply" (``EmbeddingLayer.apply``)
+    or "apply_dict" (``EmbeddingLayer.apply_dict``); yields the set."""
+    from recman_tpu_torch.layers import EmbeddingLayer, PackedEmbeddingLinear
+
+    seen = set()
+    sites = ((PackedEmbeddingLinear, "apply", "packed"), (EmbeddingLayer, "apply", "apply"),
+             (EmbeddingLayer, "apply_dict", "apply_dict"))
+    real = [getattr(cls, attr) for cls, attr, _ in sites]
+
+    def spy(fn, label):
+        def called(*a, **k):
+            seen.add(label)
+            return fn(*a, **k)
+        return called
+
+    for (cls, attr, label), fn in zip(sites, real):
+        setattr(cls, attr, spy(fn, label))
+    try:
+        yield seen
+    finally:
+        for (cls, attr, _), fn in zip(sites, real):
+            setattr(cls, attr, fn)
+
+
+def lookup_launches(model, lookup):
     """Segment-sum launches a train step makes under ``grad_kernel("segmat")``
-    with per-table storage, from the schema: the packed lookup groups its
-    tables by (table shape, id shape); a group of one runs K6, a larger one
-    K3. A model with no packed layer (the sequence family) looks up each
-    feature on its own (``EmbeddingLayer.apply_dict``): K6 once per
-    feature, the history's into item_id's table among them, and once more
-    per feature for its bias table where the layer has them."""
+    with per-table storage, from the schema and the lookup the model's
+    forward calls (``lookup_spy``). A group of same-shape tables shares one
+    K3 launch; a table alone runs K6.
+    - "packed": the packable tables grouped by (table shape, id shape);
+    - "apply": the plain sparse feats' tables grouped by (table shape, id
+      shape), then one K6 per other feature (multi-valued, value-scaled or
+      sequence), and all that twice with bias tables;
+    - "apply_dict": one K6 per feature (the sequence family's history into
+      item_id's table among them), twice with bias tables."""
     import collections
 
-    from recman_tpu_torch.features import MultiValCsvFeat, MultiValSparseFeat
+    from recman_tpu_torch.features import (
+        MultiValCsvFeat, MultiValSparseFeat, SparseFeat, SparseValueFeat,
+    )
 
-    packed = getattr(model, "packed", None)
-    if packed is None:
-        emb = model.embeddings
-        return {"K6": len(emb.feats) * (2 if emb.use_bias else 1), "K3": 0}
-    groups = collections.Counter(
-        (f.feat_size, isinstance(f, (MultiValCsvFeat, MultiValSparseFeat)))
-        for f in packed.packable)
-    return {"K6": sum(n == 1 for n in groups.values()), "K3": sum(n > 1 for n in groups.values())}
+    def count(groups, alone=0):
+        return {"K6": alone + sum(n == 1 for n in groups.values()),
+                "K3": sum(n > 1 for n in groups.values())}
+
+    if lookup == "packed":
+        return count(collections.Counter(
+            (f.feat_size, isinstance(f, (MultiValCsvFeat, MultiValSparseFeat)))
+            for f in model.packed.packable))
+    emb = model.embeddings
+    times = 2 if emb.use_bias else 1
+    if lookup == "apply_dict":
+        return {"K6": len(emb.feats) * times, "K3": 0}
+    check(lookup == "apply", f"unknown lookup {lookup!r}")
+    plain = [f for f in emb.feats if isinstance(f, SparseFeat) and not isinstance(f, SparseValueFeat)]
+    one = count(collections.Counter(f.feat_size for f in plain), len(emb.feats) - len(plain))
+    return {k: n * times for k, n in one.items()}
 
 
 def phase_zoo(device):
-    """The FM family and DCN: (a) the seven models of the ML-100K quality
-    protocol through ``examples.model_zoo_ml.run_model`` under "segmat",
-    each in its band, with its launches; (b) dcn_paper_criteo: serving,
-    step-1 gradients and a 4-step trace against the CPU, 32 timed stacked
-    steps, a 1-epoch fit. Returns the launches of (a) and (b)."""
+    """The zoo outside the sequence family: (a) the sixteen runs of the
+    ML-100K quality protocol through ``examples.model_zoo_ml.run_model``
+    under "segmat", each in its band, with its launches; (c) one of them
+    saved and served by ``Predictor.from_checkpoint``, equal to its
+    trainer's predictions; (b) dcn_paper_criteo: serving, step-1 gradients
+    and a 4-step trace against the CPU, 32 timed stacked steps, a 1-epoch
+    fit. Returns the launches of (a) and (b)."""
+    import tempfile
+
     import torch
 
     from recman_tpu_torch.data import (
@@ -2298,43 +2387,67 @@ def phase_zoo(device):
     card = card_line()
     # (a) ML-100K, the reference's protocol, counts from 0 around each run
     t0 = time.perf_counter()
-    train, valid, _, domains = get_ml_dataset(frac=0.5, random_seed=RANDOM_SEED)
+    train, valid, test, domains = get_ml_dataset(frac=0.5, random_seed=RANDOM_SEED)
     steps = len(train["label"]) // 128 + 1
     zoo_counts, rows = {}, {}
-    for name, (ref_ll, ref_auc) in ZOO_ROWS.items():
+    for label, (ref_ll, ref_auc) in ZOO_ROWS.items():
+        name, hparams = ZOO_RUNS.get(label, (label, None))
         # numpy's global generator draws the epoch's shuffle seed (the
         # reference's quirk): seeded as the anchor seeds it, so a run repeats
         np.random.seed(RANDOM_SEED)
         reset_counts()
         t1 = time.perf_counter()
-        with grad_kernel("segmat"), scatter_counter() as scatters, step_events() as events:
-            trainer, (logloss, auc) = run_model(name, device=device)
+        with grad_kernel("segmat"), scatter_counter() as scatters, step_events() as events, \
+                lookup_spy() as lookups:
+            trainer, (logloss, auc) = run_model(name, hparams=hparams, device=device)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t1
         counts = kernel_counts()
         check(trainer.device == device and all(v.is_cuda for v in trainer.params.values()),
-              f"{name} did not train on the GPU")
-        per_step = lookup_launches(trainer.model)
+              f"{label} did not train on the GPU")
+        check(len(lookups) == 1, f"{label}: lookups {lookups}")
+        lookup = lookups.pop()
+        per_step = lookup_launches(trainer.model, lookup)
+        check(per_step == {"K6": 6, "K3": 0}, f"{label}: {per_step} a step, expected K6 6")
         expected = {k: 0 for k in counts}
         expected.update({k: n * steps for k, n in per_step.items()})
-        check_counts(counts, expected, f"{name} run_model (segmat)")
-        check(scatters[0] == 0, f"{name}: index_add_ reached {scatters[0]} times under segmat")
-        check(len(events) == steps + 1, f"{name}: {len(events) - 1} steps timed, expected {steps}")
+        check_counts(counts, expected, f"{label} run_model (segmat)")
+        check(scatters[0] == 0, f"{label}: index_add_ reached {scatters[0]} times under segmat")
+        check(len(events) == steps + 1, f"{label}: {len(events) - 1} steps timed, expected {steps}")
         epoch_s = events[0].elapsed_time(events[-1]) / 1e3
         step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
-        rows[name] = (logloss, auc)
-        zoo_counts[name] = counts
-        log(f"zoo {name} (GPU, segmat): TEST logloss {logloss:.4f} auc {auc:.4f} (JAX CPU row "
-            f"{ref_ll:.4f} / {ref_auc:.4f}); epoch {epoch_s:.3f} s for {steps} steps, step "
-            f"(CUDA events, median) {step_ms:.4f} ms; run_model {run_s:.1f} s; launches "
-            f"{ {k: v for k, v in counts.items() if v} } = {per_step} a step; index_add_ 0")
-    for name, (ref_ll, ref_auc) in ZOO_ROWS.items():
-        logloss, auc = rows[name]
+        rows[label] = (logloss, auc)
+        zoo_counts[label] = counts
+        log(f"zoo {label} (GPU, segmat, {lookup} lookup): TEST logloss {logloss:.4f} auc "
+            f"{auc:.4f} (JAX CPU row {ref_ll:.4f} / {ref_auc:.4f}); epoch {epoch_s:.3f} s for "
+            f"{steps} steps, step (CUDA events, median) {step_ms:.4f} ms; run_model "
+            f"{run_s:.1f} s; launches { {k: v for k, v in counts.items() if v} } = {per_step} a "
+            f"step; index_add_ 0")
+        if label == ZOO_CHECKPOINT:
+            # (c) served from its checkpoint: the trainer's predictions exactly
+            x_test = trainer.model.feat_dict.transform(test)
+            with tempfile.TemporaryDirectory(dir="build", prefix="zoo_ckpt_") as tmp:
+                trainer.save(tmp)
+                served = Predictor.from_checkpoint(tmp, name, batch_size=trainer.batch_size,
+                                                   device=device)
+                check(type(served.model) is type(trainer.model) and served.device == device
+                      and all(v.is_cuda for v in served.params.values()),
+                      f"{label} checkpoint: model or device")
+                got = served.predict(x_test)
+            want = trainer.predict(x_test)
+            check(got.shape == (len(test["label"]),) and np.array_equal(got, want),
+                  f"{label} served from its checkpoint: max|dp| "
+                  f"{float(np.abs(got - want).max())} against the trainer's predict")
+            log(f"zoo {label}: Predictor.from_checkpoint on the card, {len(got)} ua.test rows at "
+                f"batch {trainer.batch_size}, equal to the trainer's predict")
+        del trainer
+    for label, (ref_ll, ref_auc) in ZOO_ROWS.items():
+        logloss, auc = rows[label]
         check(abs(logloss - ref_ll) <= ZOO_LOGLOSS_BAND,
-              f"{name} TEST logloss {logloss} outside {ref_ll} +- {ZOO_LOGLOSS_BAND}")
+              f"{label} TEST logloss {logloss} outside {ref_ll} +- {ZOO_LOGLOSS_BAND}")
         check(abs(auc - ref_auc) <= ZOO_AUC_BAND,
-              f"{name} TEST auc {auc} outside {ref_auc} +- {ZOO_AUC_BAND}")
-    log(f"zoo ML-100K: all {len(ZOO_ROWS)} models within their bands ({time.perf_counter() - t0:.1f}"
+              f"{label} TEST auc {auc} outside {ref_auc} +- {ZOO_AUC_BAND}")
+    log(f"zoo ML-100K: all {len(ZOO_ROWS)} runs within their bands ({time.perf_counter() - t0:.1f}"
         f" s) [{card}]")
 
     # (b) dcn_paper_criteo: serving on the card, against the CPU
@@ -2480,19 +2593,203 @@ def phase_zoo(device):
     return {"ml": zoo_counts, "dcn": dcn_counts}
 
 
-def seq_recorded_grads(model, params, ub, w, card=None):
-    """Step-1 gradients of a sequence model, recording the pre-activation of
-    each piecewise-linear activation it runs (BST's encoders' FFN and its
-    DNN; Dice is smooth and records nothing), on the CPU. With ``card``,
-    another run's record: where this run's pre-activation has the other
-    sign, the activation and its derivative are taken on the card's side
-    of 0, as ``recorded_grads`` does. Returns (grads, [pre-activations])."""
+def phase_dlrm(device):
+    """dlrm_mlperf_criteo: DLRM at the MLPerf reference's widths on the
+    bench's Criteo-shaped data. Serving against the CPU; per-table training
+    with K3 once a step at (T, C, N) = (26, 128, 2048) under "auto" (K6, K7
+    and index_add_ never): step-1 gradients on the card's relu signs and a
+    4-step SGD trace against the CPU, 32 timed steps with a profile and the
+    peak memory; a 1-epoch ``Trainer.fit``. Returns the timed steps'
+    launches."""
+    import torch
+
+    from recman_tpu_torch.data import create_criteo_features, synthetic_criteo_arrays
+    from recman_tpu_torch.models import DLRM
+    from recman_tpu_torch.serving import Predictor
+    from recman_tpu_torch.training import (
+        LogLoss, StreamingAUC, Trainer, TrainState, batch_indices, create_optimizer,
+        gather_batch, make_train_step, pack_dataset, unpack_batch,
+    )
+
+    card = card_line()
+    t0 = time.perf_counter()
+    model = DLRM(create_criteo_features(num_buckets=NUM_BUCKETS), DLRM_HP)
+    k = DLRM_HP["embedding_size"]
+    check(model.bot_units == (512, 256, k) and model.num_fields == 27
+          and model.top.input_dim == k + 351 and model.top.hidden_units == (1024, 1024, 512, 256)
+          and not hasattr(model, "packed"), "dlrm_mlperf_criteo widths")
+    params = model.init_params(torch.Generator().manual_seed(0), device)
+    n_params = sum(v.numel() for v in params.values())
+    table_bytes = sum(4 * v.numel() for n, v in params.items() if n.endswith("_feat_embed"))
+    sites = [(model, "bot_activation"), (model.top, "activation")]
+
+    # serving on the card, against the CPU
+    data = synthetic_criteo_arrays(DLRM_SERVE_ROWS, num_buckets=NUM_BUCKETS, seed=2019)
+    data.pop("y")
+    predictor = Predictor(model, params, batch_size=DLRM_SERVE_BATCH, device=device)
+    preds = predictor.predict(data)
+    torch.cuda.synchronize()
+    check(preds.shape == (DLRM_SERVE_ROWS,) and bool(np.isfinite(preds).all())
+          and bool(((preds > 0) & (preds < 1)).all()), "dlrm predictions")
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        predictor.predict(data)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    wall = statistics.median(walls)
+    params_cpu = {n: v.cpu() for n, v in params.items()}
+    batch_cpu = {n: torch.as_tensor(v[:DLRM_SERVE_BATCH]) for n, v in data.items()}
+    with torch.inference_mode():
+        preds_cpu = model.apply(params_cpu, batch_cpu).numpy()
+    dp = float(np.abs(preds_cpu - preds[:DLRM_SERVE_BATCH]).max())
+    check(dp <= DLRM_PRED_TOL, f"dlrm GPU vs CPU first batch: max|dp| {dp} > {DLRM_PRED_TOL}")
+    log(f"dlrm_mlperf_criteo serving: {n_params} params ({4 * n_params / 1e9:.3f} GB f32, tables "
+        f"{table_bytes / 1e9:.3f} GB), top MLP input {model.top.input_dim}; predict "
+        f"{DLRM_SERVE_ROWS} rows {wall * 1e3:.3f} ms (median of 3), {DLRM_SERVE_ROWS / wall:.1f} "
+        f"rows/s; GPU vs CPU, first batch of {DLRM_SERVE_BATCH}: max|dp| {dp:.3e} [{card}]")
+    del predictor, preds
+
+    # per-table training: step 1 and a 4-step trace against the CPU
+    opt = create_optimizer(DLRM_HP["optimizer"], DLRM_HP["learning_rate"])
+    n_rows = (TIMED_STEPS + 4) * DLRM_BATCH
+    packed, layout = pack_dataset(synthetic_criteo_arrays(n_rows, num_buckets=NUM_BUCKETS,
+                                                          seed=11))
+    idx_np = batch_indices(n_rows, DLRM_BATCH, shuffle_seed=3)
+    idx_np = idx_np[(idx_np >= 0).all(axis=1)]
+    d = {n: torch.as_tensor(v).to(device) for n, v in packed.items()}
+    idx = torch.as_tensor(idx_np).to(device)
+    batch, w = gather_batch(d, idx[0])
+    ub = unpack_batch(batch, layout)
+    reset_counts()
+    with scatter_counter() as scatters:
+        g_gpu, seen_gpu = activation_recorded_grads(model, params, ub, w, sites)
+    check_counts(kernel_counts(), {"K3": 1, "K6": 0, "K7": 0}, "dlrm step 1")
+    check(scatters[0] == 0 and len(seen_gpu) == 7, f"dlrm step 1: index_add_ {scatters[0]}, "
+          f"{len(seen_gpu)} relus recorded")
+    g_gpu = {n: v.cpu() for n, v in g_gpu.items()}
+
+    def trace(p, dd, ix):
+        state, step, losses = TrainState(p, opt.init(p), 0, None), make_train_step(model, opt), []
+        for i in range(CPU_STEPS):
+            state, loss = step(state, dd, ix[i], layout)
+            losses.append(loss)
+        return torch.stack(losses)
+
+    tg = trace(params, d, idx).cpu().numpy()
+    t1 = time.perf_counter()
+    ub_cpu = {n: v.cpu() for n, v in ub.items()}
+    g_cpu, seen_cpu = activation_recorded_grads(model, params_cpu, ub_cpu, w.cpu(), sites)
+    g_signs = activation_recorded_grads(model, params_cpu, ub_cpu, w.cpu(), sites,
+                                        card=seen_gpu)[0]
+    tc = trace(params_cpu, {n: torch.as_tensor(v) for n, v in packed.items()},
+               torch.as_tensor(idx_np)).numpy()
+    cpu_s = time.perf_counter() - t1
+    del params_cpu
+    plain_rel = max(rel_err(g_cpu[n], g_gpu[n]) for n in g_cpu)
+    flips = sign_flips(seen_cpu, seen_gpu, DNN_Z_TOL, "dlrm step 1 relus, GPU vs CPU",
+                       near_tol=DNN_Z_TOL)
+    rel, worst = grads_match(g_signs, g_gpu, "dlrm step-1 grad GPU vs CPU on the card's signs")
+    max_d, final_rel = trace_match(tg, tc, "dlrm loss trace")
+    log(f"dlrm_mlperf_criteo training GPU vs CPU (CPU {cpu_s:.1f} s): step-1 grads of "
+        f"{len(g_gpu)} leaves, worst max|d|/max|ref| {plain_rel:.3e} as run, {rel:.3e} ({worst}) "
+        f"on the card's signs; relu derivatives read on the other side of 0: {flips} of "
+        f"{sum(z.numel() for z in seen_cpu)} (bottom and top); trace GPU {tg.tolist()} CPU "
+        f"{tc.tolist()}: max|d| {max_d:.3e}, final rel {final_rel:.3e}")
+    del g_gpu, g_cpu, g_signs, seen_gpu, seen_cpu
+
+    # TIMED_STEPS per-table steps, counts from 0
+    step = make_train_step(model, opt)
+    state = TrainState(params, opt.init(params), 0, None)
+    del params
+    for i in range(3):
+        state, _ = step(state, d, idx[i], layout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    losses = []
+    t1 = time.perf_counter()
+    with scatter_counter() as scatters:
+        events[0].record()
+        for i in range(TIMED_STEPS):
+            state, loss = step(state, d, idx[i % len(idx_np)], layout)
+            losses.append(loss)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    dlrm_counts = kernel_counts()
+    check_counts(dlrm_counts, {n: TIMED_STEPS * (n == "K3") for n in dlrm_counts},
+                 f"dlrm {TIMED_STEPS} steps")
+    check(scatters[0] == 0, f"dlrm timed steps: index_add_ {scatters[0]}")
+    check(bool(torch.isfinite(torch.stack(losses)).all()), "dlrm: non-finite loss in the timed steps")
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    peak = torch.cuda.max_memory_allocated()
+    box = {"state": state}
+
+    def one_step():
+        box["state"], _ = step(box["state"], d, idx[0], layout)
+
+    kernel_ms = profile_device(one_step, step_ms, "dlrm_mlperf_criteo train steps", n=3)
+    log(f"dlrm_mlperf_criteo train steady: {TIMED_STEPS} per-table SGD steps at batch "
+        f"{DLRM_BATCH}, launches K3 {dlrm_counts['K3']} at (26, {k}, {DLRM_BATCH}); step (CUDA "
+        f"events, median) {step_ms:.4f} ms, {DLRM_BATCH / step_ms * 1e3:.1f} examples/s; wall "
+        f"{wall * 1e3 / TIMED_STEPS:.3f} ms/step; busy share "
+        f"{kernel_ms / step_ms if kernel_ms else 'not measured'}; peak memory "
+        f"{peak / 1e9:.3f} GB [{card}]")
+    del state, box, d
+
+    # a 1-epoch Trainer.fit (K3 once a step)
+    arrays = synthetic_criteo_arrays(DLRM_FIT_ROWS, num_buckets=NUM_BUCKETS, seed=2019)
+    n_train = int(0.9 * DLRM_FIT_ROWS)
+    tr_x = {n: v[:n_train] for n, v in arrays.items() if n != "y"}
+    va_x = {n: v[n_train:] for n, v in arrays.items() if n != "y"}
+    trainer = Trainer(DLRM(create_criteo_features(num_buckets=NUM_BUCKETS), DLRM_HP), DLRM_HP,
+                      metrics=(LogLoss(), StreamingAUC()), epoch=1, batch_size=DLRM_BATCH,
+                      random_seed=2019, device=device)
+    reset_counts()
+    t1 = time.perf_counter()
+    with step_events() as events, scatter_counter() as scatters:
+        trainer.fit(tr_x, arrays["y"][:n_train])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    fit_counts = kernel_counts()
+    fit_steps = n_train // DLRM_BATCH + 1
+    check_counts(fit_counts, {n: fit_steps * (n == "K3") for n in fit_counts}, "dlrm fit")
+    check(scatters[0] == 0, f"dlrm fit: index_add_ {scatters[0]}")
+    # SGD at 0.1 moves the 0.0045-scale Glorot rows little in 88 steps: the
+    # port's CPU run of this fit reads VALID AUC 0.5018, so no AUC bound
+    logloss, auc = trainer.evaluate(va_x, arrays["y"][n_train:])
+    check(np.isfinite(trainer.last_mean_loss) and np.isfinite(logloss) and 0.0 <= auc <= 1.0,
+          f"dlrm fit: epoch loss {trainer.last_mean_loss}, VALID logloss {logloss}, auc {auc}")
+    epoch_s = events[0].elapsed_time(events[-1]) / 1e3
+    log(f"dlrm_mlperf_criteo fit: {n_train} rows, {fit_steps} steps in {epoch_s:.3f} s (CUDA "
+        f"events, {n_train / epoch_s:.1f} examples/s), fit {fit_s:.1f} s; VALID logloss "
+        f"{logloss:.4f} auc {auc:.4f}; K3 {fit_counts['K3']} ({time.perf_counter() - t0:.1f} s) "
+        f"[{card}]")
+    return dlrm_counts
+
+
+def seq_sites(model):
+    """The piecewise-linear activations a sequence model runs, as (holder,
+    attribute) pairs: BST's encoders' FFN and its DNN (Dice is smooth and
+    records nothing)."""
+    holders = [enc for encs in getattr(model, "encoders", {}).values() for enc in encs]
+    holders += [model.dnn] if model.dnn.activation is not None else []
+    return [(h, "activation") for h in holders]
+
+
+def activation_recorded_grads(model, params, ub, w, sites, card=None):
+    """Step-1 gradients of a model with per-table storage, recording the
+    pre-activation of each activation in ``sites`` ((holder, attribute)
+    pairs, in call order) on the CPU. With ``card``, another run's record:
+    where this run's pre-activation has the other sign, the activation and
+    its derivative are taken on the card's side of 0, as
+    ``recorded_grads`` does. Returns (grads, [pre-activations])."""
     import torch
 
     from recman_tpu_torch.training.train_step import loss_and_grads
 
-    holders = [enc for encs in getattr(model, "encoders", {}).values() for enc in encs]
-    holders += [model.dnn] if model.dnn.activation is not None else []
     seen = []
 
     def wrap(act):
@@ -2505,14 +2802,14 @@ def seq_recorded_grads(model, params, ub, w, card=None):
             return torch.where(pos == (z > 0), act(z), torch.where(pos, z, -act(-z)))
         return recorded
 
-    real = [h.activation for h in holders]
-    for h in holders:
-        h.activation = wrap(h.activation)
+    real = [getattr(h, attr) for h, attr in sites]
+    for (h, attr), act in zip(sites, real):
+        setattr(h, attr, wrap(act))
     try:
         grads = loss_and_grads(model, params, ub, w)[1]
     finally:
-        for h, act in zip(holders, real):
-            h.activation = act
+        for (h, attr), act in zip(sites, real):
+            setattr(h, attr, act)
     return grads, seen
 
 
@@ -2552,7 +2849,8 @@ def phase_seq(device):
         np.random.seed(RANDOM_SEED)
         reset_counts()
         t1 = time.perf_counter()
-        with grad_kernel("segmat"), scatter_counter() as scatters, step_events() as events:
+        with grad_kernel("segmat"), scatter_counter() as scatters, step_events() as events, \
+                lookup_spy() as lookups:
             trainer, (logloss, auc) = run_model(name, device=device)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t1
@@ -2561,7 +2859,8 @@ def phase_seq(device):
               f"{name} did not train on the GPU")
         check(trainer.model.embeddings.embedding_size == 8 and
               trainer.model.feat_dict["hist_items"].max_len == 10, f"{name}: k or max_len")
-        per_step = lookup_launches(trainer.model)
+        check(lookups == {"apply_dict"}, f"{name}: lookups {lookups}")
+        per_step = lookup_launches(trainer.model, "apply_dict")
         check(per_step == {"K6": 7, "K3": 0}, f"{name}: {per_step} a step, expected K6 7")
         expected = {k: 0 for k in counts}
         expected["K6"] = per_step["K6"] * steps
@@ -2613,13 +2912,14 @@ def phase_seq(device):
             with grad_kernel("segmat"):
                 if on_card:
                     reset_counts()
-                grads, seen = seq_recorded_grads(model, params, ub, w)
+                grads, seen = activation_recorded_grads(model, params, ub, w, seq_sites(model))
                 if on_card:
                     check_counts(kernel_counts(), {"K6": 7, "K3": 0, "K7": 0},
                                  f"{name} step 1")
                     card_seen = seen
                 else:
-                    signs = seq_recorded_grads(model, params, ub, w, card=card_seen)[0]
+                    signs = activation_recorded_grads(model, params, ub, w, seq_sites(model),
+                                                      card=card_seen)[0]
                 state = TrainState(params, tr.optimizer.init(params), 0, None)
                 step = make_train_step(model, tr.optimizer)
                 losses = []
@@ -2716,9 +3016,11 @@ def kernel_record(name, source, replaces, launches, rec):
            "kernel_ms": rec.get("kernel_ms") or rec["ms"], "plain_ms": rec["plain_ms"],
            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
            "library_ms": rec["library_ms"]}
-    # K3 at the large-batch N, K6 at a Criteo table and at the history, the
-    # launches of the zoo and sequence phases
-    for extra in ("large_batch", "criteo", "history", "zoo_launches", "seq_launches"):
+    # K3 at the large-batch N and at dlrm_mlperf_criteo's C 128, K6 at a
+    # Criteo table and at the history, the launches of the zoo and sequence
+    # phases
+    for extra in ("large_batch", "dlrm_mlperf_criteo", "criteo", "history", "zoo_launches",
+                  "seq_launches"):
         if extra in rec:
             out[extra] = rec[extra]
     return out
@@ -2776,11 +3078,15 @@ def main():
     zoo = phase_zoo(device)
     log(f"zoo phase {time.perf_counter() - t0:.1f} s [{card}]")
     t0 = time.perf_counter()
+    dlrm = phase_dlrm(device)
+    log(f"dlrm phase {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
     seq = phase_seq(device)
     log(f"sequence phase {time.perf_counter() - t0:.1f} s [{card}]")
     rec["K6"]["seq_launches"] = sum(c["K6"] for c in seq.values())
     rec["K6"]["zoo_launches"] = sum(c["K6"] for c in zoo["ml"].values())
-    rec["K3"]["zoo_launches"] = zoo["dcn"]["K3"]
+    rec["K3"]["zoo_launches"] = {"dcn_paper_criteo": zoo["dcn"]["K3"],
+                                 "dlrm_mlperf_criteo": dlrm["K3"]}
 
     fwd, bwd, seg = ("recman_tpu_torch/csrc/cin_chain_fwd.cu", "recman_tpu_torch/csrc/cin_chain_bwd.cu",
                      "recman_tpu_torch/csrc/segment_matmul.cu")

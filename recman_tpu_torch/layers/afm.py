@@ -12,11 +12,10 @@ Plain PyTorch einsums and softmax, as the reference leaves them to XLA.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..utils import glorot_normal, l2_loss, split_rng
-from .common import dropout
+from .common import dropout, triu_pairs
 
 
 class AFMLayer:
@@ -31,17 +30,7 @@ class AFMLayer:
         self.att_dropout = att_dropout
         self.l2_reg = l2_reg
         self.prefix = prefix
-        self._pairs_np = np.triu_indices(field_size, k=1)
-        self._pairs = {}  # the pair indices, copied once to each device
-
-    def _pair_index(self, device):
-        if device not in self._pairs:
-            # normal tensors even when first built under inference_mode, so
-            # that a later training step may save them for its backward
-            with torch.inference_mode(False):
-                self._pairs[device] = tuple(torch.as_tensor(p, dtype=torch.long, device=device)
-                                            for p in self._pairs_np)
-        return self._pairs[device]
+        self.pairs = triu_pairs(field_size)
 
     def init(self, generator, device=None) -> dict:
         k, t = self.embedding_size, self.att_factor
@@ -55,7 +44,7 @@ class AFMLayer:
 
     def apply(self, params, embeddings, training=False, generator=None):
         assert embeddings.dim() == 3  # (B, F, k)
-        pair_i, pair_j = self._pair_index(embeddings.device)
+        pair_i, pair_j = self.pairs.on(embeddings.device)
         pairs = embeddings[:, pair_i] * embeddings[:, pair_j]
         att = torch.relu(
             torch.einsum("bpk,kt->bpt", pairs, params[f"{self.prefix}afm_att_w"])

@@ -1,6 +1,7 @@
 """Shared layer utilities: keep-probability dropout, activations by name,
 Dice (``batch_moments``, ``dice``, and ``dice_params`` / ``apply_dice``
-for the layers that hold Dice params).
+for the layers that hold Dice params), and ``DeviceIndex`` /
+``triu_pairs``, the static gathers' indices.
 
 Dropout arguments are KEEP probabilities, as in the reference
 (``recman_tpu/layers/common.py:14-23``): keep=1.0 is a no-op, keep=0.8
@@ -9,6 +10,7 @@ keeps 80% of units.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -116,3 +118,28 @@ def resolve_activation(act):
     if act == "dice":
         return dice
     return ACTIVATIONS[act]
+
+
+class DeviceIndex:
+    """Constant int64 index vectors, a static gather's, copied to each
+    device once; ``on(device)`` gives them as a tuple of tensors."""
+
+    def __init__(self, *indices):
+        self.indices = tuple(np.asarray(i, dtype=np.int64) for i in indices)
+        self._on = {}
+
+    def on(self, device):
+        if device not in self._on:
+            # normal tensors even when first built under inference_mode, so
+            # that a later training step may save them for its backward
+            with torch.inference_mode(False):
+                self._on[device] = tuple(torch.as_tensor(i, device=device) for i in self.indices)
+        return self._on[device]
+
+
+def triu_pairs(num_fields: int) -> DeviceIndex:
+    """The field pairs (i, j), i < j, of ``num_fields`` fields as (rows,
+    cols), in ``np.triu_indices(num_fields, 1)``'s row-major order: the
+    reference's static pair gathers (layers/afm.py, product.py, senet.py,
+    models/dlrm.py)."""
+    return DeviceIndex(*np.triu_indices(int(num_fields), k=1))

@@ -111,3 +111,7 @@ class LinearLayer:
     def l2(self, params):
         """Reference layers.py:349-354 / 441-446."""
         return self.l2_reg * l2_loss(params[f"{self.prefix}linear_w"])
+
+
+# the reference's name for the same layer (recman_tpu/layers/linear.py:136)
+SparseLinearLayer = LinearLayer

@@ -294,9 +294,12 @@ def test_predictor_from_checkpoint_matches_jax(synthetic_df, tmp_path):
     np.testing.assert_allclose(tp.predict(synthetic_df), jp.predict(synthetic_df), rtol=0,
                                atol=1e-5)
     np.testing.assert_array_equal(tp.predict(synthetic_df), tt.predict(synthetic_df))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: the model zoo"):
+    # every model of the zoo is registered: an AutoInt on this xDeepFM
+    # checkpoint is built, and the check of its params refuses it; an
+    # unknown name raises as the reference's registry does
+    with pytest.raises(ValueError, match="checkpoint has no param 'autoint_0_wq'"):
         Predictor.from_checkpoint(tmp_path / "port", "autoint", hparams=hp, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: the model zoo"):
+    with pytest.raises(KeyError, match="no_such_model"):
         Predictor.from_checkpoint(tmp_path / "port", "no_such_model", device="cpu")
 
 

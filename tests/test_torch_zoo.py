@@ -470,10 +470,12 @@ def test_run_model_and_unported_models(capsys):
     assert isinstance(trainer.model, models.FM) and trainer.device.type == "cpu"
     assert np.isfinite(logloss) and 0.0 <= auc <= 1.0
     assert "hist_items" not in trainer.model.feat_dict
-    assert set(models.MODEL_REGISTRY) == set(ZOO) | {"xdeepfm", "din", "bst", "dien"}
-    for name in ("autoint", "dcn_v2", "pnn", "no_such_model"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: the model zoo"):
-            run_model(name, frac=0.02, device="cpu")
+    # the whole zoo is ported: the registry is the reference's, and an
+    # unknown name raises as the reference's MODEL_REGISTRY[name] does
+    assert set(models.MODEL_REGISTRY) == set(recman_tpu.models.MODEL_REGISTRY)
+    assert set(models.MODEL_REGISTRY) >= set(ZOO) | {"xdeepfm", "din", "bst", "dien"}
+    with pytest.raises(KeyError, match="no_such_model"):
+        run_model("no_such_model", frac=0.02, device="cpu")
 
     # a model that sets requires_sequence trains on the history schema
     class SequenceFM(models.FM):
