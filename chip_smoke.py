@@ -172,6 +172,28 @@ bit-equal on two calls.
    for din (3 epochs), bst and dien (15) under "segmat": VALID logloss
    and AUC within the zoo's bands of the JAX example's CPU readings
    (``SYNTH_ROWS``), K6 twice a step.
+13. serving artifacts (runs right after the serving phase):
+   ``Predictor.export`` and ``ExportedPredictor``. (a) The bench xDeepFM
+   exported at batch 8192 as f32, load-time int8 and runtime int8
+   (``tools/bench_serving.py``), each serving 65,536 rows: the f32
+   artifact within 1e-6 of the live ``Predictor``, its graph holding K1 as
+   the op node ``recman_tpu_torch::cin_chain_fwd``, K1 once per served
+   batch and the plain twins never reached; runtime int8 within 1e-2 of
+   f32 and 1e-6 of load-time int8, at 4k/(k+4) fewer table bytes on the
+   card; examples/s, blob and table bytes printed. (b)
+   ``xdeepfm_paper_criteo`` exported and serving 16,384 rows: within 1e-6
+   of the live ``Predictor``, K4 three times a batch as the op node
+   ``recman_tpu_torch::cin_interact_fwd``. (c) QR embeddings on all 26
+   hashed fields (q 317: Q (316, 16), R (317, 16)) at the bench widths,
+   batch 8192 under "segmat": step-1 gradients on the card's signs and a
+   4-step trace against the CPU, K6 78 times a step (Q, R and the linear
+   weights of each field, counted by (V, C)), never ``index_add_``; 8
+   timed steps with a profile; then the trained model exported as
+   runtime int8 (Q and R int8) and serving 65,536 rows within 1e-2 of the
+   live ``Predictor``. (d) ``examples.xdeepfm_synthetic.main``: every
+   Outdoor row falls after the override. The kernels phase holds K6 at
+   the QR quotient shape (N 8192, V 316, C 16) against its twin and times
+   it beside ``index_add_`` and its bound.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU it exits
@@ -271,6 +293,13 @@ PAPER_BATCH = 4096
 PAPER_ROWS = 65_536
 PAPER_VALID = 8192  # rows for evaluate after the fit
 PARITY_BATCH = 1024  # bounds the CPU's time for the parity steps
+# the export phase: an artifact against the live Predictor on the same rows
+# (the same kernels and roundings; only the batches' padding rows differ)
+EXPORT_TOL = 1e-6
+INT8_TOL = 1e-2            # runtime int8 against f32 (tools/bench_serving.py's bound)
+PAPER_SERVE_ROWS = 16_384  # xdeepfm_paper_criteo's exported serving
+QR_COLLISIONS = 317        # ceil(sqrt(100,001)): Q (316, k) and R (317, k) per hashed field
+QR_STEPS = 8               # timed QR train steps
 # the large-batch slice: the reference's criteo_large_batch configuration
 # (the bench model; Adam, or lamb, with large_batch_schedule)
 LARGE_HP = dict(HPARAMS, optimizer="adam")
@@ -863,9 +892,12 @@ def phase_kernels(device):
     # the sequence family's history ids of its first train batch
     genres = ml_genres_ids()
     history, item_v = ml_history_ids()
+    qr_v = -(-vocab_full // QR_COLLISIONS)
     for label, ids, v, c in (("genres", genres, 20, 9),
                              ("criteo", full_ids[0], vocab_full, HPARAMS["embedding_size"] + 1),
-                             ("history", history, item_v, 8)):
+                             ("history", history, item_v, 8),
+                             ("qr", full_ids[0] // QR_COLLISIONS, qr_v,
+                              HPARAMS["embedding_size"])):
         sids = torch.from_numpy(np.sort(ids).astype(np.int32)).to(device)
         sg = torch.randn((len(ids), c), generator=torch.Generator().manual_seed(13)).to(device)
         got = segment_matmul.segment_matmul_from_sorted(sids, sg, v)
@@ -3007,6 +3039,276 @@ def phase_seq(device):
     return seq_counts
 
 
+@contextlib.contextmanager
+def twins_barred():
+    """K1's and K4's plain twins raise for the block's length: a CUDA
+    tensor must never reach them."""
+    from recman_tpu_torch.ops import cin_chain, cin_interact
+
+    saved = cin_chain.cin_chain_fm_reference, cin_interact.cin_interact_fm_reference
+
+    def barred(*a, **k):
+        raise RuntimeError("a plain twin of K1 or K4 was reached")
+
+    cin_chain.cin_chain_fm_reference = cin_interact.cin_interact_fm_reference = barred
+    try:
+        yield
+    finally:
+        cin_chain.cin_chain_fm_reference, cin_interact.cin_interact_fm_reference = saved
+
+
+@contextlib.contextmanager
+def k6_shapes():
+    """Count the single-table lookups' segment sums by (V, C) for the
+    block's length; yields the counter."""
+    import collections
+
+    from recman_tpu_torch.ops import embedding as emb
+
+    seen = collections.Counter()
+    inner = emb.segment_matmul_from_sorted
+
+    def spy(sids, sg, v):
+        seen[(v, sg.shape[1])] += 1
+        return inner(sids, sg, v)
+
+    emb.segment_matmul_from_sorted = spy
+    try:
+        yield seen
+    finally:
+        emb.segment_matmul_from_sorted = inner
+
+
+def phase_export(device):
+    """Serving artifacts on the card (``Predictor.export``, ``ExportedPredictor``):
+    (a) the bench xDeepFM exported as f32, load-time int8 and runtime int8
+    (``tools/bench_serving.py``), each serving N_ROWS rows at BATCH; (b)
+    xdeepfm_paper_criteo's per-layer CIN exported for the card and the CPU,
+    served on the card; (c) QR
+    embeddings on all 26 hashed fields at the bench widths: train steps
+    under "segmat" against the CPU, timed, then exported as runtime int8
+    and served; (d) ``examples.xdeepfm_synthetic``. Returns the launches."""
+    import os
+    import tempfile
+
+    import torch
+
+    from recman_tpu_torch.data import CAT_NAMES, create_criteo_features, synthetic_criteo_arrays
+    from recman_tpu_torch.examples import xdeepfm_synthetic
+    from recman_tpu_torch.models import XDeepFM
+    from recman_tpu_torch.ops import embedding as emb_ops
+    from recman_tpu_torch.serving import Q8, ExportedPredictor, Predictor, op_nodes
+    from recman_tpu_torch.tools.bench_serving import serve_artifacts
+    from recman_tpu_torch.training import (
+        LogLoss, TrainState, Trainer, batch_indices, gather_batch, make_train_step, unpack_batch,
+    )
+
+    card = card_line()
+    k = HPARAMS["embedding_size"]
+    launches = {}
+    os.makedirs("build", exist_ok=True)
+    tmp_dir = tempfile.TemporaryDirectory(dir="build")
+    tmp = tmp_dir.name
+
+    # (a) the bench xDeepFM: f32, load-time int8, runtime int8
+    t0 = time.perf_counter()
+    model = XDeepFM(create_criteo_features(num_buckets=NUM_BUCKETS), HPARAMS)
+    predictor = Predictor(model, model.init_params(torch.Generator().manual_seed(0)),
+                          batch_size=BATCH)
+    data = synthetic_criteo_arrays(N_ROWS, num_buckets=NUM_BUCKETS, seed=7)
+    data.pop("y")
+    live = predictor.predict(data)
+    with twins_barred():
+        res = serve_artifacts(predictor, data, os.path.join(tmp, "bench"), BATCH)
+    f32, q8, rq8 = res["f32"], res["load_int8"], res["runtime_int8"]
+    ops = op_nodes(os.path.join(tmp, "bench", "f32"))
+    check(ops == {"recman_tpu_torch.cin_chain_fwd.default"}, f"the CUDA artifact's ops: {ops}")
+    n_batches = -(-N_ROWS // BATCH)
+    reset_counts()
+    with twins_barred():
+        again = f32["served"].predict(data)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    check_counts(counts, {"K1": n_batches, "K1 save": 0, "K4": 0},
+                 f"exported predict of {N_ROWS} rows")
+    launches["K1"] = counts["K1"]
+    d_live = float(np.abs(f32["preds"] - live).max())
+    d_rt = float(np.abs(rq8["preds"] - f32["preds"]).max())
+    d_q = float(np.abs(rq8["preds"] - q8["preds"]).max())
+    check(np.array_equal(again, f32["preds"]), "the f32 artifact: two predict calls differ")
+    check(d_live <= EXPORT_TOL, f"f32 artifact vs live Predictor: max|d| {d_live}")
+    check(0 < d_rt < INT8_TOL, f"runtime int8 vs f32: max|d| {d_rt}")
+    check(d_q <= EXPORT_TOL, f"runtime int8 vs load-time int8: max|d| {d_q}")
+    shrink = f32["table_bytes"] / rq8["table_bytes"]
+    check(abs(shrink - 4 * k / (k + 4)) < 1e-9 and q8["table_bytes"] == f32["table_bytes"],
+          f"table bytes f32 {f32['table_bytes']}, load int8 {q8['table_bytes']}, runtime int8 "
+          f"{rq8['table_bytes']}")
+    check(all(rq8["served"].params[n + Q8].dtype == torch.int8
+              and rq8["served"].params[n + Q8].is_cuda for n in rq8["served"].meta["quantized"]),
+          "runtime int8 tables not int8 on the card")
+    log(f"export (a) bench xDeepFM, {N_ROWS} rows at batch {BATCH} ({n_batches} batches): f32 "
+        f"artifact vs live Predictor max|d| {d_live:.3e}; K1 {counts['K1']} launches as the "
+        f"op node, plain twins never reached; runtime int8 vs f32 {d_rt:.3e}, vs load int8 "
+        f"{d_q:.3e}; table bytes on the card f32 {f32['table_bytes']}, load int8 "
+        f"{q8['table_bytes']}, runtime int8 {rq8['table_bytes']} (f32 / runtime = {shrink:.4f})")
+    for mode, r in res.items():
+        log(f"  {mode}: {r['examples_per_s']:.1f} examples/s (median of 3 predict calls), blob "
+            f"{r['blob_bytes']} bytes beside {r['table_bytes']} table bytes, export "
+            f"{r['export_s']:.2f} s, load {r['load_s']:.2f} s [{card}]")
+    live_wall = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        predictor.predict(data)
+        live_wall.append(time.perf_counter() - t1)
+    log(f"  live Predictor: {N_ROWS / statistics.median(live_wall):.1f} examples/s (median of 3) "
+        f"[{card}]; (a) {time.perf_counter() - t0:.1f} s")
+    del predictor, res, f32, q8, rq8, live, again
+
+    # (b) xdeepfm_paper_criteo: the per-layer CIN, K4 three times a batch
+    t0 = time.perf_counter()
+    pm = XDeepFM(create_criteo_features(num_buckets=NUM_BUCKETS), PAPER_HP)
+    pp = Predictor(pm, pm.init_params(torch.Generator().manual_seed(1)), batch_size=PAPER_BATCH)
+    pdata = synthetic_criteo_arrays(PAPER_SERVE_ROWS, num_buckets=NUM_BUCKETS, seed=8)
+    pdata.pop("y")
+    plive = pp.predict(pdata)
+    # a portable artifact: the card's program keeps K4, the CPU's is plain
+    pdir = pp.export(os.path.join(tmp, "paper"), pdata, platforms=("cuda", "cpu"))
+    ops, cpu_ops = op_nodes(pdir, "cuda"), op_nodes(pdir, "cpu")
+    check(ops == {"recman_tpu_torch.cin_interact_fwd.default"} and not cpu_ops,
+          f"paper artifact's ops: card {ops}, CPU {cpu_ops}")
+    served = ExportedPredictor.load(pdir)
+    reset_counts()
+    with twins_barred():
+        pgot = served.predict(pdata)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    p_batches = -(-PAPER_SERVE_ROWS // PAPER_BATCH)
+    check_counts(counts, {"K4": 3 * p_batches, "K1": 0}, "paper exported predict")
+    launches["K4"] = counts["K4"]
+    dp = float(np.abs(pgot - plive).max())
+    check(dp <= EXPORT_TOL, f"paper artifact vs live Predictor: max|d| {dp}")
+    log(f"export (b) xdeepfm_paper_criteo, {PAPER_SERVE_ROWS} rows at batch {PAPER_BATCH}: "
+        f"vs live max|d| {dp:.3e}; K4 {counts['K4']} = 3 x {p_batches} batches as the op node "
+        f"of the card's program (a (cuda, cpu) artifact; the CPU's program plain) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del pp, served, plive, pgot
+
+    # (c) QR on all 26 hashed fields at the bench widths
+    t0 = time.perf_counter()
+    qfs = create_criteo_features(num_buckets=NUM_BUCKETS)
+    for name in CAT_NAMES:
+        qfs[name].qr_collisions = QR_COLLISIONS
+    hp = {**HPARAMS, "optimizer": "adam", "learning_rate": 1e-3}
+    tr = Trainer(XDeepFM(qfs, hp), hp, metrics=(LogLoss(),), epoch=1, batch_size=BATCH,
+                 random_seed=2019, device=device)
+    params = tr.state.params
+    v = NUM_BUCKETS + 1
+    q_rows = -(-v // QR_COLLISIONS)
+    check(tuple(params[f"{CAT_NAMES[0]}_feat_embed_q"].shape) == (q_rows, k)
+          and tuple(params[f"{CAT_NAMES[0]}_feat_embed_r"].shape) == (QR_COLLISIONS, k)
+          and not any(n.endswith("_feat_embed") for n in params), "QR params")
+    qr_bytes = sum(4 * p.numel() for n, p in params.items() if "_feat_embed_" in n)
+    params_cpu = {n: p.detach().cpu() for n, p in params.items()}  # before any step
+    n_rows = (QR_STEPS + 4) * BATCH
+    qdata = synthetic_criteo_arrays(n_rows, num_buckets=NUM_BUCKETS, seed=11)
+    d, layout = tr._to_device({n: x for n, x in qdata.items() if n != "y"}, qdata["y"])
+    idx_np = batch_indices(n_rows, BATCH, shuffle_seed=3)
+    idx_np = idx_np[(idx_np >= 0).all(axis=1)]
+    idx = tr._idx(idx_np)
+    batch, w = gather_batch(d, idx[0])
+    ub = unpack_batch(batch, layout)
+    per_step = {(q_rows, k): 26, (QR_COLLISIONS, k): 26, (v, 1): 26}  # Q, R, linear w
+    k6_step = sum(per_step.values())
+    with emb_ops.grad_kernel("segmat"):
+        reset_counts()
+        with scatter_counter() as scatters, k6_shapes() as shapes:
+            g_gpu, seen_gpu = recorded_grads(tr.model, params, ub, w)
+        counts = kernel_counts()
+        check_counts(counts, {"K6": k6_step, "K3": 0, "K7": 0, "K1 save": 1, "K2": 1},
+                     "QR step 1")
+        check(dict(shapes) == per_step and scatters[0] == 0,
+              f"QR step 1: K6 by (V, C) {dict(shapes)}, index_add_ {scatters[0]}")
+        opt = tr.optimizer
+
+        def trace(p, dd, ix):
+            state, step, losses = TrainState(p, opt.init(p), 0, None), make_train_step(
+                tr.model, opt), []
+            for i in range(CPU_STEPS):
+                state, loss = step(state, dd, ix[i], layout)
+                losses.append(loss)
+            return torch.stack(losses)
+
+        tg = trace(params, d, idx).cpu().numpy()
+    g_gpu = {n: g.cpu() for n, g in g_gpu.items()}
+    t1 = time.perf_counter()
+    ub_cpu = {n: x.cpu() for n, x in ub.items()}
+    g_cpu, seen_cpu = recorded_grads(tr.model, params_cpu, ub_cpu, w.cpu())
+    g_signs = recorded_grads(tr.model, params_cpu, ub_cpu, w.cpu(), card=seen_gpu)[0]
+    tc = trace(params_cpu, {n: x.cpu() for n, x in d.items()}, idx.cpu()).numpy()
+    cpu_s = time.perf_counter() - t1
+    plain_rel = max(rel_err(g_cpu[n], g_gpu[n]) for n in g_cpu)
+    flips = {part: sign_flips(seen_cpu[part], seen_gpu[part], tol, f"QR step 1 {part}",
+                              near_tol=tol)
+             for part, tol in (("dnn", DNN_Z_TOL), ("cin", FEED_TOL))}
+    rel, worst = grads_match(g_signs, g_gpu, "QR step-1 grad GPU vs CPU on the card's signs")
+    max_d, final_rel = trace_match(tg, tc, "QR loss trace")
+    log(f"export (c) QR (q {QR_COLLISIONS}: Q ({q_rows}, {k}), R ({QR_COLLISIONS}, {k}) per "
+        f"field, {qr_bytes} table bytes): step 1 at batch {BATCH} K6 {k6_step} = 26 x (Q, R, "
+        f"linear w) by (V, C) {dict(shapes)}, no index_add_; GPU vs CPU (CPU {cpu_s:.1f} s): "
+        f"grads worst {plain_rel:.3e} as run, {rel:.3e} ({worst}) on the card's signs; "
+        f"derivatives on the other side of 0: DNN {flips['dnn']}, CIN {flips['cin']}; trace "
+        f"GPU {tg.tolist()} CPU {tc.tolist()}: max|d| {max_d:.3e}, final rel {final_rel:.3e}")
+    del g_gpu, g_cpu, g_signs, seen_gpu, seen_cpu, params_cpu
+
+    with emb_ops.grad_kernel("segmat"), scatter_counter() as scatters:
+        step_ms, wall, peak, counts = timed_steps(tr, d, idx, layout, QR_STEPS)
+        check_counts(counts, {"K6": k6_step * QR_STEPS, "K3": 0, "K7": 0,
+                              "K1 save": QR_STEPS, "K2": QR_STEPS}, f"{QR_STEPS} QR steps")
+        check(scatters[0] == 0, f"QR steps: index_add_ {scatters[0]}")
+        launches["K6"] = counts["K6"] // QR_STEPS
+
+        def one_step():
+            tr.fit_on_batch(d, idx[0], layout)
+
+        busy = profile_device(one_step, step_ms, "QR train steps", n=3)
+    log(f"  QR steps: {QR_STEPS} timed, step (CUDA events, median) {step_ms:.4f} ms, "
+        f"{BATCH / step_ms * 1e3:.1f} examples/s, wall {wall:.3f} ms/step, peak memory over "
+        f"the held {peak / 1e9:.3f} GB; kernels {busy} ms a step [{card}]")
+
+    qp = Predictor(tr.model, tr.state.params, batch_size=BATCH)
+    serve = synthetic_criteo_arrays(N_ROWS, num_buckets=NUM_BUCKETS, seed=12)
+    serve.pop("y")
+    qlive = qp.predict(serve)
+    qdir = qp.export(os.path.join(tmp, "qr"), serve, quantize_embeddings="runtime")
+    qs = ExportedPredictor.load(qdir)
+    want = sorted(f"{c}_feat_embed_{part}" for c in CAT_NAMES for part in "qr")
+    check(sorted(qs.meta["quantized"]) == want
+          and all(qs.params[n + Q8].dtype == torch.int8 for n in want),
+          "QR runtime artifact: Q and R not int8")
+    reset_counts()
+    with twins_barred():
+        qgot = qs.predict(serve)
+    torch.cuda.synchronize()
+    check_counts(kernel_counts(), {"K1": n_batches}, "QR exported predict")
+    dq = float(np.abs(qgot - qlive).max())
+    check(0 < dq < INT8_TOL, f"QR runtime int8 vs live Predictor: max|d| {dq}")
+    log(f"  QR runtime int8 artifact: {N_ROWS} rows vs live max|d| {dq:.3e}, K1 {n_batches}; "
+        f"(c) {time.perf_counter() - t0:.1f} s")
+    del tr, qp, qs, d
+
+    # (d) the synthetic example on the card: every Outdoor row falls
+    t0 = time.perf_counter()
+    columns, base, penalized = xdeepfm_synthetic.main(log_dir=os.path.join(tmp, "logs"))
+    outdoor = columns["CATEGORY"] == "Outdoor"
+    check(bool((penalized[outdoor] < base[outdoor]).all())
+          and np.abs(penalized[~outdoor] - base[~outdoor]).max() <= 1e-6,
+          "xdeepfm_synthetic: the override did not move only the Outdoor rows down")
+    log(f"export (d) xdeepfm_synthetic on the card: Outdoor rows {base[outdoor].round(4).tolist()}"
+        f" -> {penalized[outdoor].round(4).tolist()} ({time.perf_counter() - t0:.1f} s)")
+    tmp_dir.cleanup()
+    return launches
+
+
 def kernel_record(name, source, replaces, launches, rec):
     """The kernel's entry in the ``kernels`` line. ``kernel_ms`` is the
     profile's kernel time per call where the phase profiled the kernel,
@@ -3019,8 +3321,8 @@ def kernel_record(name, source, replaces, launches, rec):
     # K3 at the large-batch N and at dlrm_mlperf_criteo's C 128, K6 at a
     # Criteo table and at the history, the launches of the zoo and sequence
     # phases
-    for extra in ("large_batch", "dlrm_mlperf_criteo", "criteo", "history", "zoo_launches",
-                  "seq_launches"):
+    for extra in ("large_batch", "dlrm_mlperf_criteo", "criteo", "history", "qr", "zoo_launches",
+                  "seq_launches", "export_launches", "qr_launches"):
         if extra in rec:
             out[extra] = rec[extra]
     return out
@@ -3056,6 +3358,12 @@ def main():
     t0 = time.perf_counter()
     serve_k1 = phase_serving(device)
     log(f"serving phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    export = phase_export(device)
+    log(f"export phase {time.perf_counter() - t0:.1f} s [{card}]")
+    rec["K1"]["export_launches"] = export["K1"]
+    rec["K4"]["export_launches"] = export["K4"]
+    rec["K6"]["qr_launches"] = export["K6"]
     t0 = time.perf_counter()
     train = phase_training(device)
     log(f"training phase {time.perf_counter() - t0:.1f} s")

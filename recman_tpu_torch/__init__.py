@@ -13,7 +13,10 @@ the ML-100K example (``examples.xdeepfm_ml``) and the per-layer CIN path
 with the Criteo example (``examples.criteo_xdeepfm``), large-batch
 training, and checkpoints (``ckpt``, ``Trainer.save``/``restore``),
 resilient training (``training.Resilience``) and streaming
-(``Trainer.fit_stream`` over ``data.streaming``). Their kernels are
+(``Trainer.fit_stream`` over ``data.streaming``), the model zoo
+(``models.MODEL_REGISTRY``), QR embeddings (``qr_collisions``) and
+serving artifacts (``serving.Predictor.export``, ``ExportedPredictor``,
+int8 ``ops.QuantTable`` tables). Their kernels are
 hand-written CUDA (sources in ``csrc/``): the CIN tower forward (K1) and
 backward (K2) in ``ops/cin_chain.py``, one CIN layer's forward (K4) and
 backward (K5) in ``ops/cin_interact.py``, and the embedding tables'

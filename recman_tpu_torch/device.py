@@ -1,6 +1,9 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution shared by the port's entry points, and the card's
+name and power limit that every reading on the card is written beside."""
 
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
@@ -19,3 +22,13 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]

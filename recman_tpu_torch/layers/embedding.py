@@ -11,8 +11,14 @@ Counterpart of ``recman_tpu/layers/embedding.py``. Lookup by feature type:
 Embeddings mask padding (PAD_ID = -1, so ids >= 0 take part) and keep the
 OOV id 0. ``apply`` concatenates every feature's lookup along the field
 axis, the plain sparse feats through one ``embedding_lookup_grouped``
-call (and their bias tables through another). QR compositional tables
-(``qr_collisions``) are not ported yet.
+call (and their bias tables through another).
+
+A single-id sparse feature with ``qr_collisions`` q (QR compositional
+embeddings, reference :78-151) owns two tables in place of its (V, k)
+one: ``{prefix}{feat}_feat_embed_q`` (ceil(V/q), k) and ``_feat_embed_r``
+(q, k), and its rows are Q[id // q] + R[id % q]; its bias stays
+full-size. Each of the two lookups is an ``embedding_lookup`` of its own,
+so under ``grad_kernel("segmat")`` on CUDA each runs K6 in the backward.
 """
 
 from __future__ import annotations
@@ -42,14 +48,6 @@ def sqrtn_combine(table, ids):
     )
 
 
-def check_qr_unsupported(feats):
-    for f in feats:
-        if getattr(f, "qr_collisions", None) is not None:
-            raise NotImplementedError(
-                f"QR embeddings (qr_collisions on {f.name!r}) not ported yet"
-            )
-
-
 class EmbeddingLayer:
     """All embedding tables of a FeatureSet. Param names match the
     reference: ``{prefix}{feat}_feat_embed`` (feat_size, k) and, with
@@ -57,7 +55,6 @@ class EmbeddingLayer:
 
     def __init__(self, feature_set, embedding_size, l2_reg=1e-5, use_bias=True, prefix=""):
         self.feats = feature_set.embedding_feats
-        check_qr_unsupported(self.feats)
         self.embedding_size = embedding_size
         self.l2_reg = l2_reg
         self.use_bias = use_bias
@@ -73,18 +70,47 @@ class EmbeddingLayer:
     def _owns_table(self, feat) -> bool:
         return not isinstance(feat, SequenceFeat)  # sequence feats tie to id_feat
 
+    def _is_qr(self, feat) -> bool:
+        """A QR feature: quotient and remainder tables replace its (V, k)
+        table (``qr_collisions``, reference :78-84)."""
+        return getattr(feat, "qr_collisions", None) is not None and self._owns_table(feat)
+
     def init(self, generator, device=None) -> dict:
         params = {}
         owners = [f for f in self.feats if self._owns_table(f)]
         for sub, feat in zip(split_rng(generator, max(len(owners), 1)), owners):
-            params[f"{self.prefix}{feat.name}_feat_embed"] = glorot_normal(
-                sub, (feat.feat_size, self.embedding_size), device=device
-            )
+            name = f"{self.prefix}{feat.name}_feat_embed"
+            if self._is_qr(feat):
+                if not isinstance(feat, SparseFeat) or isinstance(feat, SparseValueFeat):
+                    raise NotImplementedError(
+                        "qr_collisions is supported for single-id sparse features only "
+                        f"(got {type(feat).__name__} for {feat.name!r})"
+                    )
+                q = int(feat.qr_collisions)
+                if not 1 < q < feat.feat_size:
+                    raise ValueError(f"qr_collisions for {feat.name!r} must be in "
+                                     f"(1, feat_size); got {q} vs {feat.feat_size}")
+                kq, kr = split_rng(sub, 2)
+                params[f"{name}_q"] = glorot_normal(
+                    kq, (-(-feat.feat_size // q), self.embedding_size), device=device)
+                params[f"{name}_r"] = glorot_normal(kr, (q, self.embedding_size), device=device)
+            else:
+                params[name] = glorot_normal(
+                    sub, (feat.feat_size, self.embedding_size), device=device
+                )
             if self.use_bias:
                 params[f"{self.prefix}{feat.name}_feat_bias"] = torch.zeros(
                     (feat.feat_size,), dtype=torch.float32, device=device
                 )
         return params
+
+    def _qr_rows(self, params, feat, ids):
+        """rows(id) = Q[id // q] + R[id % q]: each id keeps a unique composed
+        vector in (V/q + q) rows (reference :127-133)."""
+        q = int(feat.qr_collisions)
+        tq = params[f"{self.prefix}{feat.name}_feat_embed_q"]
+        tr = params[f"{self.prefix}{feat.name}_feat_embed_r"]
+        return embedding_lookup(tq, ids // q) + embedding_lookup(tr, ids % q)
 
     def _tables(self, params, feat):
         owner = feat.id_feat.name if isinstance(feat, SequenceFeat) else feat.name
@@ -96,6 +122,13 @@ class EmbeddingLayer:
 
     def _lookup(self, params, feat, batch):
         """Per-feature lookup -> (embeds (B, n_slots, k), bias (B, n_slots, 1) | None)."""
+        if self._is_qr(feat):
+            ids = batch[feat.name]
+            bias = None
+            if self.use_bias:
+                bias_vec = params[f"{self.prefix}{feat.name}_feat_bias"]
+                bias = embedding_lookup(bias_vec[:, None], ids)[:, None, :]
+            return self._qr_rows(params, feat, ids)[:, None, :], bias
         table, bias_table = self._tables(params, feat)
 
         def one(t):
@@ -121,9 +154,10 @@ class EmbeddingLayer:
         feats' order -> (embeds (B, F, k), bias (B, F, 1) | None), the
         reference's ``apply`` (embedding.py:173-213). Plain sparse feats
         take one grouped lookup, whose same-shape tables share the batched
-        backward (K3 on CUDA)."""
+        backward (K3 on CUDA); a QR feat takes its own two lookups."""
         plain = [f for f in self.feats
-                 if isinstance(f, SparseFeat) and not isinstance(f, SparseValueFeat)]
+                 if isinstance(f, SparseFeat) and not isinstance(f, SparseValueFeat)
+                 and not self._is_qr(f)]
         embeds_by_name, bias_by_name = {}, {}
         if plain:
             ids = [batch[f.name] for f in plain]
@@ -165,7 +199,8 @@ class EmbeddingLayer:
         if sc is not None:
             in_ctx = set(sc[0])
             own = tuple(
-                f.name for f in self.feats if self._owns_table(f) and f.name in in_ctx
+                f.name for f in self.feats
+                if self._owns_table(f) and not self._is_qr(f) and f.name in in_ctx
             )
             if own == sc[0]:
                 stacked_names = in_ctx
@@ -177,9 +212,12 @@ class EmbeddingLayer:
             if feat.name in stacked_names:
                 stacked_hit = True
                 continue
-            total = total + self.l2_reg * l2_loss(
-                params[f"{self.prefix}{feat.name}_feat_embed"]
-            )
+            name = f"{self.prefix}{feat.name}_feat_embed"
+            if self._is_qr(feat):
+                total = total + self.l2_reg * (
+                    l2_loss(params[f"{name}_q"]) + l2_loss(params[f"{name}_r"]))
+            else:
+                total = total + self.l2_reg * l2_loss(params[name])
         if stacked_hit:
             total = total + self.l2_reg * l2_loss(sc[1])
         return total

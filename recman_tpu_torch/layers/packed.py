@@ -30,6 +30,12 @@ Rows stay float32. The reference's bf16 packed rows (its
 ``PACKED_FWD_BF16`` gate) are on only on its TPU path; the port keeps f32
 until that choice is measured on the GPU. The dedup exchange is not
 ported.
+
+QR features (``qr_collisions``) have no single (V, k) table to pack and
+take the unpacked lookups (reference :60-62). When any packable table is
+an int8 ``ops.embedding.QuantTable`` (quantized serving, reference
+:101-115) nothing is packed: an f32 packed concat would undo the
+gather-then-dequantize.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..features import (
 )
 from ..ops import embedding as emb_ops
 from ..ops.embedding import (
+    QuantTable,
     _split_lookup_active,
     _stacked_ctx,
     embedding_lookup,
@@ -67,8 +74,8 @@ class PackedEmbeddingLinear:
             f
             for f in embeddings.feats
             if f.name in linear_names and not isinstance(f, SequenceFeat)
+            and getattr(f, "qr_collisions", None) is None
         ]
-        self._packable_names = {f.name for f in self.packable}
 
     def stackable(self):
         """Ordered name tuple of the packable feats eligible for stacked
@@ -91,12 +98,16 @@ class PackedEmbeddingLinear:
         k = emb.embedding_size
         use_bias = emb.use_bias
         w = lin.weights(params, None if training else override)
+        quant = any(isinstance(params.get(f"{emb.prefix}{f.name}_feat_embed"), QuantTable)
+                    for f in self.packable)
+        packable = [] if quant else self.packable
+        packable_names = {f.name for f in packable}
 
         embeds_by_name, bias_by_name = {}, {}
         linear_logit = params[f"{lin.prefix}linear_w0"]
 
         ids_mats = []
-        for feat in self.packable:
+        for feat in packable:
             ids = batch[feat.name]
             if isinstance(feat, (MultiValCsvFeat, MultiValSparseFeat)):
                 ids = ids.clamp_min(0)
@@ -106,13 +117,13 @@ class PackedEmbeddingLinear:
         if (
             sc is not None
             and not use_bias
-            and tuple(f.name for f in self.packable) == sc[0]
+            and tuple(f.name for f in packable) == sc[0]
         ):
             # stacked (T, V, k) storage: [stack[i] | w] rows, one batched
             # sort / permute / K3 backward into the stacked leaf
-            v = self.packable[0].feat_size
+            v = packable[0].feat_size
             w_cols = torch.stack([
-                w[lin.offsets[f.name]: lin.offsets[f.name] + v] for f in self.packable
+                w[lin.offsets[f.name]: lin.offsets[f.name] + v] for f in packable
             ])  # (T, V)
             if emb_ops.STACKED_SPLIT_CONCAT:
                 rows_list = packed_lookup_stacked_split(sc[1][:, :v], w_cols, ids_mats)
@@ -123,7 +134,7 @@ class PackedEmbeddingLinear:
             # the split form: table rows and vector columns gathered apart,
             # no (V, k + m) packed matrix built
             tables, vec_cols = [], []
-            for feat in self.packable:
+            for feat in packable:
                 tables.append(params[f"{emb.prefix}{feat.name}_feat_embed"][: feat.feat_size])
                 vv = []
                 if use_bias:
@@ -135,7 +146,7 @@ class PackedEmbeddingLinear:
         else:
             # phase 1: each feature's packed [table | bias | w] matrix
             packed_mats = []
-            for feat in self.packable:
+            for feat in packable:
                 # tables may carry tail padding; slice to the logical vocab
                 table = params[f"{emb.prefix}{feat.name}_feat_embed"]
                 cols = [table[: feat.feat_size]]
@@ -150,7 +161,7 @@ class PackedEmbeddingLinear:
             rows_list = embedding_lookup_grouped(packed_mats, ids_mats)
 
         # phase 3: per-type postprocessing
-        for feat, rows in zip(self.packable, rows_list):
+        for feat, rows in zip(packable, rows_list):
             if isinstance(feat, (SparseFeat, SparseValueFeat)):
                 if isinstance(feat, SparseValueFeat):
                     rows = rows * batch[feat.value_key][:, None]
@@ -179,7 +190,7 @@ class PackedEmbeddingLinear:
         # outside the linear selector)
         embeds, biases = [], []
         for feat in emb.feats:
-            if feat.name in self._packable_names:
+            if feat.name in packable_names:
                 e = embeds_by_name[feat.name]
                 b = bias_by_name.get(feat.name)
             else:
@@ -196,7 +207,7 @@ class PackedEmbeddingLinear:
             off = lin.offsets[feat.name]
             if isinstance(feat, DenseFeat):
                 linear_logit = linear_logit + (w[off] * batch[feat.name])[:, None]
-            elif feat.name not in self._packable_names:
+            elif feat.name not in packable_names:
                 w_f = w[off: off + feat.feat_size][:, None]
                 if isinstance(feat, SparseValueFeat):
                     linear_logit = linear_logit + (

@@ -13,6 +13,7 @@ from .cin_chain import (
 )
 from .cin_interact import cin_interact_fm, pallas_cin
 from .embedding import (
+    QuantTable,
     embedding_lookup,
     embedding_lookup_grouped,
     embedding_lookup_multi,
@@ -21,6 +22,7 @@ from .embedding import (
     packed_lookup_grouped,
     packed_lookup_stacked,
     packed_lookup_stacked_split,
+    quantize_table_int8,
     split_lookup,
     stacked_tables,
 )
@@ -34,6 +36,7 @@ from .segment_matmul import (
 )
 
 __all__ = [
+    "QuantTable",
     "chain_supported",
     "cin_chain_bwd",
     "cin_chain_bwd_recompute",
@@ -52,6 +55,7 @@ __all__ = [
     "packed_lookup_stacked",
     "packed_lookup_stacked_split",
     "pallas_cin",
+    "quantize_table_int8",
     "segment_matmul_from_sorted",
     "segment_matmul_from_sorted_batched",
     "segment_matmul_from_sorted_batched_vk",

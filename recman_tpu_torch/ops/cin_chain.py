@@ -16,12 +16,16 @@ reference.
 Kernels (sources in ``csrc/``, on the tensor cores: bf16 operands, f32
 sums), each beside its plain PyTorch twin, which is the CPU path and the
 kernel's oracle. The wrappers lay bf16(W) out once per call, Hk padded to
-8 (``k1_weight_layouts``, ``k2_weight_layouts``):
+8 (``k1_weight_layouts``, ``k2_weight_layouts``), inside the launch:
 
 - K1 ``csrc/cin_chain_fwd.cu`` (the TPU kernel ``_chain_fwd_kernel``):
   the forward. With ``save=True`` it also writes every layer's fmap
   (O_i, B*D) f32 for the backward (``CHAIN_SAVE_FMAPS`` in the
-  reference); serving launches it without.
+  reference); serving launches it without. K1 is the registered op
+  ``recman_tpu_torch::cin_chain_fwd`` (a ``torch.library.Library``
+  schema with a CUDA and a CPU implementation and a fake that gives its
+  output shapes), which every path calls, so that ``torch.export`` keeps
+  it as one node of a serving artifact (``serving.Predictor.export``).
 - K2 ``csrc/cin_chain_bwd.cu`` (the TPU kernel ``_chain_bwd_kernel``):
   the backward from the pooled cotangents to dx0, dW_i and db_i, in two
   forms. The save form (``cin_chain_bwd``) reads the fmaps K1 saved; the
@@ -562,14 +566,39 @@ def _on(t, name):
     raise ValueError(f"{name}: no path for device {t.device}")
 
 
+# K1 as the registered op ``recman_tpu_torch::cin_chain_fwd``: the one
+# place it launches. A schema, an implementation per device type (K1 on
+# CUDA, the plain version on the CPU) and a fake that gives the output
+# shapes, so that ``torch.export`` keeps a call as one graph node and an
+# exported program launches K1 where the live model does. The dispatcher
+# calls the implementation directly: ``torch.library.custom_op`` would add
+# a Python autograd layer and alias checks to every live call.
+_LIB = torch.library.Library("recman_tpu_torch", "FRAGMENT")
+_LIB.define("cin_chain_fwd(Tensor x0c, Tensor[] ws, Tensor[] bs, int[] units, int d, str act, "
+            "bool save) -> Tensor[]")
+_LIB.impl("cin_chain_fwd", lambda x0c, ws, bs, units, d, act, save: list(
+    _cin_chain_fm_cuda(x0c, ws, bs, tuple(units), d, act, save)), "CUDA")
+_LIB.impl("cin_chain_fwd", lambda x0c, ws, bs, units, d, act, save: list(
+    cin_chain_fm_reference(x0c, ws, bs, tuple(units), d, act, save)), "CPU")
+
+
+@torch.library.register_fake("recman_tpu_torch::cin_chain_fwd", lib=_LIB)
+def _(x0c, ws, bs, units, d, act, save):
+    bd = x0c.shape[1]
+    cfgs = _layer_cfgs(x0c.shape[0], units)
+    outs = [x0c.new_empty((bd // d, c.o - c.feed)) for c in cfgs]
+    return outs + ([x0c.new_empty((c.o, bd)) for c in cfgs] if save else [])
+
+
+_cin_chain_fwd_op = torch.ops.recman_tpu_torch.cin_chain_fwd.default
+
+
 def cin_chain_fwd(x0c, ws, bs, units, d, act="leaky_relu", save=False):
     """The chain forward, not differentiable: K1 on a CUDA tensor, the
-    plain version on a CPU tensor. Returns the pooled blocks and, with
-    ``save=True``, every layer's fmap after them."""
-    units = tuple(units)
-    if _on(x0c, "cin_chain_fwd") == "cuda":
-        return _cin_chain_fm_cuda(x0c, list(ws), list(bs), units, d, act, save)
-    return cin_chain_fm_reference(x0c, ws, bs, units, d, act, save)
+    plain version on a CPU tensor, through the registered op. Returns the
+    pooled blocks and, with ``save=True``, every layer's fmap after
+    them."""
+    return tuple(_cin_chain_fwd_op(x0c, list(ws), list(bs), list(units), d, act, save))
 
 
 def cin_chain_bwd(x0c, ws, bs, gs, fmaps, units, d, act="leaky_relu"):

@@ -14,7 +14,9 @@ to bf16 as the multiplicands and f32 sums, as in the reference.
 - ``cin_interact_fm`` (reference :280-339): the field-major form, x0c
   (H0, B*D), xkc (Hk, B*D), W (H0*Hk, O) -> (O, B*D) f32, differentiable.
   On a CUDA tensor it launches K4 (``csrc/cin_interact_fwd.cu``, the TPU
-  kernel ``_fwd_kernel``) forward and K5 (``csrc/cin_interact_bwd.cu``,
+  kernel ``_fwd_kernel``; the registered op
+  ``recman_tpu_torch::cin_interact_fwd``, kept whole by ``torch.export``)
+  forward and K5 (``csrc/cin_interact_bwd.cu``,
   ``_bwd_kernel``) backward; on a CPU tensor their plain twins
   ``cin_interact_fm_reference`` and ``cin_interact_fm_bwd_reference``.
   The backward returns dx0 and dxk separately: the first layer passes the
@@ -266,12 +268,29 @@ def _cin_interact_bwd_cuda(x0c, xkc, w, g):
     return dx0, dxk, dw
 
 
+# K4 as the registered op ``recman_tpu_torch::cin_interact_fwd``, its one
+# launch site: a schema, K4 on CUDA, the plain version on the CPU, and a
+# fake for ``torch.export`` (see ``cin_chain``'s op)
+_LIB = torch.library.Library("recman_tpu_torch", "FRAGMENT")
+_LIB.define("cin_interact_fwd(Tensor x0c, Tensor xkc, Tensor w) -> Tensor")
+_LIB.impl("cin_interact_fwd", lambda x0c, xkc, w: _cin_interact_fwd_cuda(x0c, xkc, w), "CUDA")
+_LIB.impl("cin_interact_fwd", lambda x0c, xkc, w: cin_interact_fm_reference(x0c, xkc, w), "CPU")
+
+
+@torch.library.register_fake("recman_tpu_torch::cin_interact_fwd", lib=_LIB)
+def _(x0c, xkc, w):
+    return x0c.new_empty((w.shape[1], x0c.shape[1]))
+
+
+_cin_interact_fwd_op = torch.ops.recman_tpu_torch.cin_interact_fwd.default
+
+
 def cin_interact_fwd(x0c, xkc, w):
     """The field-major forward, not differentiable: K4 on a CUDA tensor, the
-    plain version on a CPU tensor."""
-    if _on(x0c, "cin_interact_fwd") == "cuda":
-        return _cin_interact_fwd_cuda(x0c, xkc, w)
-    return cin_interact_fm_reference(x0c, xkc, w)
+    plain version on a CPU tensor, through the registered op
+    ``recman_tpu_torch::cin_interact_fwd``, which ``torch.export`` keeps as
+    one graph node."""
+    return _cin_interact_fwd_op(x0c, xkc, w)
 
 
 def cin_interact_bwd(x0c, xkc, w, g):
@@ -302,5 +321,8 @@ def cin_interact_fm(x0c, xkc, w):
 
     pre[o, n] = sum_{h,m} x0c[h, n] xkc[m, n] W[h*Hk+m, o], n = b*D+d.
     x0c (H0, B*D), xkc (Hk, B*D), w (H0*Hk, O), all f32 -> (O, B*D) f32.
+    Where no gradient is needed it is the forward op alone.
     """
-    return _InteractFm.apply(x0c, xkc, w)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x0c, xkc, w)):
+        return _InteractFm.apply(x0c, xkc, w)
+    return cin_interact_fwd(x0c, xkc, w)

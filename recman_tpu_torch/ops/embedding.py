@@ -33,7 +33,12 @@ The contexts are read when the forward runs, as the reference reads them
 while tracing: autograd runs a CUDA backward on a thread of its own, where
 this module's thread-local contexts are not set.
 
-``QuantTable`` tables and the dedup exchange are not ported.
+A ``QuantTable`` (int8 rows and per-row f32 scales, the quantized
+serving tables of ``serving.Predictor.export(quantize_embeddings=
+"runtime")``) goes through ``embedding_lookup``: the int8 rows are
+gathered and dequantized after the gather, in plain PyTorch as in the
+reference (:583-590). It has no gradient path. The dedup exchange is not
+ported.
 """
 
 from __future__ import annotations
@@ -41,7 +46,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .segment_matmul import (
@@ -177,6 +184,45 @@ def _stacked_ctx():
     return getattr(_state, "stacked", None)
 
 
+class QuantTable(NamedTuple):
+    """Symmetric per-row int8 embedding table for quantized serving
+    (reference :248-272): passed in place of an f32 (V, k) table, it stays
+    int8 on the device and is dequantized per looked-up row, after the
+    gather: 4k/(k+4) times fewer table bytes than f32 (3.2 at k 16; the
+    scale is one f32 per row). Lookup-only: a lookup whose scale requires
+    a gradient raises."""
+
+    q: torch.Tensor  # (V, k) int8
+    scale: torch.Tensor  # (V,) f32
+
+    @property
+    def dtype(self):  # layers read table.dtype for their mask casts
+        return self.scale.dtype
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+
+def quantize_table_int8(a):
+    """f32 (V, k) -> (int8 (V, k), f32 (V,) per-row symmetric scales); the
+    reference's numpy code (:275-282), so the bytes are the reference's."""
+    a = np.asarray(a)
+    scale = np.maximum(np.abs(a).max(axis=1) / 127.0, 1e-12).astype(np.float32)
+    q = np.clip(np.rint(a / scale[:, None]), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def _quant_lookup(table: QuantTable, ids):
+    """int8 rows ``ids`` of ``table``, dequantized after the gather."""
+    if table.scale.requires_grad:
+        raise RuntimeError("a QuantTable is lookup-only: it has no gradient path")
+    flat = ids.reshape(-1)
+    rows = table.q.index_select(0, flat).to(table.scale.dtype)
+    rows = rows * table.scale.index_select(0, flat)[:, None]
+    return rows.reshape(*ids.shape, table.q.shape[1])
+
+
 def _sorted_order(ids):
     """Stable sort of (..., N) ids along the last axis -> (int32 sorted
     ids, order), the reference's sort_key_val against an iota."""
@@ -214,7 +260,10 @@ class _Lookup(torch.autograd.Function):
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Gather rows ``ids`` (any shape, int32 or int64) from ``table`` (V, k)
     -> ids.shape + (k,). The custom backward runs when the fused backward
-    is active for the table's device."""
+    is active for the table's device. A ``QuantTable`` gathers int8 rows
+    and dequantizes them after the gather (no gradient path)."""
+    if isinstance(table, QuantTable):
+        return _quant_lookup(table, ids)
     flat = ids.reshape(-1)
     if _fused_active(table.device):
         rows = _Lookup.apply(table, flat)
@@ -266,15 +315,17 @@ def embedding_lookup_multi(tables: list, ids_list: list) -> list:
 
 def embedding_lookup_grouped(tables, ids_list) -> list:
     """Lookups across tables -> list of row tensors. Same-shape subsets
-    share the batched-sort backward (``embedding_lookup_multi``); the rest
-    go per table (reference :1178-1210)."""
+    share the batched-sort backward (``embedding_lookup_multi``); the rest,
+    and every ``QuantTable``, go per table (reference :1178-1210)."""
     assert len(tables) == len(ids_list)
     by_shape = collections.defaultdict(list)
     for pos, (t, i) in enumerate(zip(tables, ids_list)):
         by_shape[(tuple(t.shape), tuple(i.shape))].append(pos)
     out: list = [None] * len(tables)
     for positions in by_shape.values():
-        if len(positions) == 1 or not _fused_active(tables[positions[0]].device):
+        first = tables[positions[0]]
+        if (len(positions) == 1 or isinstance(first, QuantTable)
+                or not _fused_active(first.device)):
             for p in positions:
                 out[p] = embedding_lookup(tables[p], ids_list[p])
         else:

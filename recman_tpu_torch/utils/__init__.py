@@ -9,6 +9,7 @@ from .numerics import (
     l2_loss,
     mean_squared_error,
     mse_per_example,
+    split_train_test,
 )
 
 __all__ = [
@@ -25,4 +26,5 @@ __all__ = [
     "mean_squared_error",
     "mse_per_example",
     "split_rng",
+    "split_train_test",
 ]

@@ -1,9 +1,12 @@
-"""Loss, regularization and sizing helpers (counterpart of
-``recman_tpu/utils/numerics.py:8-62``; ``split_train_test`` takes a
-pandas DataFrame and is not ported)."""
+"""Loss, regularization and sizing helpers, and the train/valid/test
+split (counterpart of ``recman_tpu/utils/numerics.py``).
+``split_train_test`` takes a dict of column arrays, since the port runs
+where pandas is not installed, and picks the rows the reference's
+``DataFrame.sample`` picks."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -56,3 +59,29 @@ def compute_hidden_units_s2(num_hidden_layers, input_neurons, output_neurons=1):
 def count_parameters(params: dict) -> int:
     """Total parameter count over a flat params dict (reference utils.py:216-225)."""
     return sum(int(v.numel()) for v in params.values())
+
+
+def _sample_rows(n: int, frac: float, random_seed: int) -> np.ndarray:
+    """The positions ``DataFrame.sample(frac=frac, random_state=random_seed)``
+    takes from n rows, in its order: pandas draws them with
+    ``RandomState(random_seed).choice(n, round(frac * n), replace=False)``."""
+    return np.random.RandomState(random_seed).choice(n, size=round(frac * n), replace=False)
+
+
+def split_train_test(columns: dict, frac=0.8, random_seed=2019):
+    """Train/valid/test split by sampling (reference numerics.py:65-71,
+    utils.py:11-24): ``frac`` of the rows to train, half the rest to valid
+    and the other half to test. ``columns``: {name: array} of equal
+    length. Returns three such dicts with the rows, in order, that the
+    reference's dataframes hold."""
+    n = len(next(iter(columns.values())))
+    train = _sample_rows(n, frac, random_seed)
+    rest = np.setdiff1d(np.arange(n), train)  # ascending, as DataFrame.drop keeps them
+    picked = _sample_rows(len(rest), 0.5, random_seed)
+    valid = rest[picked]
+    test = np.delete(rest, picked)
+
+    def take(rows):
+        return {k: np.asarray(v)[rows] for k, v in columns.items()}
+
+    return take(train), take(valid), take(test)

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from recman_tpu.ops import cin_chain as jax_chain
 from recman_tpu_torch.ops import cin_chain as torch_chain
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 ACTS = ["identity", "relu", "leaky_relu"]
 

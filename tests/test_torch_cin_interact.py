@@ -52,6 +52,7 @@ from recman_tpu_torch.ops import cin_interact as torch_ci
 from recman_tpu_torch.ops import embedding as torch_emb
 from recman_tpu_torch.training import LogLoss, StreamingAUC, Trainer
 from recman_tpu_torch.training import auc as torch_auc
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 FWD_TOL, BWD_TOL = 1e-4, 1e-3
 T = torch.from_numpy

@@ -59,6 +59,7 @@ from recman_tpu_torch.training import (
 )
 from recman_tpu_torch.training import lr_schedule as sched
 from tests.test_torch_xdeepfm import _schema
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 NAMES = ["adam", "adam_bf16m", "adagrad", "sgd", "momentum", "lamb", "rowwise_adam"]
 BF16_MOMENTS = ("adam_bf16m", "rowwise_adam")

@@ -30,6 +30,9 @@ Tolerances, per tensor, of its largest element:
 - K3, K6 and K7 1e-5, and exact zeros where no id falls: f32 sums of the
   same terms in another order; each bit-equal on two calls (no atomics),
   K7 bit-equal to K3 and K6 to K7 at one table (the same sums).
+- A CUDA serving artifact against the live predictor: 1e-6 (the same
+  kernels on the same rows); a portable artifact traced on the CPU and
+  served on the card against the CPU: 1e-5 (f32 sums in another order).
 - One stacked train step, GPU against CPU: loss 1e-5 relative, every
   gradient 1e-3 (the K2 rounding above); one ML-100K step of each
   FM-family model, DCN, DIN, BST and DIEN the same (K6's f32 sums in
@@ -126,6 +129,70 @@ def test_serving_on_card_matches_cpu(cuda):
     assert cin_chain.LAUNCHES == before + 3
     ref = Predictor(model, params, batch_size=128, device="cpu").predict(data)
     assert np.abs(got - ref).max() <= 1e-5
+
+
+def _export_served(tmp_path, hp, platforms=None, device=None):
+    """A small Criteo xDeepFM's Predictor at batch 128, its artifact loaded
+    on the card, and 300 encoded rows."""
+    from recman_tpu_torch.data import create_criteo_features, synthetic_criteo_arrays
+    from recman_tpu_torch.models import XDeepFM
+    from recman_tpu_torch.serving import ExportedPredictor, Predictor
+
+    model = XDeepFM(create_criteo_features(num_buckets=1000), hp)
+    params = model.init_params(torch.Generator().manual_seed(0), device=device)
+    data = synthetic_criteo_arrays(300, num_buckets=1000, seed=5)
+    data.pop("y")
+    pred = Predictor(model, params, batch_size=128, device=device)
+    d = pred.export(str(tmp_path), data, platforms=platforms)
+    return pred, ExportedPredictor.load(d), data, d
+
+
+@pytest.mark.parametrize("k, op, per_batch", [(16, "cin_chain_fwd", 1), (10, "cin_interact_fwd", 2)])
+def test_cuda_export_keeps_the_kernel_op(cuda, tmp_path, k, op, per_batch):
+    """A CUDA export keeps K1 (the chain, k 16) or K4 (per-layer, k 10) as
+    one node of its registered op; the artifact launches it as the live
+    predictor does and serves its predictions within 1e-6."""
+    hp = {"embedding_size": k, "cin_cross_layer_units": (8, 6), "cin_dropout": (1, 1, 1),
+          "deep_hidden_units": (32, 32)}
+    from recman_tpu_torch.serving import op_nodes
+
+    pred, served, data, d = _export_served(tmp_path, hp)
+    assert op_nodes(d) == {f"recman_tpu_torch.{op}.default"}
+    counter = cin_chain if op == "cin_chain_fwd" else cin_interact
+    before = counter.LAUNCHES
+    got = served.predict(data)
+    torch.cuda.synchronize()
+    assert counter.LAUNCHES == before + 3 * per_batch  # 300 rows: 3 batches of 128
+    assert np.abs(got - pred.predict(data)).max() <= 1e-6
+
+
+def test_portable_export_from_the_cpu_serves_on_the_card(cuda, tmp_path):
+    """A ("cpu", "cuda") export traced on the CPU holds a plain program for
+    the CPU and one with K1's op node for the card. Loaded on the card, the
+    card's program is moved there and launches K1 once a batch, never a
+    plain twin, and serves a live card predictor's predictions within 1e-6
+    (the same kernels); loaded on the CPU, the plain one serves the CPU
+    predictor's within 1e-6. A ("cpu",) artifact does not load on the
+    card."""
+    from recman_tpu_torch.serving import ExportedPredictor, Predictor, op_nodes
+
+    hp = {"embedding_size": 16, "cin_cross_layer_units": (8, 6), "cin_dropout": (1, 1, 1),
+          "deep_hidden_units": (32, 32)}
+    pred, served, data, d = _export_served(tmp_path / "both", hp, ("cpu", "cuda"), "cpu")
+    assert op_nodes(d, "cpu") == set()
+    assert op_nodes(d, "cuda") == {"recman_tpu_torch.cin_chain_fwd.default"}
+    assert served.device.type == "cuda" and all(v.is_cuda for v in served.params.values())
+    live = Predictor(pred.model, pred.params, batch_size=128, device="cuda")
+    before = cin_chain.LAUNCHES
+    got = served.predict(data)
+    torch.cuda.synchronize()
+    assert cin_chain.LAUNCHES == before + 3  # 300 rows: 3 batches of 128
+    assert np.abs(got - live.predict(data)).max() <= 1e-6
+    on_cpu = ExportedPredictor.load(d, device="cpu").predict(data)
+    assert np.abs(on_cpu - pred.predict(data)).max() <= 1e-6
+    cpu_only = pred.export(str(tmp_path / "cpu"), data, platforms=("cpu",))
+    with pytest.raises(ValueError, match="serves on"):
+        ExportedPredictor.load(cpu_only)
 
 
 # (H0, units, B*D): K1's limit end to end, of max|ref|, where 1e-3 does
@@ -517,6 +584,8 @@ K6_CASES = [
     (4096, 100_001, 17, "aligned"),  # runs end on chunk boundaries
     (8192, 1_000_001, 17, None),  # an output past the L2 cache (68 MB)
     (140_000, 1_500_000, 3, 1.0),  # one id over 1,094 chunks, a grid-stride sums phase
+    (8192, 316, 16, None),   # a QR quotient table at the bench widths (q 317)
+    (8192, 317, 16, None),   # its remainder table
 ]
 
 

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from recman_tpu.ops import embedding as jax_emb
 from recman_tpu_torch.ops import embedding as torch_emb
 from recman_tpu_torch.ops import segment_matmul
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 TOL = 1e-6
 

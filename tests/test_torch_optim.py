@@ -38,6 +38,7 @@ from recman_tpu_torch.training import (
 )
 from recman_tpu_torch.training import lr_schedule as sched
 from recman_tpu_torch.training.rowwise_adam import rowwise_adam, scale_by_rowwise_adam
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 NAMES = ["adam", "adam_bf16m", "adagrad", "gd", "sgd", "momentum", "lamb", "rowwise_adam"]
 BF16_MOMENTS = ("adam_bf16m", "rowwise_adam")

@@ -37,6 +37,7 @@ from recman_tpu_torch.training import (
 )
 from tests.test_torch_ckpt import _assert_states_equal
 from tests.test_torch_xdeepfm import _schema
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 HP = {"learning_rate": 0.05, "optimizer": "adam", "embedding_size": 4,
       "cin_cross_layer_units": (4, 4), "cin_dropout": (1, 1, 1), "deep_hidden_units": (8, 8),

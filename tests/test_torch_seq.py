@@ -67,6 +67,7 @@ from recman_tpu_torch.training import LogLoss, Trainer, init_state
 from recman_tpu_torch.training.train_step import loss_and_grads
 from recman_tpu_torch.utils import JaxKey
 from tests.test_torch_xdeepfm import _schema
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 PRED_TOL = 1e-5
 LOSS_REL = 1e-6

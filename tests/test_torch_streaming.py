@@ -49,6 +49,7 @@ from recman_tpu_torch.models import XDeepFM
 from recman_tpu_torch.ops import embedding as torch_emb
 from recman_tpu_torch.training import LogLoss, RocAucScore, Trainer, batch_indices
 from tests.test_native_loader import _make_tsv
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 HP = {"embedding_size": 4, "cin_cross_layer_units": (8,), "cin_dropout": (1, 1),
       "deep_hidden_units": (8,), "deep_dropout": (1.0, 1.0), "learning_rate": 0.01}

@@ -45,6 +45,7 @@ from recman_tpu_torch.models import XDeepFM
 from recman_tpu_torch.ops import cin_chain, segment_matmul
 from recman_tpu_torch.ops import embedding as torch_emb
 from recman_tpu_torch.training import LogLoss, RocAucScore, Trainer, batch_indices
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 FRAC = 0.01
 HPARAMS = {"deep_dropout": (1.0, 1.0, 1.0)}  # CIN's keeps default to 1

@@ -62,6 +62,7 @@ from recman_tpu_torch.training import (
     unstack_train_state,
 )
 from recman_tpu_torch.training.train_step import loss_and_grads
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 NUM_BUCKETS = 1000
 HPARAMS = {

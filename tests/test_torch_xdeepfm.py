@@ -29,6 +29,7 @@ from recman_tpu.training.trainer import batch_indices as jax_batch_indices
 from recman_tpu_torch.convert import params_from_jax
 from recman_tpu_torch.models import XDeepFM
 from recman_tpu_torch.serving import Predictor, batch_indices
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 PRED_TOL = 1e-5
@@ -270,10 +271,24 @@ class TestScope:
         torch.testing.assert_close(train.detach(), served, rtol=0, atol=0)
 
     def test_unported_options_raise(self, synthetic_df):
+        # QR embeddings are ported: the reference's param names, and its
+        # NotImplementedError for a multi-valued feature
+        params = {}
+        for pkg, key in ((recman_tpu, jax.random.PRNGKey(0)),
+                         (recman_tpu_torch, recman_tpu_torch.utils.JaxKey(0))):
+            fs = pkg.FeatureSet()
+            fs["u"] = pkg.SparseFeat("u", feat_size=10, qr_collisions=3)
+            model = (JaxXDeepFM if pkg is recman_tpu else XDeepFM)(fs)
+            params[pkg.__name__] = list(model.init_params(key, **(
+                {"device": "cpu"} if pkg is recman_tpu_torch else {})))
+        assert params["recman_tpu_torch"] == params["recman_tpu"]
+        assert "u_feat_embed_q" in params["recman_tpu_torch"]
         fs = recman_tpu_torch.FeatureSet()
-        fs["u"] = recman_tpu_torch.SparseFeat("u", feat_size=10, qr_collisions=3)
-        with pytest.raises(NotImplementedError, match="QR"):
-            XDeepFM(fs)
+        fs["m"] = recman_tpu_torch.MultiValSparseFeat("m", max_len=3)
+        fs["m"].qr_collisions = 3
+        fs.initialize(pd.DataFrame({"m": [["a", "b"], ["c"]]}))
+        with pytest.raises(NotImplementedError, match="single-id"):
+            XDeepFM(fs).init_params(torch.Generator().manual_seed(0), device="cpu")
         # Dice is ported: xDeepFM's DNN takes it, with the reference's
         # params and its eval forward on the stored moments
         jm, tm, np_params = _pair(synthetic_df, {"deep_activation": "dice"})

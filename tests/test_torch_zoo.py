@@ -51,6 +51,7 @@ from recman_tpu_torch.training import LogLoss, Trainer, init_state
 from recman_tpu_torch.training.train_step import loss_and_grads
 from recman_tpu_torch.utils.jax_random import JaxKey, truncated_normal, uniform
 from tests.test_torch_xdeepfm import _schema, _shared_params
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 PRED_TOL = 1e-5
 LOSS_REL = 1e-6

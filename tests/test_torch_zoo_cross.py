@@ -50,6 +50,7 @@ from recman_tpu_torch.training.train_step import apply_updates, loss_and_grads
 from recman_tpu_torch.utils import JaxKey
 from tests.test_torch_xdeepfm import _schema, _shared_params
 from tests.test_torch_zoo import ml  # noqa: F401  (the 1% ML-100K fixture)
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 PRED_TOL = 1e-5
 LOSS_REL = 1e-6

@@ -34,6 +34,7 @@ from tests.test_torch_zoo_cross import (
     _jnp,
     _tt,
 )
+from tests.torch_threads import worker_threads  # noqa: F401  (autouse)
 
 MODELS = ("autoint", "fibinet", "masknet", "final_mlp")
 
