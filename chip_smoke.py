@@ -195,7 +195,28 @@ bit-equal on two calls.
    the QR quotient shape (N 8192, V 316, C 16) against its twin and times
    it beside ``index_add_`` and its bound.
 
-It prints a ``kernels`` JSON line, the card's name and power limit, and as
+14. the parallel layer (runs right after resilience): the bench model
+   through ``parallel.ShardedTrainer`` from the reference's seed-2019
+   params (``utils.JaxKey``). (a) One rank on NCCL (a one-rank group that
+   ``make_mesh`` starts), the explicit DP route: a 4-step trace within
+   1e-6 of the plain ``Trainer``'s on the same index rows, K1 save, K2
+   and K3 once a step. Then a spawned world of two Gloo ranks on this
+   card (``parallel.launch.run_world``; NCCL refuses two ranks on one
+   card): (b) explicit DP at (2, 1), 4,096 rows a rank: the trace within
+   rtol 1e-3, atol 1e-4 of (a)'s, step-1 gradients within 1e-5 of
+   max|ref| on (a)'s activation signs, K1 save, K2 and K3 once a step on
+   each rank, ``predict`` equal to a plain ``Predictor`` within 1e-6; (c)
+   the row-sharded route at (1, 2), the 26 tables and ``linear_w`` split
+   over the two ranks, with the psum and then the dedup exchange (its
+   capacity sized on the first batch): traces within (b)'s bounds of
+   (a)'s, no dedup overflow, the dense params bit-equal across the ranks,
+   K1 save and K2 once a step and no K3, K6 or K7, and each exchange's
+   counted table bytes of a step equal to ``collective_traffic_model``'s.
+   16 steps of each run are timed. Two ranks share one card: no time is a
+   scaling figure.
+
+It prints a ``kernels`` JSON line (K1 save's, K2's and K3's records carry
+``parallel_launches``), the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU it exits
 non-zero and prints no result.
 """
@@ -360,6 +381,15 @@ DLRM_FIT_ROWS = 200_000  # split 90/10, as dcn_paper_criteo's
 DLRM_PRED_TOL = 1e-5     # card against CPU, TF32 off
 # the sequence phase: (a) DIN, BST and DIEN through run_model at their
 # hparam defaults, held to the docs/model_zoo.md rows with the zoo's bands
+# phase_parallel: parallel/ at the bench model's widths
+PARALLEL_HP = dict(HPARAMS, optimizer="adam", learning_rate=1e-3)
+PARALLEL_STEPS = 4        # checked steps of every run
+PARALLEL_TIMED = 16       # timed steps of every run
+PARALLEL_ONE_RANK_TOL = 1e-6  # (a): loss trace relative to the plain Trainer's
+PARALLEL_TRACE_RTOL, PARALLEL_TRACE_ATOL = 1e-3, 1e-4  # (b), (c) against (a)
+PARALLEL_GRAD_TOL = 1e-5  # of max|ref|: (b)'s step-1 gradients on (a)'s activation signs
+PARALLEL_PRED_TOL = 1e-6  # (b): predict against a plain Predictor on the same params
+PARALLEL_WORLD_S = 400    # the two-rank world's deadline
 SEQ_ROWS = {"din": (0.6077, 0.7149), "bst": (0.6104, 0.7097), "dien": (0.6045, 0.7209)}
 SEQ_BATCH = 128
 SEQ_PRED_TOL = 1e-5    # (b) predictions after calibrate, card against CPU
@@ -2392,6 +2422,227 @@ def lookup_launches(model, lookup):
     return {k: n * times for k, n in one.items()}
 
 
+def parallel_model():
+    from recman_tpu_torch.data import create_criteo_features
+    from recman_tpu_torch.models import XDeepFM
+
+    return XDeepFM(create_criteo_features(num_buckets=NUM_BUCKETS), PARALLEL_HP)
+
+
+def parallel_data():
+    from recman_tpu_torch.data import synthetic_criteo_arrays
+
+    data = synthetic_criteo_arrays(N_ROWS, num_buckets=NUM_BUCKETS, seed=2019)
+    return {k: v for k, v in data.items() if k != "y"}, data["y"]
+
+
+def parallel_run(trainer, data, idx, layout):
+    """PARALLEL_STEPS checked ``fit_on_batch`` steps from 0 launches (the
+    losses, the launches), then PARALLEL_TIMED timed ones (``timed_steps``:
+    device ms per step, wall ms, their launches)."""
+    import torch
+
+    reset_counts()
+    losses = [trainer.fit_on_batch(data, idx[i], layout) for i in range(PARALLEL_STEPS)]
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    losses = [float(v) for v in losses]
+    step_ms, wall, _, timed = timed_steps(trainer, data, idx, layout, PARALLEL_TIMED)
+    return {"losses": losses, "counts": counts, "step_ms": step_ms, "wall_ms": wall,
+            "timed_counts": timed}
+
+
+def parallel_rank(directory, device):
+    """One rank of phase_parallel's two-rank world (Gloo; on one card both
+    ranks use it): (b) explicit DP at (2, 1), (c) the row-sharded route at
+    (1, 2) with each exchange. Returns numbers and digests for the parent."""
+    import hashlib
+
+    import torch
+
+    from recman_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from recman_tpu_torch.parallel import collectives
+    from recman_tpu_torch.parallel.distributed import rank_device
+    from recman_tpu_torch.parallel.train_explicit import dp_grads, rank_batch
+    from recman_tpu_torch.parallel.train_pjit import shard_state
+    from recman_tpu_torch.serving import Predictor
+
+    ref = torch.load(f"{directory}/reference.pt", weights_only=True)
+    device = rank_device(device)
+    model = parallel_model()
+    x, y = parallel_data()
+    out = {}
+
+    def trainer(mesh, **kw):
+        t = ShardedTrainer(model, PARALLEL_HP, batch_size=BATCH, mesh=mesh, device=device, **kw)
+        t.state = shard_state(t.optimizer, ref["params"], mesh, t.specs, 0, device)
+        return t
+
+    # (b) explicit DP, 4096 rows a rank
+    mesh = make_mesh(data=2, model=1)
+    t = trainer(mesh)
+    data, layout = t._to_device(x, y)
+    idx = torch.as_tensor(t._batch_index_matrix(N_ROWS, shuffle_seed=0), device=device)
+    d, lb = mesh.data_index, BATCH // 2
+    ub, w = rank_batch(mesh, data, idx[0], layout)
+    card = [z[d * lb:(d + 1) * lb] for z in ref["record"]]
+    grads, _ = activation_recorded_grads(
+        model, t.state.params, ub, w, seq_sites(model), card=card,
+        grad_fn=lambda p, b, ww: dp_grads(model, mesh, p, b, ww, None)[1])
+    out["grad_rel"] = max((rel_err(ref["grads"][k], grads[k].cpu()), k) for k in grads)
+    out["dp"] = parallel_run(t, data, idx, layout)
+    out["dp"]["explicit"] = t._explicit_dp
+    preds = t.predict(x)
+    plain = Predictor(model, t.state.params, batch_size=BATCH, device=device).predict(x)
+    out["dp"]["pred_err"] = float(np.abs(preds - plain).max())
+    del t, data, grads
+    torch.cuda.empty_cache()
+
+    # (c) the row-sharded route, each exchange
+    mesh = make_mesh(data=1, model=2)
+    for exchange in ("psum", "dedup"):
+        t = trainer(mesh, embedding_exchange=exchange)
+        data, layout = t._to_device(x, y)
+        run = {"explicit": t._explicit_dp,
+               "sharded": sorted(k for k, s in t.specs.items() if s),
+               "blocks": {k: tuple(v.shape) for k, v in t.state.params.items() if t.specs[k]}}
+        collectives.reset_traffic()
+        t.fit_on_batch(data, idx[0], layout)  # sizes the capacity, checks the first batch
+        collectives.reset_traffic()
+        t.fit_on_batch(data, idx[1], layout)
+        run["traffic"] = {f"{o}/{a}/{g}": b for (o, a, g), b in collectives.TRAFFIC.items()}
+        run["capacity"] = t.dedup_capacity
+        run["overflow"] = [t.dedup_overflow_report(data, idx[i], layout) if exchange == "dedup"
+                           else {} for i in range(PARALLEL_STEPS)]
+        t.state = shard_state(t.optimizer, ref["params"], mesh, t.specs, 0, device)
+        run.update(parallel_run(t, data, idx, layout))
+        run["dense"] = {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+                        for k, v in t.state.params.items() if not t.specs[k]}
+        out[exchange] = run
+        del t, data
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(device):
+    """parallel/ at the bench model's widths through ShardedTrainer: (a) one
+    rank on NCCL (the explicit DP route) against the plain Trainer from the
+    same params and index rows; (b) two ranks on this card over Gloo,
+    explicit DP at (2, 1); (c) two ranks, the row-sharded route at (1, 2)
+    with the psum and the dedup exchange. Returns the launches of each
+    run's checked steps, per kernel."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from recman_tpu_torch.parallel import ShardedTrainer
+    from recman_tpu_torch.parallel.launch import run_world
+    from recman_tpu_torch.parallel.traffic import collective_traffic_model
+    from recman_tpu_torch.training import Trainer, gather_batch, init_state, unpack_batch
+    from recman_tpu_torch.utils import JaxKey
+
+    card = card_line()
+    model = parallel_model()
+    x, y = parallel_data()
+    plain = Trainer(model, PARALLEL_HP, batch_size=BATCH, device=device)
+    plain.state = init_state(model, plain.optimizer, JaxKey(2019), device=device)
+    params0 = {k: v.cpu() for k, v in plain.state.params.items()}
+    data, layout = plain._to_device(x, y)
+    idx = torch.as_tensor(plain._batch_index_matrix(N_ROWS, shuffle_seed=0), device=device)
+    batch, w = gather_batch(data, idx[0])
+    grads, record = activation_recorded_grads(model, plain.state.params, unpack_batch(batch, layout),
+                                              w, seq_sites(model))
+    reset_counts()
+    trace = np.asarray([float(plain.fit_on_batch(data, idx[i], layout))
+                        for i in range(PARALLEL_STEPS)])
+
+    # (a) one rank, NCCL: make_mesh starts the one-rank group
+    t = ShardedTrainer(model, PARALLEL_HP, batch_size=BATCH, device=device)
+    try:
+        check(dist.get_backend() == "nccl" and t._explicit_dp, "(a) is not one NCCL rank on DP")
+        t.state = init_state(model, t.optimizer, JaxKey(2019), device=device)
+        a = parallel_run(t, data, idx, layout)
+    finally:
+        dist.destroy_process_group()
+    rel = float(np.abs(np.asarray(a["losses"]) - trace).max() / np.abs(trace).max())
+    check(rel <= PARALLEL_ONE_RANK_TOL, f"(a) trace {a['losses']} vs the plain {trace.tolist()}")
+    once = {"K1 save": PARALLEL_STEPS, "K2": PARALLEL_STEPS, "K3": PARALLEL_STEPS}
+    check_counts(a["counts"], once, "(a) one rank")
+    log(f"parallel (a) one NCCL rank, DP: trace {a['losses']} vs plain {trace.tolist()} (max rel "
+        f"{rel:.3e}); step {a['step_ms']:.3f} ms device, {a['wall_ms']:.3f} ms wall "
+        f"[{card}]; launches {a['counts']}")
+    del t, plain, data, batch, w
+    torch.cuda.empty_cache()
+
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build", prefix="parallel_") as tmp:
+        torch.save({"params": params0, "grads": {k: v.cpu() for k, v in grads.items()},
+                    "record": record}, f"{tmp}/reference.pt")
+        t0 = time.perf_counter()
+        ranks = run_world(parallel_rank, 2, backend="gloo", device=device.type,
+                          args=(tmp, device.type), timeout_s=PARALLEL_WORLD_S, threads=4)
+        log(f"parallel two-rank world {time.perf_counter() - t0:.1f} s")
+
+    def traced(run, what):
+        got = np.asarray(run["losses"])
+        err = float(np.abs(got - np.asarray(a["losses"])).max())
+        check(np.allclose(got, a["losses"], rtol=PARALLEL_TRACE_RTOL, atol=PARALLEL_TRACE_ATOL),
+              f"{what} trace {got.tolist()} vs (a) {a['losses']}")
+        return err
+
+    launches = {"a": a["counts"]}
+    for r, out in enumerate(ranks):
+        dp = out["dp"]
+        check(dp["explicit"], "(b) did not take the explicit DP route")
+        check(out["grad_rel"][0] <= PARALLEL_GRAD_TOL,
+              f"(b) rank {r} step-1 grad {out['grad_rel']} over {PARALLEL_GRAD_TOL} of max|ref|")
+        check_counts(dp["counts"], once, f"(b) rank {r}")
+        check(dp["pred_err"] <= PARALLEL_PRED_TOL, f"(b) rank {r} predict {dp['pred_err']}")
+        err = traced(dp, f"(b) rank {r}")
+        log(f"parallel (b) rank {r}, DP (2, 1) over Gloo: trace {dp['losses']} (max|d| from (a) "
+            f"{err:.3e}); step-1 grads {out['grad_rel'][0]:.3e} of max|ref| ({out['grad_rel'][1]}); "
+            f"predict max|d| {dp['pred_err']:.3e}; step {dp['step_ms']:.3f} ms device, "
+            f"{dp['wall_ms']:.3f} ms wall [{card}]; launches {dp['counts']}")
+        for exchange in ("psum", "dedup"):
+            run = out[exchange]
+            check(not run["explicit"], f"(c) {exchange} took the DP route")
+            check_counts(run["counts"], {"K1 save": PARALLEL_STEPS, "K2": PARALLEL_STEPS, "K3": 0,
+                                         "K6": 0, "K7": 0}, f"(c) {exchange} rank {r}")
+            check(run["blocks"]["linear_w"] == (-(-model.linear.total_size // 2),)
+                  and run["blocks"]["C1_feat_embed"] == (-(-(NUM_BUCKETS + 1) // 2),
+                                                         HPARAMS["embedding_size"]),
+                  f"(c) blocks {run['blocks']}")
+            check(all(not any(o.values()) for o in run["overflow"]),
+                  f"(c) dedup overflow {run['overflow']}")
+            err = traced(run, f"(c) {exchange} rank {r}")
+            kw = dict(n_tables=26, vocab=NUM_BUCKETS + 2, k=HPARAMS["embedding_size"],
+                      batch_local=BATCH, data_shards=1, model_shards=2)
+            tr = run["traffic"]
+            if exchange == "psum":
+                model_b = collective_traffic_model(**kw)["model_axis"]["psum_bytes"]
+                got_b = tr["all_reduce/model/table"]
+            else:
+                model_b = collective_traffic_model(capacity=min(run["capacity"], BATCH), **kw)[
+                    "model_axis"]["dedup_bytes"]
+                got_b = tr["all_gather/model/table"] + tr["reduce_scatter/model/table"]
+            check(got_b == model_b, f"(c) {exchange} counted {got_b} B, the model {model_b}")
+            log(f"parallel (c) rank {r}, row-sharded (1, 2), {exchange}: trace {run['losses']} "
+                f"(max|d| from (a) {err:.3e}); capacity {run['capacity']}; table exchange "
+                f"{got_b} B a step counted = {model_b} B collective_traffic_model; a step's "
+                f"bytes {tr}; step {run['step_ms']:.3f} ms device, {run['wall_ms']:.3f} ms wall "
+                f"[{card}]; launches {run['counts']}")
+            launches[f"c_{exchange}_rank{r}"] = run["counts"]
+        launches[f"b_rank{r}"] = dp["counts"]
+    for exchange in ("psum", "dedup"):
+        check(ranks[0][exchange]["dense"] == ranks[1][exchange]["dense"],
+              f"(c) {exchange}: dense params differ between the model ranks")
+    log("parallel (c): dense params bit-equal across the two model ranks, both exchanges; two "
+        f"ranks share one card, so no time here is a scaling figure [{card}]")
+    return launches
+
+
 def phase_zoo(device):
     """The zoo outside the sequence family: (a) the sixteen runs of the
     ML-100K quality protocol through ``examples.model_zoo_ml.run_model``
@@ -2811,13 +3062,14 @@ def seq_sites(model):
     return [(h, "activation") for h in holders]
 
 
-def activation_recorded_grads(model, params, ub, w, sites, card=None):
+def activation_recorded_grads(model, params, ub, w, sites, card=None, grad_fn=None):
     """Step-1 gradients of a model with per-table storage, recording the
     pre-activation of each activation in ``sites`` ((holder, attribute)
     pairs, in call order) on the CPU. With ``card``, another run's record:
     where this run's pre-activation has the other sign, the activation and
     its derivative are taken on the card's side of 0, as
-    ``recorded_grads`` does. Returns (grads, [pre-activations])."""
+    ``recorded_grads`` does. ``grad_fn(params, ub, w)``: the gradients
+    (default ``loss_and_grads``'). Returns (grads, [pre-activations])."""
     import torch
 
     from recman_tpu_torch.training.train_step import loss_and_grads
@@ -2838,7 +3090,7 @@ def activation_recorded_grads(model, params, ub, w, sites, card=None):
     for (h, attr), act in zip(sites, real):
         setattr(h, attr, wrap(act))
     try:
-        grads = loss_and_grads(model, params, ub, w)[1]
+        grads = (grad_fn or (lambda p, b, ww: loss_and_grads(model, p, b, ww)[1]))(params, ub, w)
     finally:
         for (h, attr), act in zip(sites, real):
             setattr(h, attr, act)
@@ -3322,7 +3574,7 @@ def kernel_record(name, source, replaces, launches, rec):
     # Criteo table and at the history, the launches of the zoo and sequence
     # phases
     for extra in ("large_batch", "dlrm_mlperf_criteo", "criteo", "history", "qr", "zoo_launches",
-                  "seq_launches", "export_launches", "qr_launches"):
+                  "seq_launches", "export_launches", "qr_launches", "parallel_launches"):
         if extra in rec:
             out[extra] = rec[extra]
     return out
@@ -3382,6 +3634,11 @@ def main():
     t0 = time.perf_counter()
     resilience = phase_resilience(device)
     log(f"resilience phase {time.perf_counter() - t0:.1f} s [{card}]; launches {resilience}")
+    t0 = time.perf_counter()
+    parallel = phase_parallel(device)
+    log(f"parallel phase {time.perf_counter() - t0:.1f} s [{card}]")
+    for name in ("K1 save", "K2", "K3"):
+        rec[name]["parallel_launches"] = {run: c[name] for run, c in parallel.items()}
     t0 = time.perf_counter()
     zoo = phase_zoo(device)
     log(f"zoo phase {time.perf_counter() - t0:.1f} s [{card}]")

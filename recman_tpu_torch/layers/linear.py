@@ -13,6 +13,13 @@ starts at its offset; the logit terms are gathers from those slices
 The override (reference layers.py:338-345, the "penalize Outdoor by -5"
 demo) is an additive vector built from ``feat.weights``, applied when
 not training.
+
+Where ``linear_w`` is row-sharded (``ops.embedding.dedup_exchange``), every
+term is a lookup into the whole vector at ``offset + id`` (a dense feat's
+at ``offset``), all through one masked gather + all-reduce over the model
+axis, on both exchanges: a feature's slice of the one sharded vector is
+no block of its own, and a dedup capacity sized for one table's ids does
+not bound all the features' together.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from ..features import (
     SparseFeat,
     SparseValueFeat,
 )
-from ..ops.embedding import embedding_lookup_grouped
+from ..ops.embedding import _dedup_ctx, _exchanged, embedding_lookup_grouped
 from ..utils import l2_loss
 
 
@@ -63,16 +70,36 @@ class LinearLayer:
         )
 
     def weights(self, params, override=None) -> torch.Tensor:
-        """``linear_w`` plus the override (zero-padded to its length)."""
+        """``linear_w`` plus the override (zero-padded to its length; on a
+        row-sharded ``linear_w`` block, the override's same rows)."""
         w = params[f"{self.prefix}linear_w"]
         if override is None:
             return w
         override = override.to(device=w.device, dtype=w.dtype)
+        start = 0
+        if _exchanged(w) is not None:
+            start = _dedup_ctx().mesh.model_index * w.shape[0]
+        override = override[start: start + w.shape[0]]
         if override.shape[0] < w.shape[0]:
             override = torch.cat(
                 [override, override.new_zeros(w.shape[0] - override.shape[0])]
             )
         return w + override
+
+    def _exchanged_rows(self, w, dense, ids_list, kinds):
+        """Every term's weights through one psum exchange on the row-sharded
+        ``linear_w`` block ``w``: (dense weights (B,) each, sparse rows)."""
+        from ..parallel.shard_lookup import _psum_rows
+
+        b = ids_list[0].shape[0] if ids_list else dense[0][1].shape[0]
+        gids = [torch.full((b,), off, dtype=torch.int64, device=w.device) for off, _ in dense]
+        gids += [ids.long() + self.offsets[feat.name] for feat, ids in zip(kinds, ids_list)]
+        flat = _psum_rows([w[:, None]], [torch.cat([g.reshape(-1) for g in gids])],
+                          _dedup_ctx().mesh, "linear")[0][:, 0]
+        parts = list(flat.split([g.numel() for g in gids]))
+        dense_w = parts[:len(dense)]
+        rows = [p.reshape(*ids.shape, 1) for p, ids in zip(parts[len(dense):], ids_list)]
+        return dense_w, rows
 
     def apply(self, params, batch, training=True, override=None):
         """The linear logit (B, 1) (reference linear.py:74-130). Each
@@ -80,11 +107,11 @@ class LinearLayer:
         all through one grouped lookup; ``override`` applies only when not
         training."""
         w = self.weights(params, None if training else override)[:, None]
-        terms, slices, ids_list, kinds = [], [], [], []
+        dense, slices, ids_list, kinds = [], [], [], []
         for feat in self.feats:
             off = self.offsets[feat.name]
             if isinstance(feat, DenseFeat):
-                terms.append(w[off, 0] * batch[feat.name])
+                dense.append((off, batch[feat.name]))
                 continue
             slices.append(w[off: off + feat.feat_size])
             kinds.append(feat)
@@ -95,7 +122,13 @@ class LinearLayer:
             else:
                 raise NotImplementedError(type(feat))
 
-        for feat, rows in zip(kinds, embedding_lookup_grouped(slices, ids_list)):
+        if _exchanged(params[f"{self.prefix}linear_w"]) is not None:
+            dense_w, looked_up = self._exchanged_rows(w[:, 0], dense, ids_list, kinds)
+        else:
+            dense_w = [w[off, 0] for off, _ in dense]
+            looked_up = embedding_lookup_grouped(slices, ids_list)
+        terms = [dw * value for dw, (_, value) in zip(dense_w, dense)]
+        for feat, rows in zip(kinds, looked_up):
             if isinstance(feat, SparseValueFeat):
                 terms.append(rows[:, 0] * batch[feat.value_key])
             elif isinstance(feat, SparseFeat):

@@ -28,8 +28,13 @@ batched K3 launch for each group of same-shape tables and, under
 ``grad_kernel("segmat")``, one K6 launch for each table of its own shape.
 Rows stay float32. The reference's bf16 packed rows (its
 ``PACKED_FWD_BF16`` gate) are on only on its TPU path; the port keeps f32
-until that choice is measured on the GPU. The dedup exchange is not
-ported.
+until that choice is measured on the GPU.
+
+Under an exchange (``ops.embedding.dedup_exchange``, the row-sharded
+steps) nothing is packed (reference :101-115): a packed [table | w]
+temporary is no row-sharded block, so the towers run apart
+(``EmbeddingLayer.apply``, ``LinearLayer.apply``) and each block takes the
+exchange.
 
 QR features (``qr_collisions``) have no single (V, k) table to pack and
 take the unpacked lookups (reference :60-62). When any packable table is
@@ -95,6 +100,9 @@ class PackedEmbeddingLinear:
         linear_logit (B, 1)). The override is ignored in training."""
         emb = self.embeddings
         lin = self.linear
+        if emb_ops._dedup_ctx() is not None:
+            feat_embeds, feat_bias = emb.apply(params, batch)
+            return feat_embeds, feat_bias, lin.apply(params, batch, training, override)
         k = emb.embedding_size
         use_bias = emb.use_bias
         w = lin.weights(params, None if training else override)

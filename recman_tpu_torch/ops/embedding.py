@@ -37,8 +37,13 @@ A ``QuantTable`` (int8 rows and per-row f32 scales, the quantized
 serving tables of ``serving.Predictor.export(quantize_embeddings=
 "runtime")``) goes through ``embedding_lookup``: the int8 rows are
 gathered and dequantized after the gather, in plain PyTorch as in the
-reference (:583-590). It has no gradient path. The dedup exchange is not
-ported.
+reference (:583-590). It has no gradient path.
+
+Under ``dedup_exchange`` (the row-sharded train and eval steps of
+``parallel/train_pjit.py``) a lookup against a row-sharded table block
+takes the context's exchange, the masked gather + all-reduce ("psum") or
+the deduped all-gather ("dedup", ``parallel/shard_lookup.py``); the
+reference leaves "psum" to its partitioner, which the port does not have.
 """
 
 from __future__ import annotations
@@ -164,6 +169,66 @@ def _segmat_multi_active(c: int, device) -> bool:
     return torch.device(device).type == "cuda" and c >= 8
 
 
+class _Exchange(NamedTuple):
+    mesh: object
+    kind: str  # "psum" or "dedup"
+    capacity: int | None
+    blocks: dict  # data_ptr of a row-sharded block -> (its rows, the counter's tag)
+
+
+def _exchange_tag(name: str) -> str:
+    if name.endswith("linear_w"):
+        return "linear"
+    return "bias" if name.endswith("_feat_bias") else "table"
+
+
+@contextlib.contextmanager
+def dedup_exchange(mesh, blocks: dict, capacity=None, exchange="dedup"):
+    """Route lookups against row-sharded table blocks through an exchange
+    (reference :191-207, which routes by the global table's shape).
+
+    ``blocks``: {param name: this rank's block} of the row-sharded params
+    (``parallel.sharding.param_specs``); a lookup takes the exchange when
+    its table is one of them or a view of one from its first row (a bias
+    block as (V, 1)). ``exchange``: "dedup" (``dedup_embedding_lookup``
+    at ``capacity``, None = its default) or "psum"
+    (``sharded_embedding_lookup``). The row-sharded steps install this
+    around the loss and the eval forward."""
+    assert exchange in ("psum", "dedup"), exchange
+    prev = getattr(_state, "exchange", None)
+    _state.exchange = _Exchange(mesh, exchange, capacity, {
+        t.data_ptr(): (t.shape[0], _exchange_tag(name)) for name, t in blocks.items()})
+    try:
+        yield
+    finally:
+        _state.exchange = prev
+
+
+def _dedup_ctx():
+    return getattr(_state, "exchange", None)
+
+
+def _exchanged(table):
+    """The counter's tag when ``table`` is a row-sharded block under
+    ``dedup_exchange``, else None."""
+    ctx = _dedup_ctx()
+    if ctx is None or isinstance(table, QuantTable):
+        return None
+    hit = ctx.blocks.get(table.data_ptr())
+    return hit[1] if hit is not None and hit[0] == table.shape[0] else None
+
+
+def exchange_lookup(tables: list, ids_list: list, tag: str) -> list:
+    """Rows of row-sharded blocks through the context's exchange, one
+    collective for all of them (``parallel/shard_lookup.py``)."""
+    from ..parallel.shard_lookup import _dedup_rows, _psum_rows
+
+    ctx = _dedup_ctx()
+    if ctx.kind == "psum":
+        return _psum_rows(tables, ids_list, ctx.mesh, tag)
+    return _dedup_rows(tables, ids_list, ctx.mesh, ctx.capacity, tag)[0]
+
+
 @contextlib.contextmanager
 def stacked_tables(names: tuple, stack):
     """Run packed lookups against ONE stacked (T, V, k) table leaf.
@@ -171,7 +236,10 @@ def stacked_tables(names: tuple, stack):
     ``names``: feature names in stack order; they must be the packed
     layer's full packable set (``PackedEmbeddingLinear.stackable``) for
     the layer to take the stack. The stacked train step installs this
-    around ``model.loss`` with the step's stacked parameter."""
+    around ``model.loss`` with the step's stacked parameter. Incompatible
+    with ``dedup_exchange``."""
+    if _dedup_ctx() is not None:
+        raise RuntimeError("stacked_tables is incompatible with dedup_exchange")
     prev = getattr(_state, "stacked", None)
     _state.stacked = (tuple(names), stack)
     try:
@@ -264,6 +332,9 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     and dequantizes them after the gather (no gradient path)."""
     if isinstance(table, QuantTable):
         return _quant_lookup(table, ids)
+    tag = _exchanged(table)
+    if tag is not None:
+        return exchange_lookup([table], [ids], tag)[0]
     flat = ids.reshape(-1)
     if _fused_active(table.device):
         rows = _Lookup.apply(table, flat)
@@ -316,12 +387,23 @@ def embedding_lookup_multi(tables: list, ids_list: list) -> list:
 def embedding_lookup_grouped(tables, ids_list) -> list:
     """Lookups across tables -> list of row tensors. Same-shape subsets
     share the batched-sort backward (``embedding_lookup_multi``); the rest,
-    and every ``QuantTable``, go per table (reference :1178-1210)."""
+    and every ``QuantTable``, go per table (reference :1178-1210). Under
+    ``dedup_exchange`` the row-sharded ones share one exchange per tag."""
     assert len(tables) == len(ids_list)
-    by_shape = collections.defaultdict(list)
-    for pos, (t, i) in enumerate(zip(tables, ids_list)):
-        by_shape[(tuple(t.shape), tuple(i.shape))].append(pos)
     out: list = [None] * len(tables)
+    by_shape = collections.defaultdict(list)
+    by_tag = collections.defaultdict(list)
+    for pos, (t, i) in enumerate(zip(tables, ids_list)):
+        tag = _exchanged(t)
+        if tag is not None:
+            by_tag[tag].append(pos)
+        else:
+            by_shape[(tuple(t.shape), tuple(i.shape))].append(pos)
+    for tag, positions in by_tag.items():
+        rows = exchange_lookup([tables[p] for p in positions],
+                               [ids_list[p] for p in positions], tag)
+        for p, r in zip(positions, rows):
+            out[p] = r
     for positions in by_shape.values():
         first = tables[positions[0]]
         if (len(positions) == 1 or isinstance(first, QuantTable)

@@ -322,16 +322,20 @@ def init_state(model, optimizer, generator, device=None) -> TrainState:
     ``utils.JaxKey`` is split as the reference's ``init_state`` splits its
     key, so the params are the reference's for the same key."""
     device = resolve_device(device)
-    if isinstance(generator, JaxKey):
-        init_key, state_key = generator.split(2)
-        params = model.init_params(init_key, device)
-        hi, lo = state_key.words
-        seed = ((hi << 32) | lo) % 2**62
-    else:
-        params = model.init_params(generator, device)
-        seed = int(torch.randint(0, 2**62, (), generator=generator))
+    params, seed = init_params_and_seed(model, generator, device)
     dropout_gen = torch.Generator(device=device).manual_seed(seed)
     return TrainState(params, optimizer.init(params), 0, dropout_gen)
+
+
+def init_params_and_seed(model, generator, device):
+    """``init_state``'s params on ``device`` and its dropout generator's
+    seed, from a torch.Generator or a ``utils.JaxKey``."""
+    if isinstance(generator, JaxKey):
+        init_key, state_key = generator.split(2)
+        hi, lo = state_key.words
+        return model.init_params(init_key, device), ((hi << 32) | lo) % 2**62
+    params = model.init_params(generator, device)
+    return params, int(torch.randint(0, 2**62, (), generator=generator))
 
 
 def gather_batch(data: dict, idx: torch.Tensor) -> tuple[dict, torch.Tensor]:
@@ -402,21 +406,30 @@ def unpack_batch(batch: dict, layout) -> dict:
 STACKED_KEY = "__stacked_feat_embed"
 
 
+def value_and_grads(objective, params: dict) -> tuple[torch.Tensor, dict]:
+    """(objective(live params), {name: gradient}), zeros for a param the
+    objective does not use."""
+    keys = list(params)
+    leaves = [params[k].detach().requires_grad_(True) for k in keys]
+    value = objective(dict(zip(keys, leaves)))
+    grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    return value.detach(), {
+        k: torch.zeros_like(p) if g is None else g for k, p, g in zip(keys, leaves, grads)
+    }
+
+
 def loss_and_grads(model, params: dict, batch: dict, weights=None, generator=None,
                    names: tuple | None = None) -> tuple[torch.Tensor, dict]:
     """The training loss and the gradient of every param (zeros for a
     param the loss does not use). With ``names`` the params are in
     stacked storage and the loss runs under ``stacked_tables``."""
-    keys = list(params)
-    leaves = [params[k].detach().requires_grad_(True) for k in keys]
-    live = dict(zip(keys, leaves))
-    ctx = stacked_tables(names, live[STACKED_KEY]) if names else contextlib.nullcontext()
-    with ctx:
-        loss = model.loss(live, batch, training=True, generator=generator, weights=weights)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return loss.detach(), {
-        k: torch.zeros_like(p) if g is None else g for k, p, g in zip(keys, leaves, grads)
-    }
+
+    def loss(live):
+        ctx = stacked_tables(names, live[STACKED_KEY]) if names else contextlib.nullcontext()
+        with ctx:
+            return model.loss(live, batch, training=True, generator=generator, weights=weights)
+
+    return value_and_grads(loss, params)
 
 
 def _one_step(model, optimizer, state: TrainState, data: dict, idx, layout=(),

@@ -130,6 +130,11 @@ class Trainer:
         """Dataframe -> encoded tensors on the device (a dict passes through
         as already encoded). Columns are packed by dtype (pack_dataset);
         returns (data, layout)."""
+        data, layout = self._encode(X, y)
+        return {k: torch.as_tensor(v).to(self.device) for k, v in data.items()}, layout
+
+    def _encode(self, X, y=None):
+        """``_to_device``'s host half: (packed numpy columns, layout)."""
         if isinstance(X, dict):
             data = dict(X)
             if y is not None:
@@ -138,8 +143,7 @@ class Trainer:
             data = self.model.feat_dict.transform(X, y)
         if "y" not in data:
             data["y"] = np.zeros(len(next(iter(data.values()))), dtype=np.float32)
-        data, layout = pack_dataset(data)
-        return {k: torch.as_tensor(v).to(self.device) for k, v in data.items()}, layout
+        return pack_dataset(data)
 
     def _override(self):
         """Linear-tower weight-override vector, rebuilt from the live

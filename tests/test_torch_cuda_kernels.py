@@ -550,6 +550,44 @@ def test_stacked_train_step_on_card_matches_cpu(cuda):
 
 
 
+def test_one_rank_nccl_dp_step_matches_the_plain_step(cuda):
+    """parallel/: the explicit DP step on a one-rank NCCL group (make_mesh
+    with no group) against the plain step on the same card: the same loss
+    and params (1e-6), K1 save, K2 and K3 once each."""
+    import torch.distributed as dist
+
+    from recman_tpu_torch.data import create_criteo_features, synthetic_criteo_arrays
+    from recman_tpu_torch.models import XDeepFM
+    from recman_tpu_torch.parallel import make_mesh
+    from recman_tpu_torch.parallel.train_explicit import make_dp_train_step_explicit
+    from recman_tpu_torch.serving import batch_indices
+    from recman_tpu_torch.training import create_optimizer, init_state, make_train_step, pack_dataset
+
+    hp = {"embedding_size": 16, "cin_cross_layer_units": (8, 6),
+          "cin_dropout": (1, 1, 1), "deep_hidden_units": (32, 32),
+          "deep_dropout": (1.0, 1.0, 1.0)}
+    model = XDeepFM(create_criteo_features(num_buckets=1000), hp)
+    data, layout = pack_dataset(synthetic_criteo_arrays(512, num_buckets=1000, seed=2019))
+    data = {k: torch.as_tensor(v).to(cuda) for k, v in data.items()}
+    idx = torch.as_tensor(batch_indices(512, 256, shuffle_seed=0)[0]).to(cuda)
+    opt = create_optimizer("adam", 1e-3)
+    mesh = make_mesh(device=cuda)
+    try:
+        assert dist.get_backend() == "nccl" and mesh.shape == {"data": 1, "model": 1}
+        ref, ref_loss = make_train_step(model, opt)(
+            init_state(model, opt, torch.Generator().manual_seed(0), device=cuda), data, idx, layout)
+        before = (cin_chain.SAVE_LAUNCHES, cin_chain.BWD_LAUNCHES, segment_matmul.LAUNCHES)
+        got, losses = make_dp_train_step_explicit(model, opt, mesh)(
+            init_state(model, opt, torch.Generator().manual_seed(0), device=cuda), data, idx[None],
+            layout)
+        after = (cin_chain.SAVE_LAUNCHES, cin_chain.BWD_LAUNCHES, segment_matmul.LAUNCHES)
+        assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+        assert abs(losses[0].item() - ref_loss.item()) <= 1e-6 * abs(ref_loss.item())
+        for k, v in ref.params.items():
+            torch.testing.assert_close(got.params[k], v, rtol=1e-6, atol=1e-9)
+    finally:
+        dist.destroy_process_group()
+
 def _rows_case(n, v, c, seed, device, hot=None):
     """Sorted Zipf(1.2) ids and random (N, C) cotangents. A float ``hot``
     gives id 0 that share of the rows, as PAD (clamped to 0) in genres (1.0:

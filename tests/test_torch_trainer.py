@@ -198,8 +198,8 @@ def test_trainer_raises_on_what_is_not_ported(ml):
     """calibrate returns False for a model with no Dice moments; for one
     whose state holds Dice moments but whose apply takes no moment capture
     (xDeepFM) it warns, as the reference does, and returns False. The
-    stream methods have no sharded path to refuse (the port has no
-    ShardedTrainer)."""
+    plain Trainer keeps one step a call and no stacked storage on the CPU.
+    (ShardedTrainer's refusals are in tests/test_torch_parallel.py.)"""
     trainer = _small_trainer(ml)
     _, xtr, _, _ = ml["port"]
     assert trainer.calibrate(xtr) is False

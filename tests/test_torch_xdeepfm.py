@@ -338,7 +338,7 @@ COPIED = [
     "features/__init__.py", "features/encoders.py", "features/schema.py",
     "features/serialize.py", "config/__init__.py", "config/hparams.py",
     "data/criteo.py", "training/metrics.py", "obs/__init__.py", "obs/best_model.py",
-    "ckpt/transfer.py", "training/resilient.py", "data/streaming.py",
+    "ckpt/transfer.py", "training/resilient.py", "data/streaming.py", "parallel/traffic.py",
 ]
 
 
