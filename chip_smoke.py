@@ -211,12 +211,29 @@ bit-equal on two calls.
    capacity sized on the first batch): traces within (b)'s bounds of
    (a)'s, no dedup overflow, the dense params bit-equal across the ranks,
    K1 save and K2 once a step and no K3, K6 or K7, and each exchange's
-   counted table bytes of a step equal to ``collective_traffic_model``'s.
-   16 steps of each run are timed. Two ranks share one card: no time is a
+   counted table bytes of a step equal to ``collective_traffic_model``'s;
+   (d) the DNN tensor-parallel at (1, 2) (``tp_dense_threshold``
+   100,000: layer 0 column-sharded, layer 1 row-sharded), its blocks'
+   shapes, the trace within (b)'s bounds of (a)'s, K1 save and K2 once a
+   step, the replicated params bit-equal across the ranks; (e) a
+   resilient ``fit`` at (1, 2) preempted by a real SIGTERM to rank 1
+   alone: both ranks checkpoint at the same step, and fresh trainers
+   resume to an uninterrupted run's params, optimizer state, step and
+   generator bit for bit; (f) ``fit_stream`` at (1, 2) against the plain
+   Trainer's on the same chunks, K1 save, K2 and K3 once a step, and
+   ``predict_stream`` equal to ``predict``; (g) DIEN with its auxiliary
+   loss (weight 0.5) and Dice at (2, 1) on the sequence phase's ML-100K
+   rows, against the plain Trainer: the step-1 gradients within 1e-5 of
+   max|ref| (and, as a control, beyond it with Dice's moments taken on
+   each rank's rows), the trace and ``calibrate``'s moments; (h) QR (q
+   317) on the 26 hashed fields with Lamb at (1, 2) under "segmat", the
+   export phase's QR route, the quotient tables row-sharded, against the
+   plain Trainer: the trace, K6 53 times a step and no ``index_add_``.
+   16 steps of (b)-(d) are timed. Two ranks share one card: no time is a
    scaling figure.
 
-It prints a ``kernels`` JSON line (K1 save's, K2's and K3's records carry
-``parallel_launches``), the card's name and power limit, and as
+It prints a ``kernels`` JSON line (K1 save's, K2's, K3's and K6's records
+carry ``parallel_launches``), the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU it exits
 non-zero and prints no result.
 """
@@ -390,6 +407,14 @@ PARALLEL_TRACE_RTOL, PARALLEL_TRACE_ATOL = 1e-3, 1e-4  # (b), (c) against (a)
 PARALLEL_GRAD_TOL = 1e-5  # of max|ref|: (b)'s step-1 gradients on (a)'s activation signs
 PARALLEL_PRED_TOL = 1e-6  # (b): predict against a plain Predictor on the same params
 PARALLEL_WORLD_S = 400    # the two-rank world's deadline
+PARALLEL_TP = 100_000     # (d) tp_dense_threshold: the DNN's (429, 400) and (400, 400) layers shard
+PARALLEL_STREAM_CHUNK = 16_384  # (f) rows a chunk: 3 steps each (the last one all padding)
+PARALLEL_STREAM_CHUNKS = 3
+PARALLEL_RESUME_EPOCHS = 2      # (e) RESUME_ROWS' 7 steps an epoch, preempted at PREEMPT_STEP
+PARALLEL_DIEN_HP = {"aux_loss_weight": 0.5, "learning_rate": 1e-3, "optimizer": "adam"}
+PARALLEL_QR_HP = dict(HPARAMS, optimizer="lamb", learning_rate=1e-3)
+PARALLEL_QR_THRESHOLD = 256     # (h) below the quotient tables' 316 rows, so that they shard
+PARALLEL_QR_K6 = 53             # (h) K6 a step: 26 quotient blocks, 26 remainders, linear_w's exchange
 SEQ_ROWS = {"din": (0.6077, 0.7149), "bst": (0.6104, 0.7097), "dien": (0.6045, 0.7209)}
 SEQ_BATCH = 128
 SEQ_PRED_TOL = 1e-5    # (b) predictions after calibrate, card against CPU
@@ -2029,20 +2054,21 @@ def phase_split_lookup(device):
     return k7_launches
 
 
-def preempting(directory, at_step, save_seconds, **kw):
-    """A ``Resilience`` that raises a real SIGTERM at the boundary of global
-    step ``at_step`` (the handler ``fit`` installed catches it) and
-    appends the seconds of each save that writes a checkpoint to
-    ``save_seconds``."""
+def preempting(directory, at_step, save_seconds, base=None, **kw):
+    """A ``Resilience`` (or a subclass of ``base``, ``parallel.
+    MeshResilience`` on a mesh) that raises a real SIGTERM at the boundary
+    of global step ``at_step`` (the handler ``fit`` installed catches it;
+    None: no signal) and appends the seconds of each save that writes a
+    checkpoint to ``save_seconds``."""
     import signal
 
     import torch
 
     from recman_tpu_torch.training import Resilience
 
-    class Preempting(Resilience):
+    class Preempting(base or Resilience):
         def step_boundary(self, trainer, step, epoch, extra=None):
-            if step == at_step:
+            if at_step is not None and step == at_step:
                 signal.raise_signal(signal.SIGTERM)
             super().step_boundary(trainer, step, epoch, extra)
 
@@ -2521,6 +2547,241 @@ def parallel_rank(directory, device):
         out[exchange] = run
         del t, data
         torch.cuda.empty_cache()
+
+    # (d) tensor-parallel DNN at (1, 2), psum
+    t = trainer(mesh, tp_dense_threshold=PARALLEL_TP)
+    data, layout = t._to_device(x, y)
+    run = {"explicit": t._explicit_dp,
+           "blocks": {k: tuple(v.shape) for k, v in t.state.params.items() if t.specs[k]},
+           "specs": {k: s for k, s in t.specs.items() if "dnn" in k and s}}
+    collectives.reset_traffic()
+    t.fit_on_batch(data, idx[0], layout)
+    run["traffic"] = {f"{o}/{a}/{g}": b for (o, a, g), b in collectives.TRAFFIC.items()}
+    t.state = shard_state(t.optimizer, ref["params"], mesh, t.specs, 0, device)
+    run.update(parallel_run(t, data, idx, layout))
+    run["replicated"] = {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+                         for k, v in t.state.params.items() if not t.specs[k]}
+    out["tp"] = run
+    del t, data
+    torch.cuda.empty_cache()
+    out["resume"] = parallel_resume(mesh, device, trainer)
+    out["stream"] = parallel_stream(mesh, device, trainer, x, y)
+    out["dien"] = parallel_dien(device)
+    out["qr"] = parallel_qr(mesh, device)
+    return out
+
+
+def traced_fit_stream(trainer, chunks):
+    """``fit_stream(chunks, epochs=1)`` with the loss of every step read
+    back: the trace."""
+    losses = []
+    inner = trainer.fit_on_batch
+    trainer.fit_on_batch = lambda *a: losses.append(inner(*a)) or losses[-1]
+    try:
+        trainer.fit_stream(chunks, epochs=1)
+    finally:
+        del trainer.fit_on_batch
+    return [float(v) for v in losses]
+
+
+def parallel_chunks(x, y):
+    """(f)'s chunk factory: PARALLEL_STREAM_CHUNKS chunks of
+    PARALLEL_STREAM_CHUNK rows."""
+    def chunks():
+        for c in range(PARALLEL_STREAM_CHUNKS):
+            rows = slice(c * PARALLEL_STREAM_CHUNK, (c + 1) * PARALLEL_STREAM_CHUNK)
+            yield {**{k: v[rows] for k, v in x.items()}, "y": y[rows]}
+    return chunks
+
+
+def parallel_resume(mesh, device, trainer):
+    """(e) at (1, 2), psum: a resilient fit of RESUME_ROWS uninterrupted;
+    one that a real SIGTERM to rank 1 alone preempts at PREEMPT_STEP; its
+    resume by a fresh trainer. Returns the digests, the step each rank
+    checkpointed at, the checkpoint's bytes and the saves' seconds."""
+    import hashlib
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from recman_tpu_torch.ckpt.checkpoint import _flatten
+    from recman_tpu_torch.data import synthetic_criteo_arrays
+    from recman_tpu_torch.ops.embedding import grad_kernel
+    from recman_tpu_torch.parallel import MeshResilience
+    from recman_tpu_torch.parallel.checkpoint import barrier
+    from recman_tpu_torch.training import Preempted, Resilience
+
+    def digest(t):
+        leaves = {f"param/{k}": v for k, v in t.state.params.items()}
+        leaves.update({"/".join(map(str, p)): v for p, v in _flatten(t.state.opt_state)
+                       if isinstance(v, torch.Tensor)})
+        out = {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest() for k, v in leaves.items()}
+        out["step"] = int(t.state.step)
+        out["generator"] = hashlib.sha256(t.state.generator.get_state().cpu().numpy()
+                                          .tobytes()).hexdigest()
+        return out
+
+    data = synthetic_criteo_arrays(RESUME_ROWS, num_buckets=NUM_BUCKETS, seed=7)
+    x, y = {k: v for k, v in data.items() if k != "y"}, data["y"]
+    tmp = os.path.abspath(os.path.join("build", f"parallel_resume_{os.getppid()}"))
+    out = {}
+    # "segmat": the linear tower's psum gathers take K6, so that no
+    # index_add_ reorders a sum between two runs of the same steps
+    with grad_kernel("segmat"):
+        ref = trainer(mesh, epoch=PARALLEL_RESUME_EPOCHS)
+        ref.fit(x, y, resilience=Resilience(f"{tmp}/A", every_epochs=10**6, preempt_signals=()))
+        out["ref"] = digest(ref)
+        del ref
+        save_s = []
+        res = preempting(f"{tmp}/B", PREEMPT_STEP if dist.get_rank() == 1 else None, save_s,
+                         base=MeshResilience)
+        try:
+            trainer(mesh, epoch=PARALLEL_RESUME_EPOCHS).fit(x, y, resilience=res)
+            out["preempted"] = None
+        except Preempted as e:
+            out["preempted"] = str(e)
+        out["saved_step"], out["save_s"] = res._last_saved_step, save_s
+        path, meta = res.latest()
+        out["latest_step"], out["ckpt_bytes"] = meta["step"], dir_bytes(path)
+        t2 = trainer(mesh, epoch=PARALLEL_RESUME_EPOCHS)
+        reset_counts()
+        with scatter_counter() as scatters:
+            t2.fit(x, y, resilience=Resilience(f"{tmp}/B", preempt_signals=()))
+        torch.cuda.synchronize()
+    out["scatters"] = scatters[0]
+    out["counts"] = kernel_counts()
+    out["resumed"] = digest(t2)
+    del t2
+    torch.cuda.empty_cache()
+    barrier(mesh, device)
+    if dist.get_rank() == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def parallel_stream(mesh, device, trainer, x, y):
+    """(f) at (1, 2), psum: fit_stream's trace over parallel_chunks, and
+    predict_stream against predict."""
+    import torch
+
+    t = trainer(mesh)
+    reset_counts()
+    trace = traced_fit_stream(t, parallel_chunks(x, y))
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    rows = PARALLEL_STREAM_CHUNKS * PARALLEL_STREAM_CHUNK
+    xs = {k: v[:rows] for k, v in x.items()}
+    streamed = t.predict_stream(parallel_chunks(x, y))
+    whole = t.predict(xs)
+    out = {"losses": trace, "counts": counts, "pred_equal": bool(np.array_equal(streamed, whole)),
+           "pred_rows": int(streamed.shape[0])}
+    del t
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_dien(device):
+    """(g) DIEN with aux_loss_weight 0.5 and Dice at (2, 1) on the sequence
+    phase's ML-100K rows, from the seed-2019 params: the step-1 gradients
+    summed over the data group, and as a control the same gradients with
+    Dice's moments taken on each rank's own rows (the route before Dice's
+    moments were taken over the data group); then PARALLEL_STEPS checked
+    steps under "segmat" (the row-sharded route, DIEN's own loss; K6 for
+    each of the 7 lookups a step) and the moments calibrate writes."""
+    import torch
+
+    from recman_tpu_torch.models import model_class
+    from recman_tpu_torch.ops.embedding import grad_kernel
+    from recman_tpu_torch.parallel import ShardedTrainer, make_mesh, shard_init_state
+    from recman_tpu_torch.parallel.collectives import all_reduce
+    from recman_tpu_torch.parallel.train_explicit import DataSplit, rank_batch
+    from recman_tpu_torch.parallel.train_pjit import sharded_forward, sharded_grads
+    from recman_tpu_torch.training import batch_indices
+    from recman_tpu_torch.training.train_step import value_and_grads
+    from recman_tpu_torch.utils import JaxKey
+
+    mesh = make_mesh(data=2, model=1)
+    (train, _, _), fs, (x_train, _, _) = ml_seq_tables()
+    model = model_class("dien")(fs, PARALLEL_DIEN_HP)
+    t = ShardedTrainer(model, PARALLEL_DIEN_HP, batch_size=SEQ_BATCH, mesh=mesh, device=device)
+    t.state = shard_init_state(model, t.optimizer, JaxKey(2019), mesh, device=device)
+    n = len(train["label"])
+    data, layout = t._to_device(x_train, train["label"].astype(np.float32))
+    idx = torch.as_tensor(batch_indices(n, SEQ_BATCH, shuffle_seed=ML_SEED), device=device)
+    ub, w = rank_batch(mesh, data, idx[0], layout)
+    params = t.state.params
+
+    def per_rank_moments(p):
+        with sharded_forward(mesh, p, t.specs, moments=False):
+            return model.rank_loss(p, ub, w, DataSplit(mesh), training=True)
+
+    with grad_kernel("segmat"):
+        grads = sharded_grads(model, mesh, t.specs, params, ub, w, None)[1]
+        control = value_and_grads(per_rank_moments, params)[1]
+        with torch.no_grad():
+            control = {k: all_reduce(g, mesh, "data", "grad") for k, g in control.items()}
+    out = {"grads": {k: g.cpu() for k, g in grads.items()},
+           "control": {k: g.cpu() for k, g in control.items()}}
+    del grads, control
+    reset_counts()
+    with grad_kernel("segmat"):  # the sequence phase's route: K6 for every lookup
+        losses = [t.fit_on_batch(data, idx[i], layout) for i in range(PARALLEL_STEPS)]
+    torch.cuda.synchronize()
+    out.update({"explicit": t._explicit_dp, "counts": kernel_counts(),
+                "losses": [float(v) for v in losses]})
+    out["calibrated"] = t.calibrate({k: v[:8192] for k, v in x_train.items()})
+    out["moments"] = {k: v.cpu() for k, v in t.state.params.items() if "_dice_" in k}
+    del t, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_qr_setup():
+    """(h)'s schema and rows: QR (q QR_COLLISIONS) on all 26 hashed fields
+    of the bench model, as the export phase's (c)."""
+    from recman_tpu_torch.data import CAT_NAMES, create_criteo_features, synthetic_criteo_arrays
+
+    qfs = create_criteo_features(num_buckets=NUM_BUCKETS)
+    for name in CAT_NAMES:
+        qfs[name].qr_collisions = QR_COLLISIONS
+    n_rows = (PARALLEL_STEPS + 1) * BATCH
+    qdata = synthetic_criteo_arrays(n_rows, num_buckets=NUM_BUCKETS, seed=11)
+    return qfs, {k: v for k, v in qdata.items() if k != "y"}, qdata["y"], n_rows
+
+
+def parallel_qr(mesh, device):
+    """(h) QR with Lamb at (1, 2): the quotient tables and linear_w
+    row-sharded, PARALLEL_STEPS checked steps from the seed-2019 params
+    under "segmat", the export phase's QR route (K6 for every lookup's
+    backward: the 26 quotient blocks', the 26 remainder tables' and the
+    one psum exchange of the linear tower's)."""
+    import torch
+
+    from recman_tpu_torch.models import XDeepFM
+    from recman_tpu_torch.ops.embedding import grad_kernel
+    from recman_tpu_torch.parallel import ShardedTrainer, shard_init_state
+    from recman_tpu_torch.utils import JaxKey
+
+    qfs, x, y, n_rows = parallel_qr_setup()
+    model = XDeepFM(qfs, PARALLEL_QR_HP)
+    t = ShardedTrainer(model, PARALLEL_QR_HP, batch_size=BATCH, mesh=mesh, device=device,
+                       row_shard_threshold=PARALLEL_QR_THRESHOLD)
+    t.state = shard_init_state(model, t.optimizer, JaxKey(2019), mesh, PARALLEL_QR_THRESHOLD,
+                               device=device)
+    data, layout = t._to_device(x, y)
+    idx = torch.as_tensor(t._batch_index_matrix(n_rows, shuffle_seed=3), device=device)
+    reset_counts()
+    with grad_kernel("segmat"), scatter_counter() as scatters:
+        losses = [t.fit_on_batch(data, idx[i], layout) for i in range(PARALLEL_STEPS)]
+    torch.cuda.synchronize()
+    out = {"counts": kernel_counts(), "losses": [float(v) for v in losses],
+           "scatters": scatters[0],
+           "sharded": sorted(k for k, s in t.specs.items() if s),
+           "blocks": {k: tuple(v.shape) for k, v in t.state.params.items() if t.specs[k]}}
+    del t, data
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2529,8 +2790,12 @@ def phase_parallel(device):
     rank on NCCL (the explicit DP route) against the plain Trainer from the
     same params and index rows; (b) two ranks on this card over Gloo,
     explicit DP at (2, 1); (c) two ranks, the row-sharded route at (1, 2)
-    with the psum and the dedup exchange. Returns the launches of each
-    run's checked steps, per kernel."""
+    with the psum and the dedup exchange; (d) the tensor-parallel DNN at
+    (1, 2); (e) a resilient fit at (1, 2) preempted by a real SIGTERM to
+    rank 1 alone and resumed; (f) fit_stream and predict_stream at (1, 2)
+    against the plain Trainer's; (g) DIEN with its auxiliary loss and Dice
+    at (2, 1) on ML-100K; (h) QR with Lamb at (1, 2). Returns the launches
+    of each run's checked steps (the resumed fit's for (e)), per kernel."""
     import os
     import tempfile
 
@@ -2575,6 +2840,7 @@ def phase_parallel(device):
         f"[{card}]; launches {a['counts']}")
     del t, plain, data, batch, w
     torch.cuda.empty_cache()
+    plain_refs = parallel_plain_refs(model, params0, x, y, device)
 
     os.makedirs("build", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="build", prefix="parallel_") as tmp:
@@ -2608,7 +2874,10 @@ def phase_parallel(device):
         for exchange in ("psum", "dedup"):
             run = out[exchange]
             check(not run["explicit"], f"(c) {exchange} took the DP route")
-            check_counts(run["counts"], {"K1 save": PARALLEL_STEPS, "K2": PARALLEL_STEPS, "K3": 0,
+            # psum's local gathers take the lookups' backward: one K3 over
+            # the 26 same-shape blocks a step; dedup's take autograd's
+            k3 = PARALLEL_STEPS if exchange == "psum" else 0
+            check_counts(run["counts"], {"K1 save": PARALLEL_STEPS, "K2": PARALLEL_STEPS, "K3": k3,
                                          "K6": 0, "K7": 0}, f"(c) {exchange} rank {r}")
             check(run["blocks"]["linear_w"] == (-(-model.linear.total_size // 2),)
                   and run["blocks"]["C1_feat_embed"] == (-(-(NUM_BUCKETS + 1) // 2),
@@ -2640,6 +2909,158 @@ def phase_parallel(device):
               f"(c) {exchange}: dense params differ between the model ranks")
     log("parallel (c): dense params bit-equal across the two model ranks, both exchanges; two "
         f"ranks share one card, so no time here is a scaling figure [{card}]")
+    launches.update(parallel_checks(ranks, a, plain_refs, model, card, traced))
+    return launches
+
+
+def parallel_plain_refs(model, params0, x, y, device):
+    """The plain Trainer's runs on the card that (f), (g) and (h) are held
+    to: fit_stream's trace from params0 over parallel_chunks; DIEN's
+    PARALLEL_STEPS-step trace and calibrated moments; QR with Lamb's
+    trace."""
+    import torch
+
+    from recman_tpu_torch.models import XDeepFM, model_class
+    from recman_tpu_torch.ops.embedding import grad_kernel
+    from recman_tpu_torch.training import Trainer, TrainState, batch_indices, init_state
+    from recman_tpu_torch.training.train_step import gather_batch, loss_and_grads, unpack_batch
+    from recman_tpu_torch.utils import JaxKey
+
+    out = {}
+    t = Trainer(model, PARALLEL_HP, batch_size=BATCH, device=device)
+    params = {k: v.to(device) for k, v in params0.items()}
+    t.state = TrainState(params, t.optimizer.init(params), 0, None)
+    out["stream"] = traced_fit_stream(t, parallel_chunks(x, y))
+    del t, params
+    torch.cuda.empty_cache()
+
+    (train, _, _), fs, (x_train, _, _) = ml_seq_tables()
+    dien = model_class("dien")(fs, PARALLEL_DIEN_HP)
+    t = Trainer(dien, PARALLEL_DIEN_HP, batch_size=SEQ_BATCH, device=device)
+    t.state = init_state(dien, t.optimizer, JaxKey(2019), device=device)
+    data, layout = t._to_device(x_train, train["label"].astype(np.float32))
+    idx = torch.as_tensor(batch_indices(len(train["label"]), SEQ_BATCH, shuffle_seed=ML_SEED),
+                          device=device)
+    batch, w = gather_batch(data, idx[0])
+    with grad_kernel("segmat"):
+        grads = loss_and_grads(dien, t.state.params, unpack_batch(batch, layout), w)[1]
+        out["dien_grads"] = {k: g.cpu() for k, g in grads.items()}
+        del grads
+        out["dien"] = [float(t.fit_on_batch(data, idx[i], layout)) for i in range(PARALLEL_STEPS)]
+    t.calibrate({k: v[:8192] for k, v in x_train.items()})
+    out["dien_moments"] = {k: v.cpu() for k, v in t.state.params.items() if "_dice_" in k}
+    del t, data
+
+    qfs, qx, qy, n_rows = parallel_qr_setup()
+    qr = XDeepFM(qfs, PARALLEL_QR_HP)
+    t = Trainer(qr, PARALLEL_QR_HP, batch_size=BATCH, device=device)
+    t.state = init_state(qr, t.optimizer, JaxKey(2019), device=device)
+    data, layout = t._to_device(qx, qy)
+    idx = torch.as_tensor(t._batch_index_matrix(n_rows, shuffle_seed=3), device=device)
+    with grad_kernel("segmat"):
+        out["qr"] = [float(t.fit_on_batch(data, idx[i], layout)) for i in range(PARALLEL_STEPS)]
+    del t, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_checks(ranks, a, plain, model, card, traced):
+    """The checks and log lines of (d)-(h); returns their launches by run."""
+    launches = {}
+    tp_shapes = {"dnn_layer_0_weights": (model.dnn.input_dim, HPARAMS["deep_hidden_units"][0] // 2),
+                 "dnn_layer_1_weights": (HPARAMS["deep_hidden_units"][0] // 2,
+                                         HPARAMS["deep_hidden_units"][1])}
+    for r, out in enumerate(ranks):
+        run = out["tp"]
+        check(not run["explicit"], "(d) took the DP route")
+        check({k: run["blocks"][k] for k in tp_shapes} == tp_shapes,
+              f"(d) blocks {run['blocks']}, expected {tp_shapes}")
+        check(run["specs"] == {"dnn_layer_0_weights": (None, "model"),
+                               "dnn_layer_1_weights": ("model", None)}, f"(d) specs {run['specs']}")
+        check_counts(run["counts"], {"K1 save": PARALLEL_STEPS, "K2": PARALLEL_STEPS,
+                                     "K3": PARALLEL_STEPS}, f"(d) rank {r}")
+        err = traced(run, f"(d) TP rank {r}")
+        log(f"parallel (d) rank {r}, tensor-parallel DNN at (1, 2), psum, tp_dense_threshold "
+            f"{PARALLEL_TP}: blocks {tp_shapes}; trace {run['losses']} (max|d| from (a) "
+            f"{err:.3e}); step {run['step_ms']:.3f} ms device, {run['wall_ms']:.3f} ms wall; a "
+            f"step's bytes {run['traffic']} [{card}]; launches {run['counts']}")
+        launches[f"d_rank{r}"] = run["counts"]
+
+        res = out["resume"]
+        check(res["preempted"] is not None and res["saved_step"] == PREEMPT_STEP
+              and res["latest_step"] == PREEMPT_STEP,
+              f"(e) rank {r}: preempted {res['preempted']}, checkpointed at "
+              f"{res['saved_step']}, LATEST {res['latest_step']}")
+        bad = [k for k, v in res["ref"].items() if res["resumed"].get(k) != v]
+        check(not bad and set(res["resumed"]) == set(res["ref"]),
+              f"(e) rank {r}: the resumed run differs from the uninterrupted one in {bad[:5]}")
+        check(res["scatters"] == 0, f"(e) rank {r}: index_add_ reached {res['scatters']} times")
+        log(f"parallel (e) rank {r}, resilient fit at (1, 2), a real SIGTERM to rank 1 alone at "
+            f"step {PREEMPT_STEP}: '{res['preempted']}'; checkpointed at step {res['saved_step']}; "
+            f"resumed by a fresh trainer, {len(res['ref']) - 2} params and optimizer-state "
+            f"tensors, the step and the generator equal to an uninterrupted run; checkpoint "
+            f"{res['ckpt_bytes']} B, saves {[round(v, 3) for v in res['save_s']]} s [{card}]; "
+            f"resumed launches {res['counts']}, index_add_ 0 (under segmat)")
+        launches[f"e_rank{r}"] = res["counts"]
+
+        st = out["stream"]
+        got, want = np.asarray(st["losses"]), np.asarray(plain["stream"])
+        check(got.shape == want.shape and np.allclose(got, want, rtol=PARALLEL_TRACE_RTOL,
+                                                      atol=PARALLEL_TRACE_ATOL),
+              f"(f) rank {r} fit_stream trace {got.tolist()} vs plain {want.tolist()}")
+        check(st["pred_equal"] and st["pred_rows"] == PARALLEL_STREAM_CHUNKS * PARALLEL_STREAM_CHUNK,
+              f"(f) rank {r}: predict_stream differs from predict")
+        steps = len(st["losses"])
+        check_counts(st["counts"], {"K1 save": steps, "K2": steps, "K3": steps}, f"(f) rank {r}")
+        log(f"parallel (f) rank {r}, fit_stream at (1, 2) over {PARALLEL_STREAM_CHUNKS} chunks of "
+            f"{PARALLEL_STREAM_CHUNK} rows: trace max|d| from the plain Trainer's fit_stream "
+            f"{float(np.abs(got - want).max()):.3e}; predict_stream equal to predict on "
+            f"{st['pred_rows']} rows [{card}]; launches {st['counts']}")
+        launches[f"f_rank{r}"] = st["counts"]
+
+        dn = out["dien"]
+        got, want = np.asarray(dn["losses"]), np.asarray(plain["dien"])
+        check(not dn["explicit"], "(g) DIEN took the explicit DP route")
+        check(np.allclose(got, want, rtol=PARALLEL_TRACE_RTOL, atol=PARALLEL_TRACE_ATOL),
+              f"(g) rank {r} DIEN trace {got.tolist()} vs plain {want.tolist()}")
+        m_rel = max(rel_err(v, dn["moments"][k]) for k, v in plain["dien_moments"].items())
+        check(dn["calibrated"] and m_rel <= SEQ_MOMENT_TOL,
+              f"(g) rank {r}: calibrated {dn['calibrated']}, moments {m_rel} of max|ref|")
+        g_rel = max((rel_err(v, dn["grads"][k]), k) for k, v in plain["dien_grads"].items())
+        c_rel = max((rel_err(v, dn["control"][k]), k) for k, v in plain["dien_grads"].items())
+        check(g_rel[0] <= PARALLEL_GRAD_TOL,
+              f"(g) rank {r}: step-1 gradients {g_rel[0]:.3e} of max|ref| ({g_rel[1]}) from the "
+              f"plain Trainer's")
+        check(c_rel[0] > PARALLEL_GRAD_TOL,
+              f"(g) rank {r}: with Dice's moments per rank the step-1 gradients are within "
+              f"{c_rel[0]:.3e} of the plain Trainer's: this check cannot see that fault")
+        check_counts(dn["counts"], {"K6": 7 * PARALLEL_STEPS, "K3": 0}, f"(g) rank {r}")
+        log(f"parallel (g) rank {r}, DIEN (aux 0.5, Dice) at (2, 1), row-sharded route: step-1 "
+            f"gradients {g_rel[0]:.3e} of max|ref| ({g_rel[1]}) from the plain Trainer's, with "
+            f"Dice's moments per rank {c_rel[0]:.3e} ({c_rel[1]}); trace {dn['losses']} (max|d| "
+            f"from the plain Trainer {float(np.abs(got - want).max()):.3e}); calibrated moments "
+            f"{m_rel:.3e} of max|ref| [{card}]; launches {dn['counts']}")
+        launches[f"g_rank{r}"] = dn["counts"]
+
+        q = out["qr"]
+        got, want = np.asarray(q["losses"]), np.asarray(plain["qr"])
+        check(any(k.endswith("_feat_embed_q") for k in q["sharded"]),
+              f"(h) no quotient table sharded: {q['sharded']}")
+        check(np.allclose(got, want, rtol=PARALLEL_TRACE_RTOL, atol=PARALLEL_TRACE_ATOL),
+              f"(h) rank {r} QR lamb trace {got.tolist()} vs plain {want.tolist()}")
+        check_counts(q["counts"], {"K6": PARALLEL_QR_K6 * PARALLEL_STEPS, "K3": 0,
+                                   "K1 save": PARALLEL_STEPS, "K2": PARALLEL_STEPS},
+                     f"(h) rank {r}")
+        check(q["scatters"] == 0, f"(h) rank {r}: index_add_ reached {q['scatters']} times")
+        log(f"parallel (h) rank {r}, QR (q {QR_COLLISIONS}) with lamb at (1, 2), "
+            f"{len(q['sharded'])} leaves row-sharded (C1's quotient block "
+            f"{q['blocks'].get('C1_feat_embed_q')}): trace {q['losses']} (max|d| from the plain "
+            f"Trainer {float(np.abs(got - want).max()):.3e}) under segmat, index_add_ 0 [{card}]; "
+            f"launches {q['counts']}")
+        launches[f"h_rank{r}"] = q["counts"]
+    check(ranks[0]["tp"]["replicated"] == ranks[1]["tp"]["replicated"],
+          "(d): replicated params differ between the model ranks")
+    log(f"parallel (d): every replicated param bit-equal across the two ranks [{card}]")
     return launches
 
 
@@ -3637,7 +4058,7 @@ def main():
     t0 = time.perf_counter()
     parallel = phase_parallel(device)
     log(f"parallel phase {time.perf_counter() - t0:.1f} s [{card}]")
-    for name in ("K1 save", "K2", "K3"):
+    for name in ("K1 save", "K2", "K3", "K6"):
         rec[name]["parallel_launches"] = {run: c[name] for run, c in parallel.items()}
     t0 = time.perf_counter()
     zoo = phase_zoo(device)

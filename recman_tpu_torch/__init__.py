@@ -14,14 +14,17 @@ with the Criteo example (``examples.criteo_xdeepfm``), large-batch
 training, and checkpoints (``ckpt``, ``Trainer.save``/``restore``),
 resilient training (``training.Resilience``) and streaming
 (``Trainer.fit_stream`` over ``data.streaming``), the model zoo
-(``models.MODEL_REGISTRY``), QR embeddings (``qr_collisions``) and
+(``models.MODEL_REGISTRY``), QR embeddings (``qr_collisions``),
 serving artifacts (``serving.Predictor.export``, ``ExportedPredictor``,
-int8 ``ops.QuantTable`` tables). Their kernels are
+int8 ``ops.QuantTable`` tables) and the parallel layer (``parallel``:
+explicit data parallelism, row-sharded tables with two exchanges,
+tensor-parallel DNN towers and ``ShardedTrainer`` with sharded
+checkpoints over torch.distributed ranks). Their kernels are
 hand-written CUDA (sources in ``csrc/``): the CIN tower forward (K1) and
 backward (K2) in ``ops/cin_chain.py``, one CIN layer's forward (K4) and
 backward (K5) in ``ops/cin_interact.py``, and the embedding tables'
-segment-sum gradients, batched (K3) and per table (K6), in
-``ops/segment_matmul.py``.
+segment-sum gradients in ``ops/segment_matmul.py``: batched (K3), per
+table (K6), and batched into the row-major table layout (K7).
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
 with no GPU they raise instead of falling back to the CPU.

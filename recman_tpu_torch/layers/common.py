@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.sharded_run import current_run
+
 
 def dropout(generator, x, keep_prob: float, training: bool):
     """Inverted dropout with keep-probability semantics.
@@ -58,7 +60,12 @@ def batch_moments(x):
     """Per-unit mean and population variance over the batch axis, the
     moments Dice normalizes with in training (``jnp.var`` is the
     population variance, hence ``correction=0``). The gradient flows
-    through both, as in the reference."""
+    through both, as in the reference. In a sharded run with
+    ``data_moments`` on, the run takes both over the data group's rows
+    (``parallel.mesh_run.MeshRun.batch_moments``)."""
+    run = current_run()
+    if run is not None and run.data_moments:
+        return run.batch_moments(x)
     return x.mean(dim=0), x.var(dim=0, correction=0)
 
 

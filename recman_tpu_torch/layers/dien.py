@@ -114,15 +114,24 @@ class InterestEvolution:
         should score the actual next behavior e_{t+1} above an in-batch
         negative, the next-behavior column rolled by one row. A mean over
         the valid (t, t+1) pairs; 0 when none is valid."""
+        total, pairs = self.aux_terms(params, states, seq, mask)
+        return total / pairs.clamp_min(1.0)
+
+    def aux_terms(self, params, states, seq, mask, roll=None):
+        """``aux_loss``'s numerator (the negated log-likelihood summed over
+        the valid pairs) and its count of valid pairs. ``roll`` takes the
+        next-behavior column to its in-batch negatives (default
+        ``torch.roll`` by one row; a data group passes the roll over its
+        whole batch)."""
         h_t = states[:, :-1, :]
         e_next = seq[:, 1:, :]
-        e_neg = torch.roll(e_next, 1, dims=0)
+        e_neg = torch.roll(e_next, 1, dims=0) if roll is None else roll(e_next)
         valid = (mask[:, :-1] & mask[:, 1:]).to(states.dtype)
         w = params[f"{self.prefix}att_w"]
         pos = torch.einsum("blh,hk,blk->bl", h_t, w, e_next)
         neg = torch.einsum("blh,hk,blk->bl", h_t, w, e_neg)
         ll = F.logsigmoid(pos) + F.logsigmoid(-neg)
-        return -(ll * valid).sum() / valid.sum().clamp_min(1.0)
+        return -(ll * valid).sum(), valid.sum()
 
     def l2(self, params):
         p = self.prefix

@@ -11,6 +11,28 @@ the frozen inference moments ``dnn_dice_mean_{i}`` / ``dnn_dice_var_{i}``
 (reference dnn.py:34-106): training normalizes with the batch's moments,
 which ``moment_capture`` records (``Trainer.calibrate``), inference with
 the stored ones.
+
+In a sharded run (``utils.sharded_run``; the row-sharded steps of
+``parallel/train_pjit.py`` open it) each layer runs as its weights' spec
+in the run says (``parallel.sharding.param_specs(tp_dense_threshold=)``,
+Megatron's alternation over the model axis); with no run, or no spec, a
+layer is the plain one. The activation between layers is either full or
+a block of its columns:
+
+- a column-sharded layer ``(None, "model")`` takes a full input through
+  the run's ``copy_to_blocks`` (Megatron's f: the backward sums the
+  input's cotangent over the model group) and leaves a column block;
+- a row-sharded layer ``("model", None)`` takes a block (it slices a full
+  input with ``block_of``) and a sum over the model axis follows
+  (``reduce_blocks``, Megatron's g, its backward the pass-through);
+- a replicated layer, and the head, gather a blocked input whole first.
+
+A replicated leaf that a rank reads only a block of (a column layer's bias
+below the threshold, its Dice ``alpha``, ``mean`` and ``var``) is sliced
+by ``block_of``, whose backward all-gathers the blocks' cotangents, so its
+gradient is whole and equal on every model rank; captured moments are
+gathered whole. Dropout on a block draws the full-width mask from the
+generator and slices it, the mask a replicated run draws.
 """
 
 from __future__ import annotations
@@ -18,7 +40,11 @@ from __future__ import annotations
 import torch
 
 from ..utils import compute_hidden_units_s2, glorot_normal, l2_loss, split_rng
-from .common import apply_dice, dice_params, dropout, resolve_activation
+from ..utils.sharded_run import current_run
+from .common import apply_dice, apply_mask, dice_params, dropout, dropout_mask, resolve_activation
+
+_COLUMN = (None, "model")
+_ROW = ("model", None)
 
 
 def dnn_combine(inputs: list) -> torch.Tensor:
@@ -71,20 +97,67 @@ class DNN:
 
     def apply(self, params, inputs, training=False, generator=None, moment_capture=None):
         """``moment_capture``: a dict that a training forward fills with
-        {moment param name: the batch's moment} (``Trainer.calibrate``)."""
+        {moment param name: the batch's moment} (``Trainer.calibrate``).
+        In a sharded run each layer runs as its spec says (the module
+        docstring)."""
         assert inputs.dim() == 2
+        run = current_run()
+        specs = run.specs if run is not None else {}
+        p = self.prefix
         y = dropout(generator, inputs, self.dropout_keep[0], training)
+        blocked = False
         for i in range(len(self.hidden_units)):
-            y = (
-                y @ params[f"{self.prefix}dnn_layer_{i}_weights"]
-                + params[f"{self.prefix}dnn_layer_{i}_bias"]
-            )
+            w, b = params[f"{p}dnn_layer_{i}_weights"], params[f"{p}dnn_layer_{i}_bias"]
+            spec = specs.get(f"{p}dnn_layer_{i}_weights", ())
+            if spec == _COLUMN:
+                if blocked:
+                    y = run.gather_blocks(y, 1)
+                y = run.copy_to_blocks(y) @ w
+                y = y + (b if specs.get(f"{p}dnn_layer_{i}_bias") else run.block_of(b, 0))
+                blocked = True
+            elif spec == _ROW:
+                if not blocked:
+                    y = run.block_of(y, 1)
+                y = run.reduce_blocks(y @ w) + b
+                blocked = False
+            else:
+                if blocked:
+                    y = run.gather_blocks(y, 1)
+                    blocked = False
+                y = y @ w + b
             if self.use_dice:
-                y = apply_dice(params, f"{self.prefix}dnn_dice", i, y, training, moment_capture)
+                y = self._dice(params, i, y, training, moment_capture, run if blocked else None)
             else:
                 y = self.activation(y)
-            y = dropout(generator, y, self.dropout_keep[i + 1], training)
-        return y @ params[f"{self.prefix}dnn_w"] + params[f"{self.prefix}dnn_w0"]
+            keep = self.dropout_keep[i + 1]
+            if blocked:
+                n = y.shape[1]
+                mask = dropout_mask(generator, (y.shape[0], n * run.model_n), y.device, keep,
+                                    training)
+                if mask is not None:
+                    mask = mask[:, run.model_index * n:(run.model_index + 1) * n]
+                y = apply_mask(y, mask, keep)
+            else:
+                y = dropout(generator, y, keep, training)
+        if blocked:
+            y = run.gather_blocks(y, 1)
+        return y @ params[f"{p}dnn_w"] + params[f"{p}dnn_w0"]
+
+    def _dice(self, params, i, y, training, moment_capture, run):
+        """Dice of layer ``i`` on a full activation, or (given the ``run``) on
+        a column block of it: a block reads its units' slice of the
+        replicated Dice params, and its captured moments are gathered
+        whole."""
+        prefix = f"{self.prefix}dnn_dice"
+        if run is None:
+            return apply_dice(params, prefix, i, y, training, moment_capture)
+        names = [f"{prefix}_{kind}_{i}" for kind in ("alpha", "mean", "var")]
+        local = {k: run.block_of(params[k], 0) for k in names}
+        captured = {} if moment_capture is not None else None
+        y = apply_dice(local, prefix, i, y, training, captured)
+        if captured:
+            moment_capture.update({k: run.gather_blocks(v, 0) for k, v in captured.items()})
+        return y
 
     def l2(self, params):
         """Layer weights + head, no biases (reference layers.py:611-628)."""

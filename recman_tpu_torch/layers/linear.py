@@ -14,7 +14,7 @@ The override (reference layers.py:338-345, the "penalize Outdoor by -5"
 demo) is an additive vector built from ``feat.weights``, applied when
 not training.
 
-Where ``linear_w`` is row-sharded (``ops.embedding.dedup_exchange``), every
+Where ``linear_w`` is row-sharded (``ops.embedding.lookup_exchange``), every
 term is a lookup into the whole vector at ``offset + id`` (a dense feat's
 at ``offset``), all through one masked gather + all-reduce over the model
 axis, on both exchanges: a feature's slice of the one sharded vector is

@@ -30,7 +30,7 @@ Rows stay float32. The reference's bf16 packed rows (its
 ``PACKED_FWD_BF16`` gate) are on only on its TPU path; the port keeps f32
 until that choice is measured on the GPU.
 
-Under an exchange (``ops.embedding.dedup_exchange``, the row-sharded
+Under an exchange (``ops.embedding.lookup_exchange``, the row-sharded
 steps) nothing is packed (reference :101-115): a packed [table | w]
 temporary is no row-sharded block, so the towers run apart
 (``EmbeddingLayer.apply``, ``LinearLayer.apply``) and each block takes the

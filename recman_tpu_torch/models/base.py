@@ -16,8 +16,30 @@ bits.
 
 from __future__ import annotations
 
+import torch
+
 from ..features import FeatureSet
 from ..utils import binary_cross_entropy, mean_squared_error
+from ..utils.numerics import bce_per_example, mse_per_example
+
+
+class OneRank:
+    """How ``Model.rank_loss`` sees a batch split over ranks whose loss
+    shares are summed: here one rank holds the whole batch.
+    ``parallel.train_pjit.DataSplit`` is the data group's form."""
+
+    ranks = 1
+
+    def total(self, x):
+        """The sum of ``x`` over the ranks (no gradient flows through it)."""
+        return x
+
+    def roll(self, x):
+        """``torch.roll(x, 1, dims=0)`` over the ranks' rows in order."""
+        return torch.roll(x, 1, dims=0)
+
+
+ONE_RANK = OneRank()
 
 
 class Model:
@@ -55,6 +77,23 @@ class Model:
         """Data loss + sum of the layer L2s (reference base.py:52-61)."""
         preds = self.apply(params, batch, training=training, generator=generator)
         return self.data_loss(batch["y"], preds, weights) + self.l2(params)
+
+    def rank_loss(self, params, batch, weights, split=ONE_RANK, training=True, generator=None):
+        """This rank's share of ``loss`` when the batch's rows are split over
+        ``split.ranks`` ranks whose shares are summed (the row-sharded steps
+        of ``parallel/train_pjit.py``): the weighted data loss of its rows
+        over the weights' global sum, plus L2 / ranks. The shares add up to
+        ``loss`` on the whole batch. A model whose ``loss`` adds another
+        term overrides this with that term's share (``DIEN``)."""
+        preds = self.apply(params, batch, training=training, generator=generator)
+        return self.data_share(batch["y"], preds, weights, split) + self.l2(params) / split.ranks
+
+    def data_share(self, y_true, y_pred, weights, split=ONE_RANK):
+        """sum(w * per-example loss) of these rows over the global sum of the
+        weights (at least 1), as ``data_loss`` weights the whole batch."""
+        per_ex = (bce_per_example(y_true, y_pred) if self.task == "classification"
+                  else mse_per_example(y_true, y_pred))
+        return torch.sum(per_ex * weights) / split.total(weights.sum()).clamp_min(1.0)
 
     def dense_columns(self, batch) -> list:
         """Dense inputs in schema order as (B, 1) columns."""

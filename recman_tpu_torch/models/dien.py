@@ -19,7 +19,7 @@ from ..features import SequenceFeat
 from ..layers import DNN, EmbeddingLayer, PredictionLayer, dnn_combine
 from ..layers.dien import InterestEvolution
 from ..utils import split_rng
-from .base import Model
+from .base import ONE_RANK, Model
 
 
 class DIEN(Model):
@@ -67,12 +67,13 @@ class DIEN(Model):
         params.update(self.head.init(device))
         return params
 
-    def _forward(self, params, batch, training, generator, moment_capture=None):
-        """Returns (predictions, weighted auxiliary loss)."""
+    def _forward(self, params, batch, training, generator, moment_capture=None, split=None):
+        """Returns (predictions, [(aux numerator, valid pairs)] per sequence
+        feature when the auxiliary loss is on in training, else [])."""
         per_feat = self.embeddings.apply_dict(params, batch)
         towers = [per_feat[f.name] for f in self.embeddings.feats
                   if not isinstance(f, SequenceFeat)]
-        interests, aux = [], 0.0
+        interests, aux = [], []
         for f in self.seq_feats:
             query = per_feat[f.id_feat.name][:, 0, :]  # (B, k) candidate
             seq = per_feat[f.name]  # (B, L, k), padding rows zeroed
@@ -80,11 +81,12 @@ class DIEN(Model):
             final, states = self.evolution[f.name].apply(params, seq, mask, query)
             interests.append(final)
             if self.aux_weight > 0.0 and training:
-                aux = aux + self.evolution[f.name].aux_loss(params, states, seq, mask)
+                aux.append(self.evolution[f.name].aux_terms(
+                    params, states, seq, mask, None if split is None else split.roll))
         dnn_input = dnn_combine(towers + interests + self.dense_columns(batch))
         logit = self.dnn.apply(params, dnn_input, training=training, generator=generator,
                                moment_capture=moment_capture)
-        return self.head.apply(params, logit), self.aux_weight * aux
+        return self.head.apply(params, logit), aux
 
     def apply(self, params, batch, training=False, generator=None, linear_override=None,
               moment_capture=None):
@@ -93,8 +95,22 @@ class DIEN(Model):
     def loss(self, params, batch, training=True, generator=None, weights=None):
         """BCE + L2 + the weighted auxiliary loss (paper eq. 8:
         L = L_target + alpha * L_aux)."""
-        preds, aux = self._forward(params, batch, training, generator)
-        return self.data_loss(batch["y"], preds, weights) + self.l2(params) + aux
+        preds, terms = self._forward(params, batch, training, generator)
+        aux = 0.0
+        for total, pairs in terms:
+            aux = aux + total / pairs.clamp_min(1.0)
+        return self.data_loss(batch["y"], preds, weights) + self.l2(params) + self.aux_weight * aux
+
+    def rank_loss(self, params, batch, weights, split=ONE_RANK, training=True, generator=None):
+        """``Model.rank_loss`` plus this rank's share of the weighted
+        auxiliary loss: its rows' numerator over the global count of valid
+        pairs, with the negatives rolled over the whole batch (padded rows
+        count, as the reference's unweighted mean counts them)."""
+        preds, terms = self._forward(params, batch, training, generator, split=split)
+        loss = self.data_share(batch["y"], preds, weights, split) + self.l2(params) / split.ranks
+        for total, pairs in terms:
+            loss = loss + self.aux_weight * (total / split.total(pairs).clamp_min(1.0))
+        return loss
 
     def l2(self, params):
         total = self.embeddings.l2(params) + self.dnn.l2(params)

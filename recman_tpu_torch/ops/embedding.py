@@ -39,11 +39,12 @@ serving tables of ``serving.Predictor.export(quantize_embeddings=
 gathered and dequantized after the gather, in plain PyTorch as in the
 reference (:583-590). It has no gradient path.
 
-Under ``dedup_exchange`` (the row-sharded train and eval steps of
-``parallel/train_pjit.py``) a lookup against a row-sharded table block
-takes the context's exchange, the masked gather + all-reduce ("psum") or
-the deduped all-gather ("dedup", ``parallel/shard_lookup.py``); the
-reference leaves "psum" to its partitioner, which the port does not have.
+In a sharded run (``utils.sharded_run``: the row-sharded train and eval
+steps of ``parallel/train_pjit.py``) a lookup against a row-sharded table
+block takes the run's ``exchange`` (``lookup_exchange``), the masked
+gather + all-reduce ("psum") or the deduped all-gather ("dedup",
+``parallel/shard_lookup.py``); the reference leaves "psum" to its
+partitioner, which the port does not have.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.sharded_run import current_run
 from .segment_matmul import (
     segment_matmul_from_sorted,
     segment_matmul_from_sorted_batched,
@@ -182,35 +184,30 @@ def _exchange_tag(name: str) -> str:
     return "bias" if name.endswith("_feat_bias") else "table"
 
 
-@contextlib.contextmanager
-def dedup_exchange(mesh, blocks: dict, capacity=None, exchange="dedup"):
-    """Route lookups against row-sharded table blocks through an exchange
-    (reference :191-207, which routes by the global table's shape).
+def lookup_exchange(mesh, blocks: dict, capacity=None, exchange="dedup") -> _Exchange:
+    """The exchange that a sharded run's lookups against row-sharded table
+    blocks take (reference :191-207, which routes by the global table's
+    shape).
 
     ``blocks``: {param name: this rank's block} of the row-sharded params
     (``parallel.sharding.param_specs``); a lookup takes the exchange when
     its table is one of them or a view of one from its first row (a bias
     block as (V, 1)). ``exchange``: "dedup" (``dedup_embedding_lookup``
     at ``capacity``, None = its default) or "psum"
-    (``sharded_embedding_lookup``). The row-sharded steps install this
-    around the loss and the eval forward."""
+    (``sharded_embedding_lookup``)."""
     assert exchange in ("psum", "dedup"), exchange
-    prev = getattr(_state, "exchange", None)
-    _state.exchange = _Exchange(mesh, exchange, capacity, {
+    return _Exchange(mesh, exchange, capacity, {
         t.data_ptr(): (t.shape[0], _exchange_tag(name)) for name, t in blocks.items()})
-    try:
-        yield
-    finally:
-        _state.exchange = prev
 
 
 def _dedup_ctx():
-    return getattr(_state, "exchange", None)
+    run = current_run()
+    return None if run is None else run.exchange
 
 
 def _exchanged(table):
-    """The counter's tag when ``table`` is a row-sharded block under
-    ``dedup_exchange``, else None."""
+    """The counter's tag when ``table`` is a row-sharded block in a sharded
+    run with an exchange, else None."""
     ctx = _dedup_ctx()
     if ctx is None or isinstance(table, QuantTable):
         return None
@@ -237,9 +234,9 @@ def stacked_tables(names: tuple, stack):
     layer's full packable set (``PackedEmbeddingLinear.stackable``) for
     the layer to take the stack. The stacked train step installs this
     around ``model.loss`` with the step's stacked parameter. Incompatible
-    with ``dedup_exchange``."""
+    with an exchange."""
     if _dedup_ctx() is not None:
-        raise RuntimeError("stacked_tables is incompatible with dedup_exchange")
+        raise RuntimeError("stacked_tables is incompatible with a lookup exchange")
     prev = getattr(_state, "stacked", None)
     _state.stacked = (tuple(names), stack)
     try:
@@ -335,12 +332,40 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     tag = _exchanged(table)
     if tag is not None:
         return exchange_lookup([table], [ids], tag)[0]
+    return _local_lookup(table, ids)
+
+
+def _local_lookup(table, ids):
+    """``embedding_lookup`` of a tensor this rank holds whole, without the
+    exchange."""
     flat = ids.reshape(-1)
     if _fused_active(table.device):
         rows = _Lookup.apply(table, flat)
     else:
         rows = table.index_select(0, flat)
     return rows.reshape(*ids.shape, table.shape[1])
+
+
+def local_lookups(tables: list, ids_list: list) -> list:
+    """Rows of each (table, ids) pair of tensors this rank holds (an
+    exchange's local gathers against its blocks), with the lookups'
+    backwards: a same-shape group takes ``embedding_lookup_multi``'s
+    batched one (K3 on CUDA at C >= 8), the rest ``_Lookup``'s (K6 under
+    "segmat"), so a CUDA backward needs no ``index_add_`` and repeats bit
+    for bit; on the CPU autograd's gather, as before."""
+    out: list = [None] * len(tables)
+    groups = collections.defaultdict(list)
+    for pos, (t, i) in enumerate(zip(tables, ids_list)):
+        groups[(tuple(t.shape), tuple(i.shape), i.dtype)].append(pos)
+    for positions in groups.values():
+        if len(positions) > 1 and _fused_active(tables[positions[0]].device):
+            rows = embedding_lookup_multi([tables[p] for p in positions],
+                                          [ids_list[p] for p in positions])
+        else:
+            rows = [_local_lookup(tables[p], ids_list[p]) for p in positions]
+        for p, r in zip(positions, rows):
+            out[p] = r
+    return out
 
 
 class _LookupMulti(torch.autograd.Function):
@@ -388,7 +413,7 @@ def embedding_lookup_grouped(tables, ids_list) -> list:
     """Lookups across tables -> list of row tensors. Same-shape subsets
     share the batched-sort backward (``embedding_lookup_multi``); the rest,
     and every ``QuantTable``, go per table (reference :1178-1210). Under
-    ``dedup_exchange`` the row-sharded ones share one exchange per tag."""
+    an exchange the row-sharded ones share one exchange per tag."""
     assert len(tables) == len(ids_list)
     out: list = [None] * len(tables)
     by_shape = collections.defaultdict(list)

@@ -1,19 +1,40 @@
 """Every collective of the port, over a named axis of a ``Mesh``.
 
-``all_reduce`` and ``all_gather`` are ``torch.autograd.Function``s, for the
-two exchanges a gradient flows through. Their backwards follow from how the
-port splits work: the ranks of one model group compute the dense part of
-the model on identical rows, as replicas of ONE objective, so the
-cotangent a rank holds for a replicated result is already the whole one:
+The differentiable ones are ``torch.autograd.Function``s. Their backwards
+follow from what the ranks of an axis compute, and there are two cases:
 
-- the backward of ``all_reduce`` (a sum consumed by every rank) passes the
+**Replicas of one objective** (the model axis). The ranks of one model
+group compute the dense part of the model on identical rows, as replicas
+of ONE objective, so the cotangent a rank holds for a replicated result is
+already the whole one:
+
+- ``all_reduce`` (a sum consumed by every rank): the backward passes the
   cotangent through: no collective, as the reference's psum transposes
-  locally (``traffic.py``: psum_bwd = 0);
-- the backward of ``all_gather`` is a ``reduce_scatter`` of the cotangents
+  locally (``traffic.py``: psum_bwd = 0). In a tensor-parallel DNN this is
+  Megatron's g, after a row-sharded layer;
+- ``all_gather``: the backward is a ``reduce_scatter`` of the cotangents
   over the axis divided by its size: the mean of the replicas' cotangents
   for this rank's slice, which is that slice where they agree (JAX's
   transpose, a psum_scatter of the 1/S-scaled cotangents of an output
-  replicated over the axis), at the bytes ``traffic.py`` counts for it.
+  replicated over the axis), at the bytes ``traffic.py`` counts for it;
+- ``copy_to_blocks`` (Megatron's f, before a column-sharded layer): the
+  identity forward; the backward sums the cotangents over the axis, since
+  each rank's holds only its block's share of the input's;
+- ``block_of``: this rank's block of a replicated tensor; the backward
+  all-gathers the blocks' cotangents, so the replicated tensor's gradient
+  is whole, and equal, on every rank of the axis.
+
+**Ranks whose objectives are summed** (the data axis). Each data rank's
+objective is its rows' share of the global loss, and the gradients are
+summed over the data group afterwards. A value shared across the data
+ranks (Dice's batch moments, DIEN's rolled negative) feeds every rank's
+objective, so its cotangent is the SUM of the ranks' cotangents:
+
+- ``all_reduce_summed``: the backward all-reduces the cotangent; passing
+  it through (as ``all_reduce`` does) would drop the other ranks'
+  dependence on the shared sum;
+- ``all_gather_summed``: the backward reduce-scatters the cotangents with
+  no division: each rank's block gets every rank's cotangent for it.
 
 ``TRAFFIC`` counts what every call moves, by (op, axis, tag), in the ring
 model's bytes per rank (``traffic.py``): an all-reduce of SIZE bytes 2(S-1)/S
@@ -34,6 +55,8 @@ import collections
 
 import torch
 import torch.distributed as dist
+
+from .mesh import DATA_AXIS
 
 # (op, axis, tag) -> bytes per rank in the ring model
 TRAFFIC: collections.Counter = collections.Counter()
@@ -103,37 +126,99 @@ def reduce_scatter(x, mesh, axis, tag=""):
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis, tag):
+    def forward(ctx, x, mesh, axis, tag, summed):
+        ctx.mesh, ctx.axis, ctx.tag, ctx.summed = mesh, axis, tag, summed
         return _all_reduce(x, mesh, axis, tag)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None, None
+        if ctx.summed:
+            g = _all_reduce(g, ctx.mesh, ctx.axis, ctx.tag)
+        return g, None, None, None, None
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis, tag):
-        ctx.mesh, ctx.axis, ctx.tag = mesh, axis, tag
+    def forward(ctx, x, mesh, axis, tag, summed):
+        ctx.mesh, ctx.axis, ctx.tag, ctx.summed = mesh, axis, tag, summed
         return _all_gather(x, mesh, axis, tag)
 
     @staticmethod
     def backward(ctx, g):
-        s = axis_size(ctx.mesh, ctx.axis)
-        return reduce_scatter(g / s, ctx.mesh, ctx.axis, ctx.tag), None, None, None
+        if not ctx.summed:
+            g = g / axis_size(ctx.mesh, ctx.axis)
+        return reduce_scatter(g, ctx.mesh, ctx.axis, ctx.tag), None, None, None, None
+
+
+class _CopyToBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, tag):
+        ctx.mesh, ctx.axis, ctx.tag = mesh, axis, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axis, ctx.tag), None, None, None
+
+
+class _BlockOf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, tag):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.tag = mesh, axis, dim, tag
+        n = x.shape[dim] // axis_size(mesh, axis)
+        i = mesh.data_index if axis == DATA_AXIS else mesh.model_index
+        return x.narrow(dim, i * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _all_gather(g.movedim(ctx.dim, 0), ctx.mesh, ctx.axis, ctx.tag)
+        return g.movedim(0, ctx.dim), None, None, None, None
 
 
 def all_reduce(x, mesh, axis, tag="", op="sum"):
     """The sum (or "max", "min") of ``x`` over the axis, on every rank of
     it. A sum is differentiable: its backward passes the cotangent
-    through (see the module docstring)."""
+    through, for an axis of replicas (see the module docstring)."""
     if op == "sum":
-        return _AllReduce.apply(x, mesh, axis, tag)
+        return _AllReduce.apply(x, mesh, axis, tag, False)
     return _all_reduce(x, mesh, axis, tag, op)
+
+
+def all_reduce_summed(x, mesh, axis, tag=""):
+    """The sum of ``x`` over an axis whose ranks' objectives are summed;
+    its backward all-reduces the cotangent (see the module docstring)."""
+    return _AllReduce.apply(x, mesh, axis, tag, True)
 
 
 def all_gather(x, mesh, axis, tag=""):
     """The axis' ``x`` blocks concatenated along dim 0 in rank order, on
     every rank of it; differentiable (backward: ``reduce_scatter`` of the
-    cotangent over S)."""
-    return _AllGather.apply(x, mesh, axis, tag)
+    cotangent over S, for an axis of replicas)."""
+    return _AllGather.apply(x, mesh, axis, tag, False)
+
+
+def all_gather_summed(x, mesh, axis, tag=""):
+    """``all_gather`` over an axis whose ranks' objectives are summed: its
+    backward reduce-scatters the cotangents undivided."""
+    return _AllGather.apply(x, mesh, axis, tag, True)
+
+
+def copy_to_blocks(x, mesh, axis, tag=""):
+    """``x`` as it is, for a consumer that each rank of the axis computes
+    one block of (Megatron's f); the backward sums the cotangents over the
+    axis."""
+    return _CopyToBlocks.apply(x, mesh, axis, tag)
+
+
+def block_of(x, mesh, axis, dim, tag=""):
+    """This rank's block of a replicated ``x`` along ``dim`` (which must
+    divide the axis); the backward all-gathers the blocks' cotangents."""
+    return _BlockOf.apply(x, mesh, axis, dim, tag)
+
+
+def gather_blocks(x, mesh, axis, dim, tag=""):
+    """The axis' blocks of ``x`` concatenated along ``dim`` (a view of
+    ``all_gather`` along another dim; its backward as ``all_gather``'s)."""
+    if dim == 0:
+        return all_gather(x, mesh, axis, tag)
+    return all_gather(x.movedim(dim, 0), mesh, axis, tag).movedim(0, dim)

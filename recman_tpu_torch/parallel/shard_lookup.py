@@ -9,7 +9,10 @@ replicated over the model group, as the reference's ``in_specs`` say:
    rank gathers the rows it owns (ids outside its block masked to zero)
    and one all-reduce over ``model`` assembles full rows everywhere. Its
    backward passes the cotangent through, masked by ownership, to the
-   local block (``collectives.all_reduce``).
+   local block (``collectives.all_reduce``), whose gathers take the
+   lookups' backwards (``ops.embedding.local_lookups``: K3 for the
+   embedding tower's same-shape blocks on CUDA), so it repeats bit for
+   bit there.
 
 2. ``dedup_embedding_lookup`` — sort + run-length dedup +
    capacity-bounded all-gather (the DLRM-style exchange, ``_dedup_exchange``
@@ -25,7 +28,9 @@ replicated over the model group, as the reference's ``in_specs`` say:
 Gradients reach only the local block; the train step then sums table
 blocks over the data group. The sort, the dedup and the gathers are a few
 PyTorch index ops each, as the reference writes them in jnp outside any
-Pallas call.
+Pallas call; the dedup exchange's backward takes autograd's gathers
+(``index_add_`` on CUDA, whose float sums may come out in another order
+from one run to the next).
 
 Both take a list of tables in one call (``_psum_rows``, ``_dedup_rows``):
 the embedding tower's same-shape tables then share one collective, with the
@@ -42,16 +47,20 @@ from .mesh import DATA_AXIS, MODEL_AXIS
 
 
 def _psum_rows(tables, ids_list, mesh, tag="table") -> list:
-    """Rows of each (block, ids) pair: masked local gathers, one all-reduce
-    over the model axis for all of them."""
+    """Rows of each (block, ids) pair: masked local gathers
+    (``ops.embedding.local_lookups``), one all-reduce over the model axis
+    for all of them."""
+    from ..ops.embedding import local_lookups
+
     my = mesh.model_index
-    parts = []
+    rels, hits = [], []
     for table, ids in zip(tables, ids_list):
         rows_per = table.shape[0]
         rel = ids.reshape(-1).long() - my * rows_per
-        hit = (rel >= 0) & (rel < rows_per)
-        rows = table.index_select(0, rel.clamp(0, rows_per - 1))
-        parts.append(rows * hit[:, None].to(rows.dtype))
+        hits.append((rel >= 0) & (rel < rows_per))
+        rels.append(rel.clamp(0, rows_per - 1))
+    parts = [rows * hit[:, None].to(rows.dtype)
+             for rows, hit in zip(local_lookups(tables, rels), hits)]
     flat = all_reduce(torch.cat([p.reshape(-1) for p in parts]), mesh, MODEL_AXIS, tag)
     out, start = [], 0
     for p, ids in zip(parts, ids_list):

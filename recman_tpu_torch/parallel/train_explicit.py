@@ -15,8 +15,9 @@ group:
                               split telescopes back to one L2)
     gradients   g = sum_d(d local_obj_d / d params)
 
-with ``W_global`` the all-reduced sum of the batch's weights. Params and
-optimizer state stay replicated; every rank applies the identical update.
+with ``W_global`` the all-reduced sum of the batch's weights
+(``Model.rank_loss`` over a ``DataSplit``). Params and optimizer state
+stay replicated; every rank applies the identical update.
 
 Each data rank takes columns ``[d B/D, (d+1) B/D)`` of every row of the
 global (steps, B) index matrix, the block ``in_specs=P(None, DATA_AXIS)``
@@ -48,8 +49,8 @@ from ..training.train_step import (
     unpack_batch,
     value_and_grads,
 )
-from ..utils.numerics import bce_per_example, mse_per_example
-from .collectives import all_gather, all_reduce
+from ..models.base import OneRank
+from .collectives import all_gather, all_gather_summed, all_reduce
 from .distributed import check_finite
 from .mesh import DATA_AXIS, MODEL_AXIS
 
@@ -64,10 +65,26 @@ def explicit_dp_supported(model, mesh, embedding_exchange="psum") -> bool:
     return type(model).loss is Model.loss
 
 
-def per_example(model, y, preds):
-    if model.task == "classification":
-        return bce_per_example(y, preds)
-    return mse_per_example(y, preds)
+class DataSplit(OneRank):
+    """``Model.rank_loss``'s view of a batch whose rows a mesh's data group
+    splits in order, ``B / D`` a rank: totals are all-reduced over the
+    data group, and a roll by one row crosses from rank d - 1 to rank d
+    (rank 0 takes rank D - 1's last row), the boundary row exchanged by an
+    all-gather whose backward returns its cotangent to the rank that owns
+    it."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.ranks = mesh.shape[DATA_AXIS]
+
+    def total(self, x):
+        return all_reduce(x.detach(), self.mesh, DATA_AXIS, "total")
+
+    def roll(self, x):
+        if self.ranks == 1:
+            return torch.roll(x, 1, dims=0)
+        last = all_gather_summed(x[-1:], self.mesh, DATA_AXIS, "roll")
+        return torch.cat([last[(self.mesh.data_index - 1) % self.ranks][None], x[:-1]])
 
 
 def rank_generator(generator, step: int, mesh):
@@ -94,16 +111,13 @@ def rank_batch(mesh, data, idx, layout=()):
 def dp_grads(model, mesh, params, batch, weights, generator, names=None):
     """One rank's local objective and the data group's summed gradients:
     (loss summed over the data group, {name: gradient})."""
-    d_n = mesh.shape[DATA_AXIS]
-    w_global = all_reduce(weights.sum(), mesh, DATA_AXIS, "weights").clamp_min(1.0)
+    split = DataSplit(mesh)
 
     def local_obj(p):
         ctx = stacked_tables(names, p[STACKED_KEY]) if names else contextlib.nullcontext()
         with ctx:
-            preds = model.apply(p, batch, training=True, generator=generator)
-            local_sum = torch.sum(per_example(model, batch["y"], preds) * weights)
             # the L2 split over the data ranks: the sums telescope back to one
-            return local_sum / w_global + model.l2(p) / d_n
+            return model.rank_loss(p, batch, weights, split, training=True, generator=generator)
 
     obj, grads = value_and_grads(local_obj, params)
     with torch.no_grad():

@@ -1,27 +1,42 @@
-"""Row-sharded train and eval steps, and ``ShardedTrainer`` over a mesh.
+"""Row-sharded and tensor-parallel train and eval steps, and
+``ShardedTrainer`` over a mesh.
 
 Counterpart of ``recman_tpu/parallel/train_pjit.py``. The reference's GSPMD
 steps lower ``model.loss`` on the global batch and let the XLA partitioner
-insert the collectives; the port writes the same objective out per rank:
+insert the collectives, so they have the semantics of one device on the
+global batch; the port writes the same objective out per rank:
 
 - each data rank takes its columns of the batch's index row (the
   replicated layout: the whole dataset on every rank; ``dataset_sharded``:
   the rank's own block of rows and a per-block local index matrix);
-- params follow ``sharding.param_specs``: large embedding tables, their
-  bias tables and the vocab-length ``linear_w`` hold one row block per
-  model rank; dense towers are replicated;
-- the forward runs under ``ops.embedding.dedup_exchange``, so every lookup
-  against a block takes the masked gather + all-reduce ("psum") or the
-  deduped all-gather ("dedup") over the model group, and nothing is packed;
-- the objective is ``sum(w * per_ex) / W_global + L2 / D`` per rank, as in
-  ``train_explicit.py``; the model ranks of one data group compute its
-  dense part redundantly on identical rows, one objective, so the
-  exchanges' backwards do not sum over them (``collectives.py``), and a
-  block's L2 is a sum over the blocks while a replicated leaf's is counted
-  once per model group;
+- params follow the resolved ``sharding.param_specs``: large embedding
+  tables, their bias tables and the vocab-length ``linear_w`` hold one
+  row block per model rank; with ``tp_dense_threshold`` the DNN towers'
+  large matrices are tensor-parallel (``layers/dnn.py``); the rest is
+  replicated;
+- the forward runs in a sharded run (``sharded_forward``, a
+  ``mesh_run.MeshRun``): every lookup against a block takes the masked
+  gather + all-reduce ("psum") or the deduped all-gather ("dedup") over
+  the model group, the DNNs run their layers as their specs say, and Dice
+  takes its batch moments over the data group's whole batch, as the
+  partitioner reduces them;
+- the objective is ``model.rank_loss`` with ``DataSplit``: per rank
+  ``sum(w * per_ex) / W_global + L2 / D`` and, for a model with its own
+  term (DIEN's auxiliary loss), that term's share, its in-batch negatives
+  rolled over the data group;
 - every gradient (a block's and a replicated leaf's) is summed over the
   data group, so the optimizer's state for a block is that block's, and
-  the loss over the whole mesh.
+  the loss over the whole mesh. The optimizer update runs in a sharded
+  run too, where Lamb's trust ratio takes a blocked leaf's norms over its
+  blocks.
+
+An all-reduce has two backwards (``collectives.py``). The model ranks of
+one data group compute the dense part redundantly on identical rows, one
+objective: the backward of a sum over the model axis passes the cotangent
+through, and a block's L2 is a sum over the blocks while a replicated
+leaf's is counted once per model group. The data ranks' objectives are
+summed: a value shared over the data axis (Dice's moments, DIEN's rolled
+negative) takes a backward that sums the ranks' cotangents.
 
 The port's kernels stay on: the reference gates its Pallas calls off here
 only because the partitioner cannot split them. K1 and K2 run on every
@@ -30,12 +45,11 @@ blocks run their exchange's index ops and autograd's gather backward.
 
 ``ShardedTrainer`` picks the explicit DP steps (``train_explicit.py``) on a
 pure-DP mesh (``spmd="auto"``/``"explicit_dp"``), the row-sharded steps
-here otherwise (``spmd="gspmd"``, the reference's name).
-
-Not ported yet (``ROADMAP.md`` queue 1), and refused: tensor-parallel DNN
-towers, ``fit(resilience=)``, ``save``/``restore``, the stream methods, a
-model whose loss is not the base loss (DIEN), QR tables on the mesh, and
-an optimizer with per-leaf norms (lamb) over row blocks.
+here otherwise (``spmd="gspmd"``, the reference's name). Its checkpoints
+are global arrays that one rank writes, and a resilient ``fit`` agrees on
+the preemption flag over the mesh (``checkpoint.py``). The stream methods
+read chunks on a prefetch thread that runs no collective; the main thread
+checks that every rank has a chunk of as many batches.
 """
 
 from __future__ import annotations
@@ -46,10 +60,7 @@ import numpy as np
 import torch
 
 from ..models.base import Model
-from ..ops.embedding import dedup_exchange
 from ..training.train_step import (
-    Lamb,
-    MultiTransform,
     TrainState,
     _eval_generator,
     apply_updates,
@@ -58,27 +69,24 @@ from ..training.train_step import (
     value_and_grads,
 )
 from ..training.trainer import Trainer
-from .collectives import all_reduce
+from ..utils.sharded_run import sharded_run
+from . import checkpoint
+from .collectives import _all_gather, _all_reduce, all_reduce
 from .distributed import check_finite, rank_device
 from .mesh import DATA_AXIS, MODEL_AXIS, make_mesh
-from .sharding import _refuse_tp, param_specs, place_params
+from .mesh_run import MeshRun
+from .sharding import _is_vocab_array, param_specs, place_params, resolve_specs
 from .train_explicit import (
+    DataSplit,
     explicit_dp_supported,
     gather_preds,
     make_dp_eval_scan_explicit,
     make_dp_train_step_explicit,
-    per_example,
     rank_batch,
     rank_generator,
 )
 
 log = logging.getLogger(__name__)
-
-_QUEUE = "not ported yet: ROADMAP.md queue 1"
-
-
-def _not_ported(what):
-    raise NotImplementedError(f"ShardedTrainer: {what} is {_QUEUE}")
 
 
 def shard_init_state(model, optimizer, generator, mesh, row_shard_threshold=50_000,
@@ -93,28 +101,20 @@ def shard_init_state(model, optimizer, generator, mesh, row_shard_threshold=50_0
 
 def _init_sharded(model, optimizer, generator, mesh, row_shard_threshold, tp_dense_threshold,
                   device):
-    _refuse_tp(tp_dense_threshold)
     device = rank_device(device)
     params, seed = init_params_and_seed(model, generator, device)
-    specs = param_specs(params, row_shard_threshold)
+    specs = resolve_specs(param_specs(params, row_shard_threshold, tp_dense_threshold), params,
+                          mesh.shape[MODEL_AXIS])
     return shard_state(optimizer, params, mesh, specs, seed, device), specs
 
 
 def shard_state(optimizer, params: dict, mesh, specs: dict, seed: int, device) -> TrainState:
     """A TrainState of this rank's blocks of ``params`` (full arrays, tensors
     or numpy) and a dropout generator seeded ``seed``."""
-    if mesh.shape[MODEL_AXIS] > 1 and any(specs.values()):
-        _refuse_per_leaf_norms(optimizer)
     local = place_params(params, mesh, specs)
     local = {k: torch.as_tensor(v).to(device) for k, v in local.items()}
     generator = torch.Generator(device=device).manual_seed(seed)
     return TrainState(local, optimizer.init(local), 0, generator)
-
-
-def _refuse_per_leaf_norms(optimizer):
-    inner = optimizer.transforms.values() if isinstance(optimizer, MultiTransform) else [optimizer]
-    if any(isinstance(t, Lamb) for t in inner):
-        _not_ported("lamb's per-leaf trust ratio over row-sharded blocks")
 
 
 def make_local_gather(mesh):
@@ -125,10 +125,15 @@ def make_local_gather(mesh):
     return lambda data, idx: rank_batch(mesh, data, idx)
 
 
-def _exchange(mesh, params, specs, embedding_exchange, dedup_capacity):
+def sharded_forward(mesh, params, specs, embedding_exchange="psum", dedup_capacity=None,
+                    moments=True):
+    """The sharded run a row-sharded forward runs in (module docstring):
+    the lookups' exchange against ``params``' vocabulary blocks, the DNNs'
+    tensor-parallel layers and, with ``moments``, Dice's moments over the
+    data group. ``dedup_capacity``: an int, None or a zero-arg callable."""
     cap = dedup_capacity() if callable(dedup_capacity) else dedup_capacity
-    blocks = {k: v for k, v in params.items() if specs[k]}
-    return dedup_exchange(mesh, blocks, capacity=cap, exchange=embedding_exchange)
+    blocks = {k: v for k, v in params.items() if specs[k] and _is_vocab_array(k)}
+    return sharded_run(MeshRun(mesh, specs, blocks, embedding_exchange, cap, moments))
 
 
 def sharded_grads(model, mesh, specs, params, batch, weights, generator,
@@ -136,13 +141,11 @@ def sharded_grads(model, mesh, specs, params, batch, weights, generator,
     """One rank's part of the global objective and the summed gradients:
     (the mesh's loss, {name: gradient summed over the data group})."""
     d_n = mesh.shape[DATA_AXIS]
-    w_global = all_reduce(weights.sum(), mesh, DATA_AXIS, "weights").clamp_min(1.0)
+    split = DataSplit(mesh)
 
     def local_obj(p):
-        with _exchange(mesh, p, specs, embedding_exchange, dedup_capacity):
-            preds = model.apply(p, batch, training=True, generator=generator)
-        data_part = torch.sum(per_example(model, batch["y"], preds) * weights) / w_global
-        return data_part + model.l2(p) / d_n
+        with sharded_forward(mesh, p, specs, embedding_exchange, dedup_capacity):
+            return model.rank_loss(p, batch, weights, split, training=True, generator=generator)
 
     obj, grads = value_and_grads(local_obj, params)
     with torch.no_grad():
@@ -163,7 +166,7 @@ def sharded_grads(model, mesh, specs, params, batch, weights, generator,
 def make_sharded_train_step(model, optimizer, mesh, specs, embedding_exchange="psum",
                             dedup_capacity=None):
     """(state, data, idx (B,) or shard-major (D * B/D,), layout) -> (state,
-    loss): one row-sharded step. ``specs``: the params' ``param_specs``;
+    loss): one row-sharded step. ``specs``: the params' resolved specs;
     ``dedup_capacity``: an int, None (the exchange's default) or a
     zero-arg callable read at every step."""
 
@@ -172,7 +175,7 @@ def make_sharded_train_step(model, optimizer, mesh, specs, embedding_exchange="p
         gen = rank_generator(state.generator, state.step, mesh)
         loss, grads = sharded_grads(model, mesh, specs, state.params, batch, weights, gen,
                                     embedding_exchange, dedup_capacity)
-        with torch.no_grad():
+        with torch.no_grad(), sharded_run(MeshRun(mesh, specs)):
             updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
             params = apply_updates(state.params, updates)
         return TrainState(params, opt_state, state.step + 1, state.generator), loss
@@ -214,7 +217,8 @@ def make_sharded_eval_scan(model, mesh, specs, embedding_exchange="psum", dedup_
     def scan_fn(params, data, idx_mat, override, training: bool, layout=()):
         generator = _eval_generator(params, training)
         outs = []
-        with torch.no_grad(), _exchange(mesh, params, specs, embedding_exchange, dedup_capacity):
+        with torch.no_grad(), sharded_forward(mesh, params, specs, embedding_exchange,
+                                              dedup_capacity):
             for idx in idx_mat:
                 batch, _ = rank_batch(mesh, data, idx, layout)
                 outs.append(model.apply(params, batch, training=training, generator=generator,
@@ -235,7 +239,13 @@ class ShardedTrainer(Trainer):
     than one host, ``WORLD_SIZE != LOCAL_WORLD_SIZE``): ``X`` passed to
     fit/predict holds this rank's data group's rows only, the same number
     on every rank (pad beforehand), and needs ``dataset_sharded``. Off,
-    every rank is passed the whole dataset, as every JAX device sees it."""
+    every rank is passed the whole dataset, as every JAX device sees it.
+
+    ``tp_dense_threshold``: the DNN towers' matrices of at least that many
+    elements are tensor-parallel over the model axis (``sharding.py``).
+    A model whose ``loss`` adds a term to the base loss needs its
+    ``rank_loss`` share of it (``DIEN``), and takes the row-sharded route:
+    the explicit DP route runs the base loss only, as the reference's."""
 
     def __init__(self, model, hparams=None, metrics=(), epoch=10, batch_size=64,
                  random_seed=2019, eval_in_training_mode=False, mesh=None,
@@ -243,9 +253,9 @@ class ShardedTrainer(Trainer):
                  dataset_sharded=False, embedding_exchange="psum",
                  dedup_capacity=None, multihost_feed=None, spmd="auto",
                  steps_per_dispatch=1, stacked_tables=None, device=None):
-        _refuse_tp(tp_dense_threshold)
-        if type(model).loss is not Model.loss:
-            _not_ported(f"{type(model).__name__}'s own loss on a mesh")
+        if type(model).loss is not Model.loss and type(model).rank_loss is Model.rank_loss:
+            raise ValueError(f"{type(model).__name__} defines its own loss but no rank_loss: "
+                             "its share of the loss on a rank is not known")
         self.device = rank_device(device)
         self.mesh = mesh if mesh is not None else make_mesh(device=self.device)
         data_n = self.mesh.shape[DATA_AXIS]
@@ -254,6 +264,7 @@ class ShardedTrainer(Trainer):
         if embedding_exchange not in ("psum", "dedup"):
             raise ValueError(f"embedding_exchange {embedding_exchange!r}: 'psum' or 'dedup'")
         self.row_shard_threshold = row_shard_threshold
+        self.tp_dense_threshold = tp_dense_threshold
         self.dataset_sharded = dataset_sharded
         if multihost_feed is None:
             import os
@@ -291,10 +302,7 @@ class ShardedTrainer(Trainer):
         self._dedup_checked = False
         self.state, self.specs = _init_sharded(
             model, self.optimizer, torch.Generator().manual_seed(random_seed), self.mesh,
-            row_shard_threshold, None, self.device)
-        if self.mesh.shape[MODEL_AXIS] > 1 and any(
-                self.specs[k] for k in self.specs if k.endswith("_feat_embed_q")):
-            _not_ported("a row-sharded QR quotient table")
+            row_shard_threshold, tp_dense_threshold, self.device)
 
         if spmd not in ("auto", "explicit_dp", "gspmd"):
             raise ValueError(f"spmd {spmd!r}: 'auto', 'explicit_dp' or 'gspmd'")
@@ -315,7 +323,7 @@ class ShardedTrainer(Trainer):
             self._train_epoch = make_sharded_train_epoch(model, self.optimizer, *args)
             self._eval_step = make_sharded_eval_step(model, *args)
             self._eval_scan = make_sharded_eval_scan(model, *args)
-        log.info("ShardedTrainer on %s; %d/%d params row-sharded; spmd=%s", self.mesh,
+        log.info("ShardedTrainer on %s; %d/%d params sharded; spmd=%s", self.mesh,
                  sum(1 for s in self.specs.values() if s), len(self.specs),
                  "explicit_dp" if self._explicit_dp else "gspmd")
 
@@ -349,49 +357,103 @@ class ShardedTrainer(Trainer):
                 self._train_step_stacked = make_dp_train_step_explicit(
                     model, opt, mesh, unroll=u, stacked_names=names)
 
-    # -- not ported yet (ROADMAP.md queue 1) ---------------------------------
+    # -- resilience, checkpoints, streams, calibration -------------------------
     def fit(self, *args, resilience=None, **kwargs):
-        if resilience is not None:
-            _not_ported("fit(resilience=...)")
-        return super().fit(*args, **kwargs)
+        """``Trainer.fit``; a ``resilience`` policy runs as a
+        ``checkpoint.MeshResilience`` (one agreed preemption, one writer;
+        ``checkpoint.on_mesh``)."""
+        return super().fit(*args, resilience=checkpoint.on_mesh(resilience), **kwargs)
+
+    def fit_stream(self, chunks, epochs=None, shuffle_in_chunk=True, resilience=None):
+        """``Trainer.fit_stream`` on every rank: the same chunk factory on
+        the replicated layout, the rank's data group's chunks under
+        ``multihost_feed``. A chunk whose batch count differs between ranks
+        raises ValueError on every rank (``_chunk_ready``)."""
+        return super().fit_stream(chunks, epochs, shuffle_in_chunk,
+                                  resilience=checkpoint.on_mesh(resilience))
+
+    def _chunk_ready(self, cur) -> bool:
+        """Every rank's batch count of its next chunk (0 at the stream's
+        end), gathered on the main thread: equal, or ValueError."""
+        n = 0 if cur is None else int(cur[2].shape[0])
+        counts = _all_gather(torch.tensor([n], device=self.device), self.mesh, "mesh",
+                             "chunks").tolist()
+        if len(set(counts)) > 1:
+            raise ValueError(f"the ranks' chunks have unequal batch counts {counts} "
+                             "(in mesh rank order; 0: the stream ended): every rank must "
+                             "be fed chunks of as many rows")
+        return n > 0
 
     def save(self, directory):
-        _not_ported("save (sharded checkpoints)")
+        """The global arrays (``checkpoint.global_state``) in
+        ``ckpt.save_checkpoint``'s layout with the hparams and feat_dict
+        sidecars, written by global rank 0 alone; a barrier ends it. Every
+        rank of the mesh must call it."""
+        full = checkpoint.global_state(self.state, self.mesh, self.specs)
+        if checkpoint.is_writer(self.mesh):
+            from ..ckpt import save_checkpoint
+
+            save_checkpoint(directory, state=full, hparams=self.hparams,
+                            feat_dict=self.model.feat_dict)
+        checkpoint.barrier(self.mesh, self.device)
 
     def restore(self, directory):
-        _not_ported("restore (sharded checkpoints)")
+        """Every rank reads the global arrays of a ``save`` directory and
+        keeps its blocks."""
+        from ..ckpt import restore_checkpoint
 
-    def fit_stream(self, *args, **kwargs):
-        _not_ported("fit_stream (the sharded stream path)")
-
-    def predict_stream(self, *args, **kwargs):
-        _not_ported("predict_stream (the sharded stream path)")
-
-    def evaluate_stream(self, *args, **kwargs):
-        _not_ported("evaluate_stream (the sharded stream path)")
+        full = restore_checkpoint(directory, checkpoint.global_template(
+            self.state, self.mesh, self.specs))
+        self.state = checkpoint.place_state(full, self.mesh, self.specs, self.device)
+        return self
 
     def calibrate(self, X, max_rows=65536) -> bool:
-        if any("_dice_mean_" in k for k in self.state.params) and any(self.specs.values()):
-            _not_ported("calibrate with row-sharded tables")
-        return super().calibrate(X, max_rows)
+        """``Trainer.calibrate`` on every rank over the same sample, under
+        the psum exchange (a dedup capacity fitted to the training batch
+        would drop rows of the larger sample) and the DNNs' tensor-parallel
+        layers; every rank writes the same moments. Under
+        ``multihost_feed`` each data group forwards the first rows of its
+        own sample, as many on every rank, with the moments taken over the
+        data group."""
+        if self.multihost_feed:
+            n = len(next(iter(X.values()))) if isinstance(X, dict) else len(X)
+            least = torch.tensor([min(n, max_rows)], device=self.device)
+            max_rows = int(_all_reduce(least, self.mesh, "mesh", "calibrate", op="min"))
+        with sharded_forward(self.mesh, self.state.params, self.specs, "psum", None,
+                             moments=self.multihost_feed):
+            return super().calibrate(X, max_rows)
 
     # -- dedup-exchange capacity guard ---------------------------------------
     def _dedup_feature_specs(self):
-        """(label, batch_key, clip_negative, vocab_rows) for every embedding
-        lookup that takes the dedup exchange. The linear tower takes the
-        psum exchange (``layers/linear.py``), so it is not listed."""
+        """(label, batch_key, clip_negative, vocab_rows, divisor) for every
+        embedding lookup that takes the dedup exchange: a row-sharded table
+        with its feature's ids, a QR feature's quotient table with ids //
+        q (and its bias table, if row-sharded, with the ids). A table's bias
+        lookup has the table's ids and rows, so it is not listed; nor is
+        the linear tower, which takes the psum exchange
+        (``layers/linear.py``)."""
         from ..features import MultiValCsvFeat, MultiValSparseFeat
 
         emb = getattr(self.model, "embeddings", None)
         if emb is None:
             return
         model_n = self.mesh.shape[MODEL_AXIS]
+        params = self.state.params
         for feat in emb.feats:
-            name = f"{emb.prefix}{feat.name}_feat_embed"
-            if not emb._owns_table(feat) or not self.specs.get(name):
+            if not emb._owns_table(feat):
                 continue
+            base = f"{emb.prefix}{feat.name}_feat"
             clip = isinstance(feat, (MultiValCsvFeat, MultiValSparseFeat))
-            yield feat.name, feat.name, clip, self.state.params[name].shape[0] * model_n
+            if emb._is_qr(feat):
+                q = int(feat.qr_collisions)
+                if self.specs.get(f"{base}_embed_q"):
+                    yield (f"{feat.name}(quotient)", feat.name, clip,
+                           params[f"{base}_embed_q"].shape[0] * model_n, q)
+                if self.specs.get(f"{base}_bias"):
+                    yield f"{feat.name}(bias)", feat.name, clip, \
+                        params[f"{base}_bias"].shape[0] * model_n, 1
+            elif self.specs.get(f"{base}_embed"):
+                yield feat.name, feat.name, clip, params[f"{base}_embed"].shape[0] * model_n, 1
 
     def _dedup_local_counts(self, data, idx, layout=()):
         """Per dedup-routed lookup of this data rank's rows of one batch:
@@ -400,13 +462,14 @@ class ShardedTrainer(Trainer):
         batch, _ = rank_batch(self.mesh, data, torch.as_tensor(idx, device=self.device), layout)
         model_n = self.mesh.shape[MODEL_AXIS]
         out = []
-        for label, key, clip, vocab_rows in self._dedup_feature_specs():
+        for label, key, clip, vocab_rows, divisor in self._dedup_feature_specs():
             ids = batch.get(key)
             if ids is None or ids.dtype.is_floating_point:
                 continue
             ids = ids.cpu().numpy().reshape(-1)
             if clip:
                 ids = np.maximum(ids, 0)
+            ids = ids // divisor
             owners = np.clip(np.unique(ids) // (vocab_rows // model_n), 0, model_n - 1)
             out.append((label, ids.size, np.bincount(owners, minlength=model_n)))
         return out

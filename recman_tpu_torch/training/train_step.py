@@ -33,6 +33,7 @@ import torch
 from ..device import resolve_device
 from ..ops.embedding import stacked_tables
 from ..utils import JaxKey
+from ..utils.sharded_run import current_run
 
 
 class MaskedNode(NamedTuple):
@@ -204,12 +205,30 @@ class Sgd:
         return _scale(grads, lr), CountState(state.count + 1, trace)
 
 
+def _leaf_norms(updates: dict, params: dict) -> dict:
+    """{name: (||param||, ||update||)} per leaf of ``updates``. In a sharded
+    run (``utils.sharded_run``) a leaf that the rank holds a block of
+    takes the whole leaf's norms: the root of its squares summed over the
+    blocks (``MeshRun.sum_over_blocks``)."""
+    norms = {k: (torch.linalg.vector_norm(params[k]), torch.linalg.vector_norm(u))
+             for k, u in updates.items() if u is not MASKED}
+    run = current_run()
+    blocked = [k for k in norms if run is not None and run.blocked(k)]
+    if blocked:
+        sq = torch.stack([torch.stack([params[k].square().sum(), updates[k].square().sum()])
+                          for k in blocked])
+        summed = torch.sqrt(run.sum_over_blocks(sq))
+        norms.update({k: (s[0], s[1]) for k, s in zip(blocked, summed)})
+    return norms
+
+
 class Lamb:
     """optax.lamb(learning_rate, b1=0.9, b2=0.999, eps=1e-6, eps_root=0,
     weight_decay=0): scale_by_adam, + weight_decay * param, the trust
     ratio ||param|| / ||update|| per leaf (1 where either norm is 0), then
     -lr. Under stacked storage the leaf is the whole (T, V, k) stack, as
-    in the reference."""
+    in the reference; in a sharded run a blocked leaf's norms are the
+    whole leaf's."""
 
     def __init__(self, learning_rate, b1=B1, b2=B2, eps=1e-6, eps_root=0.0, weight_decay=0.0):
         self.learning_rate = learning_rate
@@ -226,14 +245,15 @@ class Lamb:
         updates, state = _scale_by_adam(grads, state, self.b1, self.b2, self.eps,
                                         self.eps_root, None)
         updates = _tmap(lambda u, p: u + self.weight_decay * p, updates, params)
+        norms = _leaf_norms(updates, params)
 
-        def trust(u, p):
-            p_norm = torch.linalg.vector_norm(p)
-            u_norm = torch.linalg.vector_norm(u)
+        def trust(k, u):
+            p_norm, u_norm = norms[k]
             ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
             return u * ratio
 
-        return _scale(_tmap(trust, updates, params), lr), state
+        return _scale({k: u if u is MASKED else trust(k, u) for k, u in updates.items()},
+                      lr), state
 
 
 class MultiTransformState(NamedTuple):

@@ -266,7 +266,7 @@ class Trainer:
                 total, batches, c_i = 0.0, 0, skip_chunks
                 with ThreadPoolExecutor(max_workers=1) as pool:
                     cur = prepare(c_i)
-                    while cur is not None:
+                    while self._chunk_ready(cur):
                         data, layout, idx = cur
                         offset = skip_batches if c_i == skip_chunks else 0
                         c_i += 1
@@ -301,6 +301,13 @@ class Trainer:
                 resilience.uninstall()
         return self
 
+    def _chunk_ready(self, cur) -> bool:
+        """Whether the stream loop has a chunk to run: ``cur`` is the
+        prefetch thread's (data, layout, index matrix, ...) or None at the
+        stream's end. Runs on the main thread (``ShardedTrainer`` checks
+        the ranks' batch counts here)."""
+        return cur is not None
+
     def predict_stream(self, chunks, training=False):
         """Batched forward over a stream of encoded host chunks ('y'
         allowed and ignored), double-buffered as in ``fit_stream``.
@@ -319,7 +326,7 @@ class Trainer:
         out = []
         with ThreadPoolExecutor(max_workers=1) as pool:
             cur = prepare()
-            while cur is not None:
+            while self._chunk_ready(cur):
                 data, layout, idx, n = cur
                 fut = pool.submit(prepare)
                 preds = self._eval_scan(self.state.params, data, idx, override, training, layout)

@@ -188,6 +188,20 @@ def test_supported_gate(world):
         assert r["gate"] == (True, False, False)
 
 
+def test_preempted_dp_route_resumes_bit_exact(world):
+    """The explicit DP route's resilient fit at (2, 1): rank 0's flag alone
+    set before step 7, every rank checkpoints there, and a fresh trainer's
+    resume equals an uninterrupted run in every param, optimizer-state
+    tensor, the step and the generator."""
+    for r in ranks(world):
+        got = r["resume"]
+        assert r["resume_route"]
+        assert got["preempted"] is not None and f"step {cases.DP_PREEMPT_STEP}" in got["preempted"]
+        assert got["saved_step"] == got["latest"]["step"] == cases.DP_PREEMPT_STEP
+        assert got["resumed"] == got["ref"]
+    assert ranks(world)[0]["resume"]["ref"] == ranks(world)[1]["resume"]["ref"]
+
+
 # -- one rank, in this process -----------------------------------------------------
 
 

@@ -50,6 +50,7 @@ DP_HP = {"embedding_size": 8, "cin_cross_layer_units": (8, 6), "cin_dropout": (1
          "deep_hidden_units": (16, 16), "deep_dropout": (1.0, 1.0, 1.0)}
 DP_BUCKETS, DP_ROWS, DP_BATCH, DP_STEPS = 4096, 512, 64, 6
 AUTO_BUCKETS, AUTO_ROWS = 512, 256
+DP_PREEMPT_STEP = 7  # mid-epoch 2 of 3 (5 steps an epoch)
 
 
 def lookup_inputs(v, k, n, seed, model_n=2, lo=0, hi=None):
@@ -149,7 +150,7 @@ def _trainer(model, mesh, **kw):
     t = ShardedTrainer(model, mesh=mesh, **kw)
     # the reference's params: JAX's ShardedTrainer draws them from PRNGKey(seed)
     t.state = shard_init_state(model, t.optimizer, JaxKey(kw["random_seed"]), mesh,
-                               t.row_shard_threshold, device="cpu")
+                               t.row_shard_threshold, t.tp_dense_threshold, device="cpu")
     return t
 
 
@@ -317,12 +318,14 @@ def _layouts(mesh):
 
 def _dropout(mesh):
     """Live DNN dropout on the row-sharded route at (2, 2): the losses and
-    the dense params' digests after 2 steps, and the keep-1 run's losses."""
+    the dense params' digests after 2 steps, and the keep-1 run's losses;
+    "tp": keep 0.5 with the DNN's layer column-sharded (its masks drawn
+    full width and sliced)."""
     out = {}
-    for keep in (1.0, 0.5):
-        hp = dict(TRAINER_HP, deep_dropout=(keep, keep))
+    for keep, tp in ((1.0, None), (0.5, None), ("tp", 100)):
+        hp = dict(TRAINER_HP, deep_dropout=(0.5, 0.5) if tp else (keep, keep))
         model, (x, y) = trainer_setup(hp=hp)
-        t = _trainer(model, mesh, row_shard_threshold=256)
+        t = _trainer(model, mesh, row_shard_threshold=256, tp_dense_threshold=tp)
         dev, layout = t._to_device(x, y)
         idx = t._batch_index_matrix(TRAINER_ROWS, shuffle_seed=1)
         losses = [float(t.fit_on_batch(dev, idx[i], layout)) for i in range(2)]
@@ -332,21 +335,312 @@ def _dropout(mesh):
 
 
 def _refusals(mesh):
-    model, (x, y) = trainer_setup()
-    t = _trainer(model, mesh, row_shard_threshold=256)
     return {
-        "resilience": _raises(lambda: t.fit(x, y, resilience=object())),
-        "save": _raises(lambda: t.save("unused")),
-        "restore": _raises(lambda: t.restore("unused")),
-        "fit_stream": _raises(lambda: t.fit_stream(lambda: iter(()))),
-        "predict_stream": _raises(lambda: t.predict_stream(iter(()))),
-        "evaluate_stream": _raises(lambda: t.evaluate_stream(iter(()))),
         "mesh_factorization": _raises(lambda: make_mesh(data=3, model=3)),
         "model_factorization": _raises(lambda: make_mesh(model=3)),
     }
 
 
-def parallel_world(encoded):
+# -- the rest of the layer: Dice over the data group, tensor parallelism, DIEN,
+# QR and Lamb against JAX's ShardedTrainer on the (2, 2) mesh --------------------
+
+SEQ_ROWS, SEQ_ITEMS, SEQ_HIST = 512, 1000, 5
+PARITY_STEPS = 4
+# name -> (model, model hparams, ShardedTrainer keywords, optimizer hparams)
+PARITY_CASES = {
+    "din": ("din", {}, {}, TRAINER_OPT),
+    "din_tp": ("din", {}, {"tp_dense_threshold": 1000}, TRAINER_OPT),
+    "dien_aux": ("dien", {"aux_loss_weight": 0.5}, {}, TRAINER_OPT),
+    "xdeepfm_tp": ("xdeepfm", dict(TRAINER_HP, deep_hidden_units=(64, 64, 33),
+                                   deep_dropout=(1.0,) * 4),
+                   {"tp_dense_threshold": 1000}, TRAINER_OPT),
+    "xdeepfm_lamb": ("xdeepfm", dict(TRAINER_HP, deep_hidden_units=(64, 64),
+                                     deep_dropout=(1.0,) * 3),
+                     {"tp_dense_threshold": 1000}, {"learning_rate": 1e-3, "optimizer": "lamb"}),
+    "qr": ("deepfm", {"embedding_size": 4, "deep_hidden_units": (8,),
+                      "deep_dropout": (1.0, 1.0)}, {"row_shard_threshold": 64, "batch_size": 32},
+           TRAINER_OPT),
+}
+QR_ROWS, QR_VOCAB, QR_Q = 128, 4000, 8
+
+
+def seq_features(feature_set, sparse, sequence, data):
+    """The sequence cases' schema over ``make_data`` rows (either package's)."""
+    fs = feature_set()
+    item = sparse("item_id", feat_size=len(np.unique(np.asarray(data["item_id"]))))
+    fs["item_id"] = item
+    fs["hist_items"] = sequence("hist_items", id_feat=item, max_len=SEQ_HIST)
+    fs.initialize(data)
+    return fs
+
+
+def qr_features(feature_set, sparse, dense, frame):
+    """tests/test_qr_embedding.py's sharded case: one QR field of V 4000, q 8."""
+    fs = feature_set()
+    fs["u"] = sparse("u", feat_size=QR_VOCAB, qr_collisions=QR_Q)
+    fs["d"] = dense("d")
+    fs.initialize(frame)
+    return fs
+
+
+def parity_setup(name, qr_frame):
+    """(model, columns without y, y, rows) of a parity case, in the port."""
+    from recman_tpu_torch.examples.din_synthetic import make_data
+    from recman_tpu_torch.features import DenseFeat, FeatureSet, SequenceFeat, SparseFeat
+    from recman_tpu_torch.models import model_class
+
+    model_name, hp = PARITY_CASES[name][:2]
+    if model_name in ("din", "dien"):
+        data = make_data(n=SEQ_ROWS, n_items=SEQ_ITEMS, max_hist=SEQ_HIST)
+        fs = seq_features(FeatureSet, SparseFeat, SequenceFeat, data)
+        y = data["label"].astype(np.float32)
+        return model_class(model_name)(fs, hp), fs.transform(data), y, SEQ_ROWS
+    if model_name == "deepfm":
+        fs = qr_features(FeatureSet, SparseFeat, DenseFeat, qr_frame[0])
+        return model_class(model_name)(fs, hp), fs.transform(qr_frame[0]), qr_frame[1], QR_ROWS
+    model, (x, y) = trainer_setup(hp)
+    return model, x, y, TRAINER_ROWS
+
+
+def _parity(mesh, qr_frame):
+    """Each PARITY_CASES run at (2, 2): PARITY_STEPS steps' losses and the
+    gathered params."""
+    out = {}
+    for name, (_, _, kw, opt) in PARITY_CASES.items():
+        model, x, y, rows = parity_setup(name, qr_frame)
+        kw = {"row_shard_threshold": 256, **kw}
+        t = _trainer(model, mesh, hparams=opt, **kw)
+        dev, layout = t._to_device(x, y)
+        idx = t._batch_index_matrix(rows, shuffle_seed=1)
+        losses = [float(t.fit_on_batch(dev, idx[i], layout)) for i in range(PARITY_STEPS)]
+        full = gather_params(t.state.params, mesh, t.specs)
+        out[name] = {"losses": losses, "specs": dict(t.specs),
+                     "blocks": {k: tuple(v.shape) for k, v in t.state.params.items()},
+                     "params": {k: _np(v) for k, v in full.items()}}
+        if name == "qr":
+            d = _trainer(model, mesh, hparams=opt, embedding_exchange="dedup", **kw)
+            out[name]["dedup_report"] = d.dedup_overflow_report(dev, idx[0], layout)
+    return out
+
+
+# -- the zoo and the sequence models on the mesh --------------------------------
+
+ZOO_MODELS = ("fibinet", "nfm", "pnn", "masknet", "final_mlp", "gdcn")
+SEQ_MODELS = ("din", "bst", "dien")
+ZOO_HP = {"embedding_size": 4, "deep_hidden_units": (8,), "deep_dropout": (1.0, 1.0)}
+ZOO_BUCKETS, ZOO_ROWS, ZOO_STEPS = 500, 256, 10
+ZOO_OPT = {"learning_rate": 0.1, "optimizer": "adagrad"}
+
+
+def zoo_setup(name):
+    """(model, columns without y, y, rows) for a zoo or sequence model on
+    the mesh: Criteo-shaped rows over 501-row tables, or the sequence
+    cases' rows; the model's defaults but ZOO_HP for the zoo."""
+    from recman_tpu_torch.models import model_class
+
+    if name in SEQ_MODELS:
+        model, x, y, rows = parity_setup("din", None)
+        return model_class(name)(model.feat_dict), x, y, rows
+    fs = create_criteo_features(num_buckets=ZOO_BUCKETS)
+    x, y = split_xy(synthetic_criteo_arrays(ZOO_ROWS, num_buckets=ZOO_BUCKETS, seed=3))
+    return model_class(name)(fs, ZOO_HP), x, y, ZOO_ROWS
+
+
+def zoo_run(t, x, y, rows):
+    """The logloss on the rows before, ZOO_STEPS steps' losses, calibrate,
+    the logloss after, and the params and the moments calibrate wrote."""
+    before = t.evaluate(x, y)[0]
+    dev, layout = t._to_device(x, y)
+    idx = t._batch_index_matrix(rows, shuffle_seed=1)
+    losses = [float(t.fit_on_batch(dev, idx[i % len(idx)], layout)) for i in range(ZOO_STEPS)]
+    calibrated = t.calibrate(x)
+    return {"before": before, "losses": losses, "after": t.evaluate(x, y)[0],
+            "calibrated": calibrated}
+
+
+def _zoo(mesh):
+    out = {}
+    for name in ZOO_MODELS + SEQ_MODELS:
+        model, x, y, rows = zoo_setup(name)
+        t = _trainer(model, mesh, hparams=ZOO_OPT, row_shard_threshold=256)
+        run = zoo_run(t, x, y, rows)
+        full = gather_params(t.state.params, mesh, t.specs)
+        run["sharded"] = sorted(k for k, s in t.specs.items() if s)
+        run["params"] = {k: _np(v) for k, v in full.items()}
+        out[name] = run
+    return out
+
+
+# -- checkpoints, preemption and streams ----------------------------------------
+
+RESUME_HP = dict(TRAINER_HP, deep_hidden_units=(64, 64), deep_dropout=(1.0,) * 3)
+RESUME_OPT = {"learning_rate": 0.01, "optimizer": "adam"}
+RESUME_ROWS = 256
+PREEMPT_STEP = 7  # mid-epoch 2 (5 steps an epoch; the stream's 6: 2 a chunk)
+STREAM_CHUNKS = (96, 96, 64)
+
+
+class PreemptOnRank:
+    """A MeshResilience subclass's mixin: the flag set on one rank only, as a
+    signal that reaches one rank sets it, before global step ``at_step``
+    completes (tests/test_resilient.py's PreemptAtStep, on one rank)."""
+
+    def __init__(self, *args, at_step, rank, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.at_step, self.rank = at_step, rank
+
+    def step_boundary(self, trainer, step, epoch, extra=None):
+        import torch.distributed as dist
+
+        if step == self.at_step and dist.get_rank() == self.rank:
+            self._preempted = True
+        super().step_boundary(trainer, step, epoch, extra)
+
+
+def shared_dir(mesh):
+    """One temporary directory, made by rank 0 and named to every rank."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    name = [tempfile.mkdtemp(prefix="recman_ckpt_") if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(name, src=0)
+    return name[0]
+
+
+def state_digest(t) -> dict:
+    """sha256 of every param and optimizer-state tensor of a rank's state,
+    the step and the generator's state."""
+    from recman_tpu_torch.ckpt.checkpoint import _flatten
+
+    out = {f"param/{k}": v for k, v in t.state.params.items()}
+    out.update({"opt/" + "/".join(map(str, p)): v for p, v in _flatten(t.state.opt_state)
+                if isinstance(v, torch.Tensor)})
+    out = {k: hashlib.sha256(_np(v).tobytes()).hexdigest() for k, v in out.items()}
+    out["step"] = int(t.state.step)
+    out["generator"] = hashlib.sha256(_np(t.state.generator.get_state()).tobytes()).hexdigest()
+    return out
+
+
+def resume_runs(make, x, y, directory, rank, stream=None, at_step=PREEMPT_STEP, epochs=2):
+    """An uninterrupted resilient fit (or fit_stream over ``stream``), one
+    preempted at ``at_step`` by the flag of ``rank`` alone, and its resume
+    by a fresh trainer: their digests and what each rank saw."""
+    import os
+
+    from recman_tpu_torch.parallel import MeshResilience
+    from recman_tpu_torch.training import Preempted, Resilience
+
+    class Preempt(PreemptOnRank, MeshResilience):
+        pass
+
+    def run(t, res):
+        if stream is None:
+            return t.fit(x, y, random_seed_for_mini_batch=False, resilience=res)
+        return t.fit_stream(stream, epochs=epochs, resilience=res)
+
+    out = {}
+    ref = make()
+    run(ref, Resilience(os.path.join(directory, "ref"), every_epochs=10**6, preempt_signals=()))
+    out["ref"] = state_digest(ref)
+    res = Preempt(os.path.join(directory, "ck"), every_epochs=1, preempt_signals=(),
+                  at_step=at_step, rank=rank)
+    try:
+        run(make(), res)
+        out["preempted"] = None
+    except Preempted as e:
+        out["preempted"] = str(e)
+    out["saved_step"] = res._last_saved_step
+    latest = res.latest()
+    out["latest"] = None if latest is None else latest[1]
+    resumed = make()
+    run(resumed, Resilience(os.path.join(directory, "ck"), preempt_signals=()))
+    out["resumed"] = state_digest(resumed)
+    return out
+
+
+def stream_chunks(x, y):
+    """A chunk factory over the rows, STREAM_CHUNKS rows a chunk."""
+    def chunks():
+        start = 0
+        for n in STREAM_CHUNKS:
+            yield {**{k: v[start:start + n] for k, v in x.items()}, "y": y[start:start + n]}
+            start += n
+    return chunks
+
+
+def _checkpoints(mesh):
+    """At (2, 2), TP and row blocks, Adam: save then restore into a fresh
+    trainer; the resilient fit and fit_stream preempted by rank 1's flag
+    alone and resumed; the files rank 0 wrote."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    model, _ = trainer_setup(RESUME_HP)
+    x, y = schema_data(RESUME_ROWS)
+
+    def make():
+        return _trainer(model, mesh, hparams=RESUME_OPT, epoch=2, row_shard_threshold=256,
+                        tp_dense_threshold=1000)
+
+    directory = shared_dir(mesh)
+    out = {}
+    t = make()
+    dev, layout = t._to_device(x, y)
+    idx = t._batch_index_matrix(RESUME_ROWS, shuffle_seed=1)
+    for i in range(3):
+        t.fit_on_batch(dev, idx[i], layout)
+    t.save(os.path.join(directory, "saved"))
+    out["files"] = sorted(os.listdir(os.path.join(directory, "saved")))
+    if dist.get_rank() == 0:
+        blob = torch.load(os.path.join(directory, "saved", "state", "state.pt"), weights_only=True)
+        out["saved_shapes"] = {k: tuple(v.shape) for k, v in blob["params"].items()}
+        out["saved_opt"] = {"/".join(map(str, k)): tuple(v.shape) for k, v in
+                            blob["opt_state"].items() if isinstance(v, torch.Tensor)}
+    fresh = make()
+    fresh.restore(os.path.join(directory, "saved"))
+    out["restored_equal"] = state_digest(fresh) == state_digest(t)
+    out["fit"] = resume_runs(make, x, y, os.path.join(directory, "fit"), rank=1)
+    out["stream"] = resume_runs(make, x, y, os.path.join(directory, "stream"), rank=1,
+                                stream=stream_chunks(x, y))
+    checkpoint_barrier(mesh)
+    if dist.get_rank() == 0:
+        shutil.rmtree(directory, ignore_errors=True)
+    return out
+
+
+def checkpoint_barrier(mesh):
+    from recman_tpu_torch.parallel.checkpoint import barrier
+
+    barrier(mesh, "cpu")
+
+
+def _streams(mesh):
+    """fit_stream, predict_stream and evaluate_stream at (2, 2) (params
+    gathered after one epoch over the chunks; predictions), and unequal
+    chunks under multihost_feed refused on every rank."""
+    model, _ = trainer_setup(RESUME_HP)
+    x, y = schema_data(RESUME_ROWS)
+    t = _trainer(model, mesh, hparams=TRAINER_OPT, row_shard_threshold=256,
+                 tp_dense_threshold=1000)
+    t.fit_stream(stream_chunks(x, y), epochs=1)
+    out = {"params": {k: _np(v) for k, v in gather_params(t.state.params, mesh, t.specs).items()},
+           "predict_stream": t.predict_stream(stream_chunks(x, y)), "predict": t.predict(x),
+           "evaluate_stream": t.evaluate_stream(stream_chunks(x, y))}
+    m = _trainer(model, mesh, hparams=TRAINER_OPT, row_shard_threshold=256,
+                 dataset_sharded=True, multihost_feed=True)
+    rows = 128 if mesh.data_index == 0 else 200
+
+    def unequal():
+        yield {**{k: v[:rows] for k, v in x.items()}, "y": y[:rows]}
+
+    out["unequal"] = _raises(lambda: m.fit_stream(unequal()))
+    return out
+
+
+def parallel_world(encoded, qr_frame):
     """Every case of tests/test_torch_parallel.py on a world of 4 ranks."""
     mesh = make_mesh(data=2, model=2)
     mesh14 = make_mesh(data=1, model=4)
@@ -360,6 +654,10 @@ def parallel_world(encoded):
         "layouts": _layouts(mesh),
         "dropout": _dropout(mesh),
         "refusals": _refusals(mesh),
+        "parity": _parity(mesh, qr_frame),
+        "zoo": _zoo(mesh),
+        "checkpoints": _checkpoints(mesh),
+        "streams": _streams(mesh),
     }
 
 
@@ -447,4 +745,19 @@ def explicit_dp_world():
     out["auto_loss"], out["auto_predict"] = t.last_mean_loss, t.predict(x)
     out["gate"] = (explicit_dp_supported(model, mesh), explicit_dp_supported(model, mesh12),
                    explicit_dp_supported(model, mesh, embedding_exchange="dedup"))
+
+    def make():
+        t = ShardedTrainer(XDeepFM(fs, DP_HP), epoch=3, batch_size=64, random_seed=7, mesh=mesh,
+                           device="cpu")
+        t.state = shard_init_state(t.model, t.optimizer, JaxKey(7), mesh, device="cpu")
+        return t
+
+    directory = shared_dir(mesh)
+    out["resume"] = resume_runs(make, x, y, directory, rank=0, at_step=DP_PREEMPT_STEP)
+    out["resume_route"] = make()._explicit_dp
+    checkpoint_barrier(mesh)
+    if mesh.data_index == 0:
+        import shutil
+
+        shutil.rmtree(directory, ignore_errors=True)
     return out
