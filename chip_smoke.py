@@ -232,6 +232,22 @@ bit-equal on two calls.
    16 steps of (b)-(d) are timed. Two ranks share one card: no time is a
    scaling figure.
 
+15. the port's tools (runs right after the training slice). (a)
+   ``tools.bench.main()`` at full width: its one JSON line parsed, every
+   number finite, K1 with saved fmaps, K2 and K3 once a step, the card
+   named; its examples/s beside the training slice's "train steady". (b)
+   ``tools.bench.run_check(ml_anchor=False)``: the shipped path against
+   the per-table f32 path over 32 steps within 6e-3 and 1% final
+   relative, K1 save, K2 and K3 once a step on the shipped path and never
+   on the plain one. (c) ``tools.profile_step.run`` over 3 steps: K1's,
+   K2's and K3's kernels under hand-written, the categories summing to the
+   profiled total within 1%. (d) ``tools.abab.main("base,scatter")``, 2
+   rounds of 16 steps: K3 once a step in base and never in scatter, the
+   flags back at their shipped values. (e) ``tools.multiprocess_demo``'s
+   three modes with 2 Gloo ranks on the card under
+   ``grad_kernel("segmat")``: every check of the demo, and each rank's
+   launches.
+
 It prints a ``kernels`` JSON line (K1 save's, K2's, K3's and K6's records
 carry ``parallel_launches``), the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU it exits
@@ -241,7 +257,9 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -415,6 +433,13 @@ PARALLEL_DIEN_HP = {"aux_loss_weight": 0.5, "learning_rate": 1e-3, "optimizer": 
 PARALLEL_QR_HP = dict(HPARAMS, optimizer="lamb", learning_rate=1e-3)
 PARALLEL_QR_THRESHOLD = 256     # (h) below the quotient tables' 316 rows, so that they shard
 PARALLEL_QR_K6 = 53             # (h) K6 a step: 26 quotient blocks, 26 remainders, linear_w's exchange
+# the tools' phase
+TOOLS_ABAB = "base,scatter"
+TOOLS_ABAB_ROUNDS = 2
+TOOLS_ABAB_STEPS = 16
+TOOLS_PROFILE_STEPS = 3
+TOOLS_PROFILE_SUM = 0.01  # the categories' sum against the profiled total, relative
+
 SEQ_ROWS = {"din": (0.6077, 0.7149), "bst": (0.6104, 0.7097), "dien": (0.6045, 0.7209)}
 SEQ_BATCH = 128
 SEQ_PRED_TOL = 1e-5    # (b) predictions after calibrate, card against CPU
@@ -1206,7 +1231,8 @@ def profile_device(fn, unit_ms, what, n=5):
 
 def phase_training(device):
     """The stacked train step at full width: GPU against the port's CPU
-    run, then timed. Returns the launches of the timed run per kernel."""
+    run, then timed. Returns the launches of the timed run per kernel and
+    the "train steady" reading (examples/s by device and by wall time)."""
     import torch
 
     from recman_tpu_torch.data import create_criteo_features, synthetic_criteo_arrays
@@ -1289,6 +1315,7 @@ def phase_training(device):
     losses = torch.cat(losses).cpu().numpy()
     check(bool(np.isfinite(losses).all()), "non-finite loss in the timed steps")
     step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    steady = {"examples_per_s": BATCH / step_ms * 1e3, "wall_examples_per_s": TIMED_STEPS * BATCH / wall}
     log(f"train steady: {TIMED_STEPS} steps, launches {launches}; step (device, median) "
         f"{step_ms:.4f} ms, {BATCH / step_ms * 1e3:.1f} examples/s; wall {wall * 1e3 / TIMED_STEPS:.3f} "
         f"ms/step, {TIMED_STEPS * BATCH / wall:.1f} examples/s; loss first {losses[0]:.6f} "
@@ -1300,7 +1327,101 @@ def phase_training(device):
         box["state"], _ = step(box["state"], data, idx[:1], layout)
 
     profile_device(one_step, step_ms, "train steps", n=3)
-    return launches
+    return launches, steady
+
+
+def phase_tools(device, steady=None):
+    """The port's tools at the bench configuration: (a) the bench entry,
+    beside phase_training's ``steady`` reading, (b) its numerics check
+    without the anchor, (c) the step profile, (d) the ABAB harness, (e)
+    the two-process demo's three modes. Returns the launches of (a)'s
+    timed steps per step."""
+    import torch
+
+    from recman_tpu_torch.layers import cin
+    from recman_tpu_torch.ops import cin_chain
+    from recman_tpu_torch.ops.embedding import _grad_kernel
+    from recman_tpu_torch.tools import abab, bench, multiprocess_demo, profile_step
+
+    card = card_line()
+    once = {"K1 save": 1.0, "K2": 1.0, "K3": 1.0}
+    steady = steady or {}
+
+    # (a) the bench entry's one line
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main(device=device)
+    text = buf.getvalue().strip().splitlines()
+    check(len(text) == 1, f"(a) the bench entry printed {len(text)} lines")
+    line = json.loads(text[0])
+    log(f"tools (a) bench line: {text[0]}")
+    numbers = ("value", "ms_per_step", "wall_ms_per_step", "busy_share", "mfu", "hbm_util",
+               "model_gflops_per_step", "model_hbm_gb_per_step")
+    check(line["metric"] == bench.METRIC and all(
+        isinstance(line[k], (int, float)) and math.isfinite(line[k]) for k in numbers),
+        f"(a) the bench line's numbers: {line}")
+    check(line["launches_per_step"] == once, f"(a) launches a step {line['launches_per_step']}")
+    check(line["card"] == card, f"(a) the line's card {line['card']!r}, nvidia-smi {card!r}")
+    log(f"tools (a) bench: {line['value']:.1f} examples/s over the window ({line['wall_ms_per_step']:.4f} "
+        f"ms/step wall, {line['ms_per_step']:.4f} device, busy {line['busy_share']}); train steady "
+        f"{steady.get('examples_per_s', float('nan')):.1f} examples/s device, "
+        f"{steady.get('wall_examples_per_s', float('nan')):.1f} wall [{card}]; "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # (b) the numerics check, no anchor (phase_trainer holds it)
+    t0 = time.perf_counter()
+    res = bench.run_check(ml_anchor=False, device=device)
+    steps = res["steps"]
+    check(res["ok"], f"(b) the numerics check: {res}")
+    check(res["launches_shipped"] == {k: steps for k in once},
+          f"(b) the shipped path's launches {res['launches_shipped']}")
+    check(not any(res["launches_reference"].values()),
+          f"(b) the plain path launched {res['launches_reference']}")
+    log(f"tools (b) check: max|d| {res['max_loss_delta']:.3e}, final rel {res['final_rel_delta']:.3e} "
+        f"over {steps} steps; launches shipped {res['launches_shipped']}, plain "
+        f"{res['launches_reference']}; {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # (c) the step profile
+    t0 = time.perf_counter()
+    prof = profile_step.run(steps=TOOLS_PROFILE_STEPS, top=12, device=device)
+    for name in ("K1", "K2", "K3"):
+        syms = profile_step.KERNEL_SYMBOLS[name]
+        check(any(s in n for s in syms for n in prof["hand_written"]),
+              f"(c) no kernel of {name} ({syms}) under hand-written: {prof['hand_written']}")
+    cats = sum(prof["ms_per_step_by_category"].values())
+    check(prof["profiled_ms_per_step"] > 0
+          and abs(cats - prof["profiled_ms_per_step"]) <= TOOLS_PROFILE_SUM * prof["profiled_ms_per_step"],
+          f"(c) categories sum {cats} against the profiled {prof['profiled_ms_per_step']}")
+    log(f"tools (c) profile: {prof['profiled_ms_per_step']:.4f} ms/step of kernels, busy "
+        f"{prof['busy_share']}; by category {prof['ms_per_step_by_category']} [{card}]; "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # (d) the ABAB harness
+    t0 = time.perf_counter()
+    summary = abab.main(TOOLS_ABAB, rounds=TOOLS_ABAB_ROUNDS, steps=TOOLS_ABAB_STEPS, device=device)
+    for name, k3 in (("base", 1.0), ("scatter", 0.0)):
+        got = [w["launches_per_step"]["K3"] for w in summary["variants"][name]["windows"]]
+        check(got == [k3] * TOOLS_ABAB_ROUNDS, f"(d) {name}: K3 a step {got}, expected {k3}")
+    check(cin.CIN_CHAIN_MODE == "auto" and cin_chain.CHAIN_SAVE_FMAPS is True
+          and _grad_kernel() == "auto", "(d) a flag was not put back")
+    log("tools (d) abab: " + "; ".join(
+        f"{n} {v['device_ms_per_step']:.4f} ms/step device, {v['wall_ms_per_step']:.4f} wall"
+        for n, v in summary["variants"].items()) + f" [{card}]; {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # (e) the two-process demo, Gloo ranks on this card
+    t0 = time.perf_counter()
+    demo = multiprocess_demo.run(2, device=device, grad_kernel="segmat")
+    check(demo["ok"], f"(e) the demo: {demo['failures']}")
+    for mode, r in demo["modes"].items():
+        log(f"tools (e) demo {mode}: {r} [{card}]")
+    log(f"tools (e) demo: {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    return line["launches_per_step"]
 
 
 def ml_setup(device, hparams):
@@ -4038,8 +4159,11 @@ def main():
     rec["K4"]["export_launches"] = export["K4"]
     rec["K6"]["qr_launches"] = export["K6"]
     t0 = time.perf_counter()
-    train = phase_training(device)
+    train, steady = phase_training(device)
     log(f"training phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_tools(device, steady)
+    log(f"tools phase {time.perf_counter() - t0:.1f} s [{card}]")
     t0 = time.perf_counter()
     anchor = phase_trainer(device)
     log(f"trainer phase {time.perf_counter() - t0:.1f} s")

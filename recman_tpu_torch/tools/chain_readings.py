@@ -10,6 +10,15 @@ checks. Each reading is one JSON line on stdout.
   to the neighbouring bf16 value now and then, and the next layers carry
   it, so the gap between two f32 orders is read beside each one's gap to
   the exact chain.
+- ``dw_accuracy`` (also part of ``accuracy``): the tensor cores'
+  accumulation in K2 (both forms), K4 and K5, at the card tests' chain
+  and layer geometries. Each kernel's dW (K4: its output) is read
+  against the exact sums, the same formulas and bf16 roundings with the
+  sums in f64, beside the plain twin's gap to the same sums; K5's dx0
+  and dxk are read too. K2's save form, its twin and the exact backward
+  take K1's saved fmaps; the recompute form is read against the exact
+  chain's fmaps, and its twin rebuilds its own. ``over_2x`` flags a
+  kernel whose gap is more than twice its twin's.
 - ``timing``: K1, K2 (both forms), K4 and K5 at the main paths' shapes
   (CUDA events, median of back-to-back calls), and the peak memory that
   each form of K2 allocates over its inputs at batch 65,536.
@@ -17,6 +26,7 @@ checks. Each reading is one JSON line on stdout.
 Run from the repository root:
 
     python -m recman_tpu_torch.tools.chain_readings accuracy timing
+    python -m recman_tpu_torch.tools.chain_readings dw_accuracy
 
 or, to read another checkout's kernels with this script,
 ``PYTHONPATH=<checkout> python <this file> timing``.
@@ -49,6 +59,34 @@ ACCURACY_CASES = [
     (26, (100, 100), 65_536, 16, (17, 8)),
 ]
 ACTS = ("identity", "relu", "leaky_relu")
+
+# tests/test_torch_cuda_kernels.py's geometries: CHAIN_CASES (inputs seed
+# 13, cotangents seed 5) and INTERACT_CASES (seed h0 + hk + o)
+K2_CASES = [
+    (6, (4,), 64, 4),
+    (6, (8, 6), 16, 16),
+    (5, (6, 4), 128, 1),
+    (7, (10, 8, 6), 8, 128),
+    (39, (256, 128), 128, 8),
+    (128, (128, 64), 128, 8),
+    (6, (100, 100, 100), 128, 8),
+    (26, (100, 100), 512, 16),
+    (26, (100, 100), 8192, 16),
+]
+INTERACT_CASES = [
+    (5, 3, 8, 64),
+    (5, 40, 8, 8),
+    (7, 5, 9, 301),
+    (26, 26, 200, 40_960),
+    (26, 100, 200, 40_960),
+    (26, 100, 300, 1000),
+    (3, 128, 512, 130),
+    (130, 1, 4, 200),
+    (5, 13, 40, 999),
+    (26, 100, 257, 40_960),
+    (26, 100, 264, 4_096),
+    (26, 100, 200, 40),
+]
 
 
 def emit(**kv):
@@ -97,7 +135,112 @@ def rel(refs, gots):
     return out
 
 
+def exact_chain_bwd(x0c, ws, gs, fmaps, units, d, act):
+    """K2's dW_i with its bf16 roundings (z, W, gpre) and f64 sums, from
+    ``fmaps`` (f32 or f64): ``cin_chain_bwd_reference``'s formulas."""
+    from recman_tpu_torch.ops import cin_chain
+
+    h0, bd = x0c.shape
+    cfgs = cin_chain._layer_cfgs(h0, units)
+    x0b = x0c.to(torch.bfloat16)
+    dws, dxk_next = [None] * len(cfgs), None
+    for i in reversed(range(len(cfgs))):
+        cfg = cfgs[i]
+        g_direct = gs[i].double().t().repeat_interleave(d, dim=1)
+        dfmap = g_direct if cfg.final else torch.cat([dxk_next, g_direct], 0)
+        deriv = cin_chain._act_deriv(act, fmaps[i].double())
+        gpre = (dfmap if deriv is None else dfmap * deriv).to(torch.bfloat16).double()
+        xk = x0c if i == 0 else fmaps[i - 1][: cfg.hk]
+        z = (x0b[:, None, :] * xk.to(torch.bfloat16)[None, :, :]).reshape(h0 * cfg.hk, bd)
+        dws[i] = z.double() @ gpre.t()
+        del z
+        if i:
+            u = (ws[i].to(torch.bfloat16).double() @ gpre).reshape(h0, cfg.hk, bd)
+            dxk_next = (u * x0c.double()[:, None, :]).sum(0)
+            del u
+    return dws
+
+
+def exact_interact(x0c, xkc, w, g):
+    """K4's output and K5's (dx0, dxk, dW) with their bf16 roundings and
+    f64 sums: ``cin_interact_fm_reference``'s and
+    ``cin_interact_fm_bwd_reference``'s formulas."""
+    h0, bd = x0c.shape
+    hk = xkc.shape[0]
+    z = (x0c.to(torch.bfloat16)[:, None, :] * xkc.to(torch.bfloat16)[None, :, :]).reshape(
+        h0 * hk, bd).double()
+    wb = w.to(torch.bfloat16).double()
+    gb = g.to(torch.bfloat16).double()
+    pre = wb.t() @ z
+    dw = z @ gb.t()
+    del z
+    u = (wb @ gb).reshape(h0, hk, bd)
+    dx0 = (u * xkc.double()[None, :, :]).sum(1)
+    dxk = (u * x0c.double()[:, None, :]).sum(0)
+    return pre, (dx0, dxk, dw)
+
+
+def _gaps(name, exact, kernel, twin):
+    """A reading's kernel and twin gaps to the exact sums (max over the
+    tensors of ``rel``) and their ratio."""
+    k, t = max(rel(exact, kernel)), max(rel(exact, twin))
+    return {f"{name}_kernel_exact": k, f"{name}_twin_exact": t,
+            f"{name}_ratio": k / t if t else (0.0 if k == 0 else float("inf")),
+            f"{name}_over_2x": bool(k > 2 * t)}
+
+
+def dw_accuracy(device):
+    from recman_tpu_torch.ops import cin_chain, cin_interact
+
+    for h0, units, b, d in K2_CASES:
+        n = len(units)
+        for act in ACTS:
+            x0c, ws, bs = chain_inputs(h0, units, b, d, 13, device)
+            fmaps = cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act, save=True)[n:]
+            gen = torch.Generator().manual_seed(5)
+            gs = [torch.randn((b, c.o - c.feed), generator=gen).to(device)
+                  for c in cin_chain._layer_cfgs(h0, units)]
+            exact = exact_chain_bwd(x0c, ws, gs, fmaps, units, d, act)
+            got = cin_chain.cin_chain_bwd(x0c, ws, bs, gs, fmaps, units, d, act)[1]
+            twin = cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, fmaps, units, d, act)[1]
+            row = _gaps("k2_dw", exact, got, twin)
+            del exact, got, twin
+            ex_fmaps = exact_chain(x0c, ws, bs, units, d, act)[1]
+            exact = exact_chain_bwd(x0c, ws, gs, ex_fmaps, units, d, act)
+            del ex_fmaps
+            got = cin_chain.cin_chain_bwd_recompute(x0c, ws, bs, gs, units, d, act)[1]
+            twin = cin_chain.cin_chain_bwd_recompute_reference(x0c, ws, bs, gs, units, d, act)[1]
+            row.update(_gaps("k2_recompute_dw", exact, got, twin))
+            emit(reading="dw_accuracy", kernel="K2", h0=h0, units=list(units), b=b, d=d, act=act,
+                 **row)
+            del exact, got, twin, fmaps, x0c, ws, bs, gs
+            torch.cuda.empty_cache()
+    for h0, hk, o, bd in INTERACT_CASES:
+        g = torch.Generator().manual_seed(h0 + hk + o)
+        x0c = torch.randn((h0, bd), generator=g)
+        xkc = torch.randn((hk, bd), generator=g)
+        w = torch.randn((h0 * hk, o), generator=g) * (2.0 / (h0 * hk + o)) ** 0.5
+        cot = torch.randn((o, bd), generator=g)
+        x0c, xkc, w, cot = (t.to(device) for t in (x0c, xkc, w, cot))
+        pre, grads = exact_interact(x0c, xkc, w, cot)
+        row = _gaps("k4_out", [pre], [cin_interact.cin_interact_fwd(x0c, xkc, w)],
+                    [cin_interact.cin_interact_fm_reference(x0c, xkc, w)])
+        del pre
+        got = cin_interact.cin_interact_bwd(x0c, xkc, w, cot)
+        twin = cin_interact.cin_interact_fm_bwd_reference(x0c, xkc, w, cot)
+        for i, name in enumerate(("k5_dx0", "k5_dxk", "k5_dw")):
+            row.update(_gaps(name, [grads[i]], [got[i]], [twin[i]]))
+        emit(reading="dw_accuracy", kernel="K4/K5", geometry=[h0, hk, o, bd], **row)
+        del grads, got, twin
+        torch.cuda.empty_cache()
+
+
 def accuracy(device):
+    k1_accuracy(device)
+    dw_accuracy(device)
+
+
+def k1_accuracy(device):
     from recman_tpu_torch.ops import cin_chain
 
     for h0, units, b, d, seeds in ACCURACY_CASES:
@@ -202,7 +345,7 @@ def main(argv):
     emit(reading="card", card=card, source=cuda_build.CSRC.as_posix())
     device = torch.device("cuda")
     for what in argv or ["accuracy", "timing"]:
-        {"accuracy": accuracy, "timing": timing}[what](device)
+        {"accuracy": accuracy, "dw_accuracy": dw_accuracy, "timing": timing}[what](device)
     return 0
 
 

@@ -1,4 +1,4 @@
-from .initializers import calc_fan, glorot_normal, glorot_uniform
+from .initializers import calc_fan, glorot_normal, glorot_uniform, he_normal, he_uniform
 from .jax_random import JaxKey, split_rng
 from .numerics import (
     bce_per_example,
@@ -22,6 +22,8 @@ __all__ = [
     "count_parameters",
     "glorot_normal",
     "glorot_uniform",
+    "he_normal",
+    "he_uniform",
     "l2_loss",
     "mean_squared_error",
     "mse_per_example",

@@ -305,7 +305,8 @@ def _port_files():
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
-    banned = ("jax", "recman_tpu")
+    # nor the JAX package's root bench scripts and tools
+    banned = ("jax", "recman_tpu", "bench", "bench_scaling", "tools")
     for node in ast.walk(ast.parse(path.read_text())):
         names = []
         if isinstance(node, ast.Import):
