@@ -248,8 +248,28 @@ bit-equal on two calls.
    ``grad_kernel("segmat")``: every check of the demo, and each rank's
    launches.
 
+16. ``xdeepfm_wide_cin_criteo`` (runs right after the training slice):
+   the bench model with its CIN set to (256, 256, 256), every fan-in 128.
+   (a) ``Predictor.predict`` of 65,536 rows at batch 8192: K1 once a
+   batch, never K4, the first 1,024 rows within 1e-5 of the CPU's. (b) 8
+   stacked Adam steps at batch 1,024 against the CPU: step 1's gradients
+   within 1e-3 of max|ref| on the card's activation signs and the loss
+   trace within 6e-3 and 1% final relative, K1 save, K2 and K3 once a
+   step, K4 and K5 never; two steps at 8192 under ``CHAIN_SAVE_FMAPS =
+   False`` (K1 without fmaps and K2's recompute form once a step), the
+   params bit-equal to the save form's. (c) 8 steps at 8192 timed on the
+   chain and under ``CIN_CHAIN_MODE = "off"`` (K4 and K5 three times a
+   step) in the order chain, off, off, chain, with busy shares and peak
+   memory. The kernels phase holds K1 and K2 (both forms each) against
+   their twins at the edges of the chain's range (``CHAIN_EDGES``: a final
+   layer of 257 and of 512 maps, H0 128 with O 256, D 256, nine layers,
+   and this model's tower at batch 8192), K1 end to end against the
+   exact (f64) chain where two f32 sum orders part by more than K1_TOL,
+   and times them beside their bounds and the bare contractions.
+
 It prints a ``kernels`` JSON line (K1 save's, K2's, K3's and K6's records
-carry ``parallel_launches``), the card's name and power limit, and as
+carry ``parallel_launches``; K1's and K2's ``range_edges`` and
+``wide_cin_launches``), the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a GPU it exits
 non-zero and prints no result.
 """
@@ -287,6 +307,29 @@ HPARAMS = {
 CHAIN_GEOMETRIES = {"full": (26, (100, 100), BATCH, 16), "small": (5, (6, 4), 64, 4)}
 # the chain at the large-batch slice's batch (H0, units, B, D)
 LARGE_GEOMETRY = (26, (100, 100), 65_536, 16)
+# K1 and K2 at the edges of the reference chain's range (H0, units, B, D):
+# a final layer of 257 maps (two passes of 256), the widest fields and
+# maps, a final layer of 512, D 256 (two 128-column tiles a batch row),
+# nine layers, and xdeepfm_wide_cin_criteo's tower at its batch
+CHAIN_EDGES = {"final 257": (26, (100, 257), BATCH, 16), "fields 128": (128, (256, 256), BATCH, 8),
+               "final 512": (26, (256, 512), 2048, 16), "D 256": (26, (100, 100), 256, 256),
+               "9 layers": (26, (100,) * 9, 1024, 16), "wide": (26, (256, 256, 256), BATCH, 16)}
+# Edges where two f32 sum orders part by more than K1_TOL end to end (the
+# twin itself reads up to 1.054e-3 at D 256, 2.122e-3 at nine layers and
+# 1.032e-3 at the wide tower from the exact chain): there K1 is held end
+# to end to the exact (f64) chain instead, at these limits of max|exact|,
+# just above K1's own readings at seeds 7 and 8 (up to 5.95e-4, 1.009e-3
+# and 1.094e-3; recman_tpu_torch/tools/chain_readings.py smoke_edges,
+# NVIDIA H100 80GB HBM3, 700 W). Layer by layer, on K1's own feed rows,
+# K1 is held to its twin at K1_TOL everywhere.
+K1_EXACT_TOL = {"D 256": 1e-3, "9 layers": 1.5e-3, "wide": 1.5e-3}
+# xdeepfm_wide_cin_criteo: the bench model with its CIN set to (256, 256,
+# 256), every fan-in 128, the widest maps the reference's field-major path
+# takes (a stress geometry of the chain's range, not a published setting)
+WIDE_HP = dict(HPARAMS, cin_cross_layer_units=(256, 256, 256), cin_dropout=(1, 1, 1, 1))
+WIDE_STEPS = 8          # stacked steps held to the CPU, and timed in each route
+WIDE_PARITY_BATCH = 1024  # rows a batch of the steps held to the CPU: bounds the CPU's time
+WIDE_PRED_TOL = 1e-5    # predictions, card against CPU: f32 sums in another order
 K1_TOL = 1e-3    # of max|ref|: same bf16 rounding both sides, f32 sum order differs
 K2_TOL = 1e-3    # of max|ref|: gpre rounds to bf16 after f32 sums in another order
 K3_TOL = 1e-5    # of max|ref|: f32 sums of up to 8192 terms in another order
@@ -649,12 +692,13 @@ def sign_flips(refs, gots, tol, what, near_tol=FLIP_ABS):
     return flips
 
 
-def k1_twins(x0c, ws, bs, units, d, act, got, what):
+def k1_twins(x0c, ws, bs, units, d, act, got, what, e2e_tol=K1_TOL):
     """K1's twin on K1's own input, layer by layer: layer i+1 of the twin
     takes the feed rows of K1's fmaps[i] (``cin_chain_fm_reference``'s
     ``feeds``). Returns its pooled blocks and fmaps, to which K1 is held at
     K1_TOL. First K1's save-form outputs ``got`` (pooled blocks, then
-    fmaps) are held to the twin run end to end, also at K1_TOL; the count
+    fmaps) are held to the twin run end to end, at ``e2e_tol`` (None:
+    logged only, where the caller holds K1 to the exact chain); the count
     of feed elements that the two round to neighbouring bf16 values (sums
     in another order straddling a rounding, which the next layers carry)
     is logged."""
@@ -671,18 +715,19 @@ def k1_twins(x0c, ws, bs, units, d, act, got, what):
         f"{[f'{e:.3e}' for e in rels[:n]]}, per fmap {[f'{e:.3e}' for e in rels[n:]]}; feed "
         f"elements rounded to another bf16 value than the twin's: {apart} of "
         f"{sum(o // 2 for o in units[:-1]) * x0c.shape[1]}")
-    max_rel_err(e2e, got, K1_TOL, f"{what}: K1 against the twin end to end")
+    if e2e_tol is not None:
+        max_rel_err(e2e, got, e2e_tol, f"{what}: K1 against the twin end to end")
     del e2e
     return cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act, save=True,
                                             feeds=got[n:])
 
 
-def check_recompute(x0c, ws, bs, gs, units, d, act, k1_out, got, what):
+def check_recompute(x0c, ws, bs, gs, units, d, act, k1_out, got, what, e2e_tol=K1_TOL):
     """K2's recompute form against K2's twin on K1's fmaps (the last
     len(units) of K1's save-form outputs ``k1_out``: the bits the kernel
     rebuilds) to K2_TOL of max|ref|. Those fmaps are first held to K1's
-    twin end to end and on K1's own input (``k1_twins``) to K1_TOL, with
-    their sign differences bounded by ``sign_flips``. The twin's own fmaps
+    twin on K1's own input to K1_TOL and end to end to ``e2e_tol``
+    (``k1_twins``; None: logged only), with their sign differences bounded by ``sign_flips``. The twin's own fmaps
     are not K2's input: they can round a feed element to the neighbouring
     bf16 value, and at an element of other sign read the activation's
     derivative on the other side of 0, which moves that column's gpre by
@@ -693,7 +738,7 @@ def check_recompute(x0c, ws, bs, gs, units, d, act, k1_out, got, what):
 
     n = len(units)
     fmaps = k1_out[n:]
-    twin = k1_twins(x0c, ws, bs, units, d, act, k1_out, what)[n:]
+    twin = k1_twins(x0c, ws, bs, units, d, act, k1_out, what, e2e_tol)[n:]
     flips = sign_flips(twin, fmaps, K1_TOL, f"{what}: K1's fmaps")
     del twin
     ref = cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, fmaps, units, d, act)
@@ -797,6 +842,92 @@ def max_rel_err(refs, gots, tol, what):
     return worst
 
 
+def chain_edge(device, label, h0, units, b, d):
+    """K1 (both forms) and K2 (both forms) at an edge of the reference
+    chain's range, held to their twins as at full width (K1 end to end,
+    or to the exact chain at K1_EXACT_TOL's edges, and layer by layer on
+    its own feed rows, K2 on K1's fmaps, the recompute
+    form bit-equal to the save form and held to its twin), then each
+    timed beside its twin, its bound and the bare contractions it does.
+    Returns {kernel: record}."""
+    import torch
+
+    from recman_tpu_torch.ops import cin_chain
+    from recman_tpu_torch.tools import chain_readings
+
+    act, n = "leaky_relu", len(units)
+    what = f"[{label} H0={h0} units={units} B={b} D={d}]"
+    x0c, ws, bs = chain_inputs(h0, units, b, d, seed=7, device=device)
+    got = cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act)
+    got_s = cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act, save=True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, c) for a, c in zip(got, got_s[:n])),
+          f"K1 {what}: the two forms' pooled blocks differ")
+    e2e_tol = None if label in K1_EXACT_TOL else K1_TOL
+    if e2e_tol is None:
+        pooled, fmaps = chain_readings.exact_chain(x0c, ws, bs, units, d, act)
+        exact = [*pooled, *fmaps]
+        del pooled, fmaps
+        gaps = chain_readings.rel(exact, got_s)
+        log(f"K1 save {what} against the exact (f64) chain end to end: max|d|/max|exact| per "
+            f"pooled block {[f'{e:.3e}' for e in gaps[:n]]}, per fmap "
+            f"{[f'{e:.3e}' for e in gaps[n:]]}")
+        max_rel_err(exact, got_s, K1_EXACT_TOL[label],
+                    f"K1 save {what}: against the exact chain end to end")
+        del exact
+    ref = k1_twins(x0c, ws, bs, units, d, act, got_s, f"K1 save {what}", e2e_tol)
+    e1 = max_rel_err(ref[:n], got, K1_TOL, f"K1 {what}")
+    e1s = max_rel_err(ref, got_s, K1_TOL, f"K1 save {what}")
+    g = torch.Generator().manual_seed(11)
+    gs = [torch.randn(p.shape, generator=g).to(device) for p in ref[:n]]
+    del ref
+    fm = got_s[n:]
+    got_b = cin_chain.cin_chain_bwd(x0c, ws, bs, gs, fm, units, d, act)
+    ref_b = cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, fm, units, d, act)
+    e2 = max_rel_err([ref_b[0], *ref_b[1], *ref_b[2]], [got_b[0], *got_b[1], *got_b[2]], K2_TOL,
+                     f"K2 {what}")
+    del ref_b
+    got_r = cin_chain.cin_chain_bwd_recompute(x0c, ws, bs, gs, units, d, act)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, c) for a, c in zip([got_b[0], *got_b[1], *got_b[2]],
+                                                [got_r[0], *got_r[1], *got_r[2]])),
+          f"K2 recompute {what}: not bit-equal to K2 save")
+    e2r, flips = check_recompute(x0c, ws, bs, gs, units, d, act, got_s, got_r,
+                                 f"K2 recompute {what}", e2e_tol)
+    lib_fwd = chain_library_ms(x0c, ws, fm, units, ("fwd",))
+    lib_bwd = chain_library_ms(x0c, ws, fm, units, ("bwd",))
+    runs = {
+        "K1": (lambda: cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act),
+               lambda: cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act),
+               chain_bound_ms(x0c, ws, bs, got), lib_fwd, e1),
+        "K1 save": (lambda: cin_chain.cin_chain_fwd(x0c, ws, bs, units, d, act, save=True),
+                    lambda: cin_chain.cin_chain_fm_reference(x0c, ws, bs, units, d, act,
+                                                             save=True),
+                    chain_bound_ms(x0c, ws, bs, got_s), lib_fwd, e1s),
+        "K2": (lambda: cin_chain.cin_chain_bwd(x0c, ws, bs, gs, fm, units, d, act),
+               lambda: cin_chain.cin_chain_bwd_reference(x0c, ws, bs, gs, fm, units, d, act),
+               chain_bwd_bound_ms(x0c, ws, gs, fm, got_b), lib_bwd, e2),
+        "K2 recompute": (lambda: cin_chain.cin_chain_bwd_recompute(x0c, ws, bs, gs, units, d, act),
+                         lambda: cin_chain.cin_chain_bwd_recompute_reference(
+                             x0c, ws, bs, gs, units, d, act),
+                         chain_bwd_recompute_bound_ms(x0c, ws, bs, gs, got_r),
+                         chain_library_ms(x0c, ws, fm, units, ("fwd", "bwd")), e2r),
+    }
+    out = {}
+    for name, (fn, plain, (bnd, by, flops, moved), lib_ms, err) in runs.items():
+        ms = cuda_time_ms(fn, reps=10)
+        plain_ms = cuda_time_ms(plain, warmup=1, reps=3)
+        out[name] = {"geometry": [h0, list(units), b, d], "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+        log(f"{name} {what}: max|d| {err:.3e} against its plain version, {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library (the bare bf16 matmuls) {lib_ms:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.2f} MB), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+    log(f"K2 recompute {what}: bit-equal to K2 save, {flips} fmap elements of other sign than "
+        f"the twin's")
+    return out
+
+
 def phase_kernels(device):
     """Every kernel against its plain version at the small and the full
     geometry, then timed at full width. Returns the kernels' records."""
@@ -876,6 +1007,12 @@ def phase_kernels(device):
                        "K2 save calls at full width (its phases by kernel)", n=3)
         time_k2_recompute(x0c, ws, bs, gs, units, d, act, e2r, "full width", fm)
     rec["K2 recompute"] = k2_recompute_large_batch(device)
+    for label, geometry in CHAIN_EDGES.items():
+        t0 = time.perf_counter()
+        for name, r in chain_edge(device, label, *geometry).items():
+            rec[name].setdefault("range_edges", {})[label] = r
+        torch.cuda.empty_cache()
+        log(f"chain edge [{label}] {time.perf_counter() - t0:.1f} s")
 
     # K3: a small Zipf case, then the full-width sorted ids of one batch
     # and of one large-batch step (timed at both)
@@ -1328,6 +1465,203 @@ def phase_training(device):
 
     profile_device(one_step, step_ms, "train steps", n=3)
     return launches, steady
+
+
+def phase_wide_cin(device):
+    """``xdeepfm_wide_cin_criteo`` (``WIDE_HP``) on the chain: (1)
+    ``Predictor.predict`` of N_ROWS rows at BATCH, K1 once a batch and
+    never K4, its first WIDE_PARITY_BATCH rows against the CPU; (2)
+    WIDE_STEPS stacked Adam steps at WIDE_PARITY_BATCH, card against CPU:
+    step 1's gradients with the DNN's relus and the CIN's activations read
+    on the card's side of 0, and the loss trace, K1 save, K2 and K3 once a
+    step and never K4 or K5; two steps at BATCH under ``CHAIN_SAVE_FMAPS =
+    False`` (K1 without fmaps and K2's recompute form once a step), whose
+    params are the save form's bits; (3) WIDE_STEPS steps at BATCH timed
+    in the order chain, off, off, chain, "off" being ``CIN_CHAIN_MODE =
+    "off"`` (K4 and K5 per layer), with each route's busy share and peak
+    memory. Returns the launches of the serving call and of the chain's
+    timed steps."""
+    import torch
+
+    from recman_tpu_torch.data import create_criteo_features, synthetic_criteo_arrays
+    from recman_tpu_torch.layers import cin as cin_layer
+    from recman_tpu_torch.models import XDeepFM
+    from recman_tpu_torch.ops import cin_chain
+    from recman_tpu_torch.serving import Predictor, batch_indices
+    from recman_tpu_torch.training import (
+        TrainState, create_optimizer, gather_batch, make_train_step_stacked, pack_dataset,
+        stack_table_params, unpack_batch,
+    )
+
+    t0 = time.perf_counter()
+    model = XDeepFM(create_criteo_features(num_buckets=NUM_BUCKETS), WIDE_HP)
+    check(model.cin._chain_eligible(True, BATCH, WIDE_HP["embedding_size"]),
+          "xdeepfm_wide_cin_criteo: the CIN does not take the chain")
+    params = model.init_params(torch.Generator().manual_seed(0))  # default device: CUDA
+    check(all(v.is_cuda for v in params.values()), "params not on the GPU")
+    data = synthetic_criteo_arrays(N_ROWS, num_buckets=NUM_BUCKETS, seed=2019)
+    rows = {k: v for k, v in data.items() if k != "y"}
+
+    # (1) serving: one warm-up call of one batch (counted apart), then the rows
+    predictor = Predictor(model, params, batch_size=BATCH)
+    reset_counts()
+    predictor.predict({k: v[:BATCH] for k, v in rows.items()})
+    warm = kernel_counts()
+    reset_counts()
+    t1 = time.perf_counter()
+    preds = predictor.predict(rows)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    serve = kernel_counts()
+    n_batches = len(batch_indices(N_ROWS, BATCH))
+    check_counts(serve, {"K1": n_batches, "K1 save": 0, "K2": 0, "K4": 0, "K5": 0},
+                 "xdeepfm_wide_cin_criteo predict")
+    check(preds.shape == (N_ROWS,) and bool(np.isfinite(preds).all())
+          and bool(((preds > 0) & (preds < 1)).all()), "wide predictions not finite in (0, 1)")
+    # a row's prediction does not depend on the other rows of its batch
+    params_cpu = {k: v.cpu() for k, v in params.items()}
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        preds_cpu = model.apply(params_cpu, {k: torch.as_tensor(v[:WIDE_PARITY_BATCH])
+                                             for k, v in rows.items()}).numpy()
+    cpu_s = time.perf_counter() - t1
+    dp = float(np.abs(preds_cpu - preds[:WIDE_PARITY_BATCH]).max())
+    check(dp <= WIDE_PRED_TOL, f"wide predict, first rows GPU vs CPU: max|dp| {dp}")
+    log(f"xdeepfm_wide_cin_criteo predict: {N_ROWS} rows in {serve_s:.3f} s "
+        f"({N_ROWS / serve_s:.1f} examples/s, first call after a one-batch warm-up whose "
+        f"launches {warm['K1']} are counted apart); K1 {serve['K1']} = batches {n_batches} "
+        f"({N_ROWS // BATCH} of rows and the all-padding batch); its first {WIDE_PARITY_BATCH} "
+        f"rows against the CPU max|dp| {dp:.3e} (CPU {cpu_s:.1f} s)")
+
+    # (2) training in stacked storage, card against CPU at WIDE_PARITY_BATCH
+    opt = create_optimizer("adam", 1e-3)
+    sparams, names = stack_table_params(model, params)
+    packed, layout = pack_dataset(data)
+    d = {k: torch.as_tensor(v).to(device) for k, v in packed.items()}
+
+    def full_batches(batch_size):
+        ix = batch_indices(N_ROWS, batch_size, shuffle_seed=0)
+        return ix[(ix >= 0).all(axis=1)]
+
+    idx_np, par_np = full_batches(BATCH), full_batches(WIDE_PARITY_BATCH)[:WIDE_STEPS]
+    idx, par = torch.as_tensor(idx_np).to(device), torch.as_tensor(par_np).to(device)
+    batch, w = gather_batch(d, par[0])
+    ub = unpack_batch(batch, layout)
+    reset_counts()
+    g_gpu, seen_gpu = recorded_grads(model, sparams, ub, w, names=names)
+    torch.cuda.synchronize()
+    check_counts(kernel_counts(), {"K1 save": 1, "K2": 1, "K4": 0, "K5": 0},
+                 "wide step-1 gradients")
+    sp_cpu = {k: v.cpu() for k, v in sparams.items()}
+    d_cpu = {k: torch.as_tensor(v) for k, v in packed.items()}
+    par_cpu = torch.as_tensor(par_np)
+    b_cpu, w_cpu = gather_batch(d_cpu, par_cpu[0])
+    t1 = time.perf_counter()
+    g_signs, seen_cpu = recorded_grads(model, sp_cpu, unpack_batch(b_cpu, layout), w_cpu,
+                                       card=seen_gpu, names=names)
+    grads_s = time.perf_counter() - t1
+    flips = {part: sign_flips(seen_cpu[part], seen_gpu[part], tol,
+                              f"wide step 1 {part}, GPU vs CPU", near_tol=tol)
+             for part, tol in (("dnn", DNN_Z_TOL), ("cin", FEED_TOL))}
+    worst, worst_k = grads_match(g_signs, g_gpu, "wide step-1 grad GPU vs CPU on the card's signs")
+    del g_gpu, g_signs, seen_gpu, seen_cpu
+
+    def trace(p, dd, ix):
+        state = TrainState(p, opt.init(p), 0, None)
+        return make_train_step_stacked(model, opt, WIDE_STEPS, names)(state, dd, ix, layout)
+
+    reset_counts()
+    _, trace_g = trace(sparams, d, par)
+    torch.cuda.synchronize()
+    check_counts(kernel_counts(), {"K1 save": WIDE_STEPS, "K2": WIDE_STEPS, "K3": WIDE_STEPS,
+                                   "K4": 0, "K5": 0}, f"wide {WIDE_STEPS} steps")
+    t1 = time.perf_counter()
+    _, trace_c = trace(sp_cpu, d_cpu, par_cpu)
+    trace_s = time.perf_counter() - t1
+    tg, tc = trace_g.cpu().numpy(), trace_c.numpy()
+    max_d, final_rel = trace_match(tg, tc, "wide loss trace")
+    log(f"xdeepfm_wide_cin_criteo training at batch {WIDE_PARITY_BATCH}, GPU vs CPU: step-1 "
+        f"grads on the card's signs worst "
+        f"{worst:.3e} ({worst_k}; CPU {grads_s:.1f} s), derivatives read on the other side of 0: "
+        f"DNN {flips['dnn']}, CIN {flips['cin']}; {WIDE_STEPS}-step trace GPU {tg.tolist()} CPU "
+        f"{tc.tolist()}: max|d| {max_d:.3e}, final rel {final_rel:.3e} (CPU {trace_s:.1f} s)")
+    del sp_cpu, d_cpu
+
+    # K2's recompute form: the same two steps' params, bit for bit
+    finals = {}
+    for save in (True, False):
+        cin_chain.CHAIN_SAVE_FMAPS = save
+        try:
+            state = TrainState(sparams, opt.init(sparams), 0, None)
+            reset_counts()
+            state, _ = make_train_step_stacked(model, opt, 2, names)(state, d, idx[:2], layout)
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+        finally:
+            cin_chain.CHAIN_SAVE_FMAPS = True
+        check_counts(counts, {"K1": 0 if save else 2, "K1 save": 2 if save else 0,
+                              "K2": 2 if save else 0, "K2 recompute": 0 if save else 2},
+                     f"wide steps, CHAIN_SAVE_FMAPS = {save}")
+        finals[save] = state.params
+    check(all(torch.equal(finals[True][k], finals[False][k]) for k in finals[True]),
+          "wide steps: the recompute form's params differ from the save form's")
+    log("xdeepfm_wide_cin_criteo under CHAIN_SAVE_FMAPS = False: K1 (no fmaps) and K2 "
+        "recompute once a step, params after 2 steps bit-equal to the save form's")
+    del finals
+
+    # (3) the chain against the per-layer route, in turns
+    step = make_train_step_stacked(model, opt, 1, names)
+    state = TrainState(sparams, opt.init(sparams), 0, None)
+    results, chain_counts = {}, None
+    expect = {"auto": {"K1 save": WIDE_STEPS, "K2": WIDE_STEPS, "K4": 0, "K5": 0},
+              "off": {"K1 save": 0, "K2": 0, "K4": 3 * WIDE_STEPS, "K5": 3 * WIDE_STEPS}}
+    try:
+        for mode in ("auto", "off", "off", "auto"):
+            cin_layer.CIN_CHAIN_MODE = mode
+            for i in range(2):  # warm-up
+                state, _ = step(state, d, idx[i:i + 1], layout)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(WIDE_STEPS + 1)]
+            losses = []
+            t1 = time.perf_counter()
+            events[0].record()
+            for i in range(WIDE_STEPS):
+                state, loss = step(state, d, idx[i % len(idx_np):i % len(idx_np) + 1], layout)
+                losses.append(loss)
+                events[i + 1].record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3 / WIDE_STEPS
+            counts = kernel_counts()
+            check_counts(counts, expect[mode], f"wide timed steps [{mode}]")
+            check(bool(torch.isfinite(torch.cat(losses)).all()), f"wide steps [{mode}]: loss")
+            step_ms = statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            busy = None
+            if mode in results:
+
+                def one_step():
+                    nonlocal state
+                    state, _ = step(state, d, idx[:1], layout)
+
+                kernel_ms = profile_device(one_step, step_ms, f"wide train steps [{mode}]", n=3)
+                busy = kernel_ms / step_ms if kernel_ms else None
+            if mode == "auto":
+                chain_counts = counts
+            results.setdefault(mode, []).append((step_ms, wall, peak, busy))
+            log(f"xdeepfm_wide_cin_criteo steps [{'chain' if mode == 'auto' else 'off'}]: "
+                f"step (CUDA events, median of {WIDE_STEPS}) {step_ms:.4f} ms, "
+                f"{BATCH / step_ms * 1e3:.1f} examples/s; wall {wall:.3f} ms/step; peak "
+                f"{peak:.3f} GB over the {base / 1e9:.3f} GB held" +
+                (f"; busy share {busy:.4f}" if busy else ""))
+    finally:
+        cin_layer.CIN_CHAIN_MODE = "auto"
+    log("xdeepfm_wide_cin_criteo chain against off (median of the two turns): " + ", ".join(
+        f"{'chain' if m == 'auto' else 'off'} {statistics.median(r[0] for r in v):.4f} ms"
+        for m, v in results.items()) + f" ({time.perf_counter() - t0:.1f} s)")
+    return {"serve": serve, "train": chain_counts}
 
 
 def phase_tools(device, steady=None):
@@ -4116,7 +4450,8 @@ def kernel_record(name, source, replaces, launches, rec):
     # Criteo table and at the history, the launches of the zoo and sequence
     # phases
     for extra in ("large_batch", "dlrm_mlperf_criteo", "criteo", "history", "qr", "zoo_launches",
-                  "seq_launches", "export_launches", "qr_launches", "parallel_launches"):
+                  "seq_launches", "export_launches", "qr_launches", "parallel_launches",
+                  "range_edges", "wide_cin_launches"):
         if extra in rec:
             out[extra] = rec[extra]
     return out
@@ -4161,6 +4496,12 @@ def main():
     t0 = time.perf_counter()
     train, steady = phase_training(device)
     log(f"training phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wide = phase_wide_cin(device)
+    log(f"wide-cin phase {time.perf_counter() - t0:.1f} s [{card}]")
+    rec["K1"]["wide_cin_launches"] = wide["serve"]["K1"]
+    for name in ("K1 save", "K2"):
+        rec[name]["wide_cin_launches"] = wide["train"][name]
     t0 = time.perf_counter()
     phase_tools(device, steady)
     log(f"tools phase {time.perf_counter() - t0:.1f} s [{card}]")

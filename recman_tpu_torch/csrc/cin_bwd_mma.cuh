@@ -34,6 +34,17 @@
 // (h, m) offsets computed once per block (no divide in the loop); B comes
 // through ldmatrix. Each split writes its own partial dW, which the
 // caller sums in split order.
+//
+// Both loops split their sums: mma.sync adds a product's terms to its
+// accumulator with truncation, so one accumulation over a long k-loop
+// drifts (cin_fwd_mma.cuh). u (K = the maps) takes kUSplit k16 steps
+// into a fresh fragment, dW (K = the columns, thousands of steps at B*D
+// 40,960) one step, and a rounded f32 add puts each on the running sum.
+// One accumulation put K5's dW 26.3x and dx0/dxk 4.8x the plain twin's
+// gap to the exact sums, K2's final dW 6.8x; split so, they are within
+// 2x over the card tests' geometries (tools/chain_readings.py
+// dw_accuracy; PERF.md). A coarser split of dW missed that bound at a
+// 64-column geometry, and re-reads B's fragments for each row tile.
 
 #pragma once
 
@@ -52,6 +63,8 @@ constexpr int kGStride = kCols + 8;  // bf16 per staged gb row
 constexpr int kDwRows = 128;         // dW rows per block
 constexpr int kDwMaps = 128;         // dW maps per block
 constexpr int kMaxSmem = 232448;     // bytes of shared memory a block may use
+// k16 steps of the field loop's u per fresh fragment (see the top)
+constexpr int kUSplit = 4;
 
 inline __host__ __device__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -179,15 +192,26 @@ __device__ __forceinline__ void fold_fields(const WRing& w, const __nv_bfloat16*
           }
         }
       };
-      auto products = [&](const uint32_t (&af)[4], const uint32_t (&bf)[NTW][2]) {
+      // kUSplit k-steps into a fresh fragment, added to u with a rounded
+      // add; sw is a multiple of 64 maps, so the groups of steps do not
+      // depend on it
+      for (int ks0 = 0; ks0 < steps; ks0 += kUSplit) {
+        float part[NTW][4];
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < kUSplit; ++kk) {
+          if (ks0 + kk >= steps) break;
+          uint32_t af[4], bf[NTW][2];
+          load(ks0 + kk, af, bf);
+#pragma unroll
+          for (int j = 0; j < NTW; ++j)
+            if (j < ntw) tc::mma_bf16(part[j], af, bf[j]);
+        }
 #pragma unroll
         for (int j = 0; j < NTW; ++j)
-          if (j < ntw) tc::mma_bf16(u[j], af, bf[j]);
-      };
-      for (int ks = 0; ks < steps; ++ks) {
-        uint32_t af[4], bf[NTW][2];
-        load(ks, af, bf);
-        products(af, bf);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) u[j][e] += part[j][e];
       }
     }
     // fold field h: dx0 over m, dxk across h
@@ -353,36 +377,47 @@ __global__ void __launch_bounds__(kThreads, 2) cin_bwd_dw(const DwArgs<TX> a) {
     }
     if (ntv == 0) continue;
     const __nv_bfloat16* xs = sizeof(TX) == 2 ? st : xb;  // the slice's bf16 x0 and xk rows
-#pragma unroll
-    for (int ks = 0; ks < kSlice / 16; ++ks) {
+    // the A fragment of row tile i at k16 step ks: z built in registers
+    auto a_frag = [&](int i, int ks, uint32_t (&af)[4]) {
       const int k = ks * 16;
-      uint32_t af[2][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int kh = 0; kh < 2; ++kh)
 #pragma unroll
-        for (int kh = 0; kh < 2; ++kh)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            af[i][2 * kh + e] =
-                tc::mul_bf16x2(*reinterpret_cast<const uint32_t*>(xs + zx0[i][e] + k + 8 * kh),
-                               *reinterpret_cast<const uint32_t*>(xs + zxk[i][e] + k + 8 * kh));
-      uint32_t bf[8][2];
+        for (int e = 0; e < 2; ++e)
+          af[2 * kh + e] =
+              tc::mul_bf16x2(*reinterpret_cast<const uint32_t*>(xs + zx0[i][e] + k + 8 * kh),
+                             *reinterpret_cast<const uint32_t*>(xs + zxk[i][e] + k + 8 * kh));
+    };
+    auto b_frags = [&](int ks, uint32_t (&bf)[8][2]) {
 #pragma unroll
       for (int j = 0; j < 8; j += 2) {
         if (j < ntv) {
           uint32_t r[4];
-          tc::ldmatrix_x4(r, st + b_off + j * 8 * kStride + k);
+          tc::ldmatrix_x4(r, st + b_off + j * 8 * kStride + ks * 16);
           bf[j][0] = r[0];
           bf[j][1] = r[1];
           bf[j + 1][0] = r[2];
           bf[j + 1][1] = r[3];
         }
       }
+    };
+#pragma unroll
+    for (int ks = 0; ks < kSlice / 16; ++ks) {
+      uint32_t af[2][4], bf[8][2];
+      a_frag(0, ks, af[0]);
+      a_frag(1, ks, af[1]);
+      b_frags(ks, bf);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         if (j < ntv)
 #pragma unroll
-          for (int i = 0; i < 2; ++i) tc::mma_bf16(acc[i][j], af[i], bf[j]);
+          for (int i = 0; i < 2; ++i) {
+            // each product into a fresh fragment, added with a rounded add
+            float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            tc::mma_bf16(p, af[i], bf[j]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += p[e];
+          }
     }
   }
   tc::cp_async_wait<0>();

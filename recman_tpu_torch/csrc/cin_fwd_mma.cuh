@@ -16,18 +16,20 @@
 // - A warp owns 64 maps x 32 columns: 4 x 4 m16n8 tiles, 64 f32 sums a
 //   thread, each summed in a fixed order.
 // - The tensor cores add a product's terms to the accumulator with
-//   truncation, not rounding, so over the 91 k-steps of a bench layer the
-//   error of one long accumulation grows larger than an f32 matmul's.
-//   kSplitSums sums each pair of k-steps into a fresh fragment and adds
-//   that to the accumulator with a rounded f32 add. K1 takes it: its feed
-//   rows round to bf16 inside the chain, and on one accumulation K1 drifts
-//   up to 1.59e-3 of max|ref| from the exact (f64) chain end to end, past
-//   its 1e-3 check, against 1.09e-3 with split sums. K4 does not: its
-//   per-layer output holds its checks either way (3.5e-5 and 1.3e-5 from
-//   its twin), and split sums make it 0.477 ms where one accumulation
-//   takes 0.328 ms, as the products of a pair chain on one fresh fragment
-//   (recman_tpu_torch/tools/chain_readings.py on an NVIDIA H100 80GB HBM3
-//   at 700 W; PERF.md).
+//   truncation, not rounding, so over a long k-loop one accumulation
+//   drifts from the exact sum further than an f32 matmul does. z_product
+//   takes kSplit k16 steps into a fresh fragment and adds that to the
+//   running sum with a rounded f32 add (0: one accumulation). K1 takes
+//   pairs (kChainSplit 2): its feed rows round to bf16 inside the chain,
+//   and on one accumulation K1 drifts up to 1.59e-3 of max|ref| from the
+//   exact (f64) chain end to end, past its 1e-3 check, against 1.09e-3
+//   with pairs. K4 takes a fresh fragment per ring slice (kSplit 4): one
+//   accumulation put its output up to 24.9x the plain twin's gap to the
+//   exact sums, slices 1.6x at most over the card tests' geometries
+//   (chain_readings.py dw_accuracy), where pairs and single steps each
+//   miss 2x at one geometry; 0.489 ms against 0.333 at the paper's layers
+//   1-2 (pairs 0.479, single steps 0.501; chain_readings.py timing on an
+//   NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 
 #pragma once
 
@@ -104,12 +106,14 @@ __device__ __forceinline__ void z_frags(uint32_t (&b)[4][2], const __nv_bfloat16
 // xk, row 0 of x0); map_row0 is the warp's first map in the ring's rows,
 // mt the warp's m16 tiles that hold a map (warp-uniform; 0 skips the
 // products). Every thread of the block calls it: it synchronises.
-template <bool kSplitSums = false, class LoadW>
+template <int kSplit, class LoadW>
 __device__ __forceinline__ void z_product(float (&acc)[4][4][4], const __nv_bfloat16* ring,
                                           int stage_elems, LoadW&& load_w,
                                           const __nv_bfloat16* xkc, int xs,
                                           const __nv_bfloat16* x0c, int x0st, int h0, int hk8,
                                           int kz, int mt, int map_row0) {
+  static_assert(kSplit == 0 || kSplit == 1 || kSplit == 2 || kSplit == 4,
+                "k16 steps per fresh fragment: 0 (one accumulation), 1, 2 or 4");
   const int lane = threadIdx.x & 31;
   const int nchunks = (kz + kBK - 1) / kBK;
   const int nsteps = (kz + 15) / 16;
@@ -122,15 +126,16 @@ __device__ __forceinline__ void z_product(float (&acc)[4][4][4], const __nv_bflo
     tc::cp_async_commit();
     const __nv_bfloat16* ws = ring + (c % kStages) * stage_elems;
     const int steps = nsteps - c * 4 < 4 ? nsteps - c * 4 : 4;
-    if constexpr (kSplitSums) {
+    if constexpr (kSplit > 0) {
       if (mt == 0) continue;
 #pragma unroll
-      for (int ks0 = 0; ks0 < 4; ks0 += 2) {
+      for (int ks0 = 0; ks0 < 4; ks0 += kSplit) {
         if (ks0 >= steps) break;
-        const bool two = ks0 + 1 < steps;
-        uint32_t b[2][4][2];
+        uint32_t b[kSplit][4][2];
         z_frags(b[0], x0c, x0st, xkc, xs, h0, hk8, h_lo, m_lo);
-        if (two) z_frags(b[1], x0c, x0st, xkc, xs, h0, hk8, h_lo, m_lo);
+#pragma unroll
+        for (int kk = 1; kk < kSplit; ++kk)
+          if (ks0 + kk < steps) z_frags(b[kk], x0c, x0st, xkc, xs, h0, hk8, h_lo, m_lo);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           if (i >= mt) break;
@@ -138,8 +143,8 @@ __device__ __forceinline__ void z_product(float (&acc)[4][4][4], const __nv_bflo
 #pragma unroll
           for (int j = 0; j < 4; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.0f;
 #pragma unroll
-          for (int kk = 0; kk < 2; ++kk) {
-            if (kk == 1 && !two) break;
+          for (int kk = 0; kk < kSplit; ++kk) {
+            if (kk > 0 && ks0 + kk >= steps) break;
             uint32_t af[4];
             tc::ldmatrix_x4(af, ws + (map_row0 + i * 16 + (lane & 15)) * kWStride +
                                     (ks0 + kk) * 16 + (lane >> 4) * 8);

@@ -21,8 +21,10 @@
 // dxk out, 41.0 MB, W and dW 4.2 MB) take 23 us at 3.35 TB/s. So both
 // products go to the tensor cores: mma.sync.m16n8k16 with bf16 operands
 // and f32 sums (tensor_core.cuh), operands staged with cp.async.
-// Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W: 0.70 ms at
-// that layer (122 TFLOP/s), phase 1 0.41 ms of it. What holds
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chain_readings.py
+// timing): 0.80 ms at that layer (106 TFLOP/s) with its sums split
+// (cin_bwd_mma.cuh), 0.67 with one accumulation (phase 1 0.41 ms of
+// 0.70 then, a chip_smoke.py profile). What holds
 // it above the bound is shared memory and latency, not the tensor pipe:
 // mma.sync takes both operands from registers, so every fragment is
 // ldmatrix'ed (phase 1: W_h by each of the 8 column groups, about 0.65

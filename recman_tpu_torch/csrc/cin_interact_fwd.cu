@@ -18,8 +18,10 @@
 // the bytes (x0c and xkc in, 4.3 + 16.4 MB, the (O, B*D) f32 output 32.8
 // MB) take 16 us at 3.35 TB/s. So the products go to the tensor cores:
 // mma.sync.m16n8k16 with bf16 operands and f32 sums (tensor_core.cuh).
-// Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W: 0.33 ms at
-// that layer (128 TFLOP/s). What holds it above the bound is latency, not
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chain_readings.py
+// timing): 0.488-0.497 ms at that layer (87 TFLOP/s) with its sums split
+// per ring slice (cin_fwd_mma.cuh), 0.331-0.336 with one accumulation
+// (128 TFLOP/s). What holds it above the bound is latency, not
 // the tensor pipe: each k-step's B fragments wait on their shared-memory
 // loads and multiply, its A fragments on ldmatrix, and the two map tiles
 // of O 200 build the same z twice. wgmma is the next step.
@@ -69,6 +71,8 @@ constexpr int kBM = 128;            // maps per block
 constexpr int kBN = 128;            // B*D columns per block
 constexpr int kOutStride = kBN + 8; // f32 per staged output row
 constexpr int kH0Chunk = 64;        // fields per launch
+constexpr int kSplit = 4;           // k16 steps per fresh fragment (cin_fwd_mma.cuh);
+                                    // tools/chain_readings.py builds the others
 
 struct FwdArgs {
   const float* x0;             // (h0c, bd) f32: this launch's fields
@@ -142,7 +146,7 @@ __global__ void __launch_bounds__(kThreads, 2) cin_interact_fwd_kernel(const Fwd
   int mt = (a.o - o_base - wm * 64 + 15) / 16;
   mt = mt < 0 ? 0 : (mt > 4 ? 4 : mt);
   // this thread's B columns n = wn*32 + 8j + g, as offsets into xks and x0s
-  cinfwd::z_product(acc, ring, kBM * kWStride, load_w, xks + (wn * 32 + g) * a.xs + 2 * q, a.xs,
+  cinfwd::z_product<kSplit>(acc, ring, kBM * kWStride, load_w, xks + (wn * 32 + g) * a.xs + 2 * q, a.xs,
                     x0s + (wn * 32 + g) * a.x0st, a.x0st, a.h0c, a.hk8, kz, mt, wm * 64);
   tc::cp_async_wait<0>();
   __syncthreads();  // the ring is free for the output

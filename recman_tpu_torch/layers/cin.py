@@ -20,11 +20,12 @@ Routing, as in the reference (:116-124, :170-185, :199):
   - the fused chain (``ops.cin_chain.cin_chain_fm``: K1 forward, K2
     backward) when ``CIN_CHAIN_MODE`` is "auto" and the chain takes the
     CIN: a supported activation name, in training no live in-chain
-    dropout, the reference's geometry rule and K1's range;
+    dropout, and the reference's geometry rule, which K1 and K2 take
+    whole;
   - otherwise the per-layer path: per layer ``cin_interact_fm`` (K4
     forward, K5 backward), then bias, activation and dropout in PyTorch.
-    This takes a D that is not a power of two, live in-chain dropout, a
-    callable activation and the geometry K1 does not take.
+    This takes a D that is not a power of two, live in-chain dropout and
+    a callable activation.
 - Batch-major, (B, D, H) layout, otherwise (``compute_dtype="float32"``,
   a fan-in over 128, the switches off): plain PyTorch on either device,
   the counterpart of the reference's XLA einsum.
@@ -39,7 +40,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.cin_chain import chain_supported, cin_chain_fm, k1_unsupported_reason
+from ..ops.cin_chain import chain_supported, cin_chain_fm
 from ..ops.cin_interact import cin_interact, cin_interact_fm, pallas_cin_active
 from ..utils import glorot_normal, glorot_uniform, l2_loss, split_rng
 from .common import apply_mask, dropout, dropout_mask, resolve_activation
@@ -126,7 +127,7 @@ class CIN:
             return False
         return chain_supported(
             self.field_size, self.cross_layer_units, d, b * d, self._act_name
-        ) and k1_unsupported_reason(self.field_size, self.cross_layer_units, d, b * d) is None
+        )
 
     def apply(self, params, inputs, training=False, generator=None):
         """inputs (B, F, D) f32 -> CIN logit (B, 1)."""

@@ -33,6 +33,10 @@ kernel's oracle. The wrappers lay bf16(W) out once per call, Hk padded to
   ``save=False``) rebuilds them from x0c, W and b with K1's own code, so
   no fmap crosses from the forward to the backward.
 
+Both take the reference chain's whole range (``chain_supported``, stated
+clause by clause in ``chain_unsupported_reason``): any depth, O_i up to
+512, D a power of two up to 1024.
+
 ``cin_chain_fm`` is the differentiable entry. When a gradient is needed it
 runs one ``torch.autograd.Function``, chosen by ``CHAIN_SAVE_FMAPS`` when
 the forward runs: True (the reference's default), K1 with saved fmaps and
@@ -46,6 +50,7 @@ tensor runs the twins.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -55,18 +60,8 @@ from .cuda_build import load
 _SUPPORTED_ACTS = ("identity", "relu", "leaky_relu")
 _ACT_CODES = {"identity": 0, "relu": 1, "leaky_relu": 2}
 
-# The reference's chain tiles (recman_tpu/ops/cin_chain.py:73-74). They
-# are kept only so that ``chain_supported`` accepts exactly the geometry
-# the reference routes through its chain; K1 and K2 tile their own way.
-CHAIN_TILE_FWD = 1024
-CHAIN_TILE_BWD = 2048
-
-# K1's and K2's tiling: 128 columns (whole batch rows) per block, rows in
-# groups of 8 per warp; the kernel sources state the same range.
+# K1's and K2's blocks own 128 columns each (csrc/cin_chain_fwd.cuh).
 _TILE_N = 128
-_MAX_LAYERS = 8
-_MAX_O = 256
-_MAX_FIELDS = 128
 _MAX_SMEM = 232_448  # bytes a block may use on Hopper
 
 # The training forward saves the fmaps for the backward (True, the
@@ -156,70 +151,33 @@ def k5_weight_layout(w, h0: int, hk: int):
     return wp
 
 
-def _pick_chain_tile(bd: int, d: int, want: int) -> int | None:
-    """Largest tile <= want that divides bd, is a multiple of 128 and of d
-    (the reference's rule, kept for ``chain_supported``)."""
-    t = want
-    while t >= 128:
-        if bd % t == 0 and t % d == 0 and t % 128 == 0:
-            return t
-        t //= 2
-    return None
-
-
 def chain_supported(h0: int, units, d: int, bd: int, act) -> bool:
     """Eligibility of the fused chain for this geometry — the reference's
     rule (recman_tpu/ops/cin_chain.py:369-379), so both packages take the
-    chain on the same inputs."""
-    if act not in _SUPPORTED_ACTS:
-        return False
-    if not units or any(u % 2 for u in units[:-1]):
-        return False
-    cfgs = _layer_cfgs(h0, units)
-    if max(c.hk for c in cfgs) > 128 or max(c.o for c in cfgs) > 512:
-        return False
-    return _pick_chain_tile(bd, d, CHAIN_TILE_FWD) is not None and \
-        _pick_chain_tile(bd, d, CHAIN_TILE_BWD) is not None
+    chain on the same inputs: a supported activation and the geometry of
+    ``chain_unsupported_reason``."""
+    return act in _SUPPORTED_ACTS and chain_unsupported_reason(h0, units, d, bd) is None
 
 
-def k1_smem_bytes(h0: int, units) -> int:
-    """The shared-memory clause of K1's range: f32 tiles of the x0, feed
-    and z rows of one field and of its W rows, which must fit in 227 KB.
-    It keeps the range (and so the routing between the chain and the
-    per-layer path) where it has been; the tensor-core kernels need less
-    (under 180 KB for K1 and 200 KB for K2 anywhere in the range)."""
-    cfgs = _layer_cfgs(h0, units)
-    max_hk = max(c.hk for c in cfgs)
-    max_feed = max(c.feed for c in cfgs)
-    max_wchunk = max(c.hk * _round8(c.o) for c in cfgs)
-    return ((h0 + max_feed + max_hk) * _TILE_N + max_wchunk) * 4
-
-
-def k1_unsupported_reason(h0: int, units, d: int, bd: int) -> str | None:
-    """Why K1 does not take this geometry, or None when it does."""
+def chain_unsupported_reason(h0: int, units, d: int, bd: int) -> str | None:
+    """Why K1 and K2 do not take this geometry, or None when they do: the
+    geometry of the reference chain's rule, clause by clause. Its tiles of
+    1024 and 2048 columns (B*D a multiple of a tile of at least 128 that D
+    divides) come to D a power of two up to 1024 and B*D a multiple of
+    max(128, D). The kernels' own plans (``chain_fwd_smem_bytes`` and
+    ``cols_plan`` in csrc/) check their shared memory at launch."""
     units = tuple(units)
-    if not 1 <= len(units) <= _MAX_LAYERS:
-        return f"K1 takes 1..{_MAX_LAYERS} layers, got {len(units)}"
-    if d < 1 or _TILE_N % d:
-        return f"K1 needs D dividing {_TILE_N}, got D={d}"
-    if bd % _TILE_N:
-        return f"K1 needs B*D a multiple of {_TILE_N}, got {bd}"
-    if any(u % 2 for u in units[:-1]) or not all(1 <= u <= _MAX_O for u in units):
-        return f"K1 takes 1 <= O_i <= {_MAX_O}, non-final O_i even; got {units}"
-    if max(c.hk for c in _layer_cfgs(h0, units)) > _MAX_FIELDS:
-        return f"K1 takes H0 and Hk_i <= {_MAX_FIELDS}"
-    smem = k1_smem_bytes(h0, units)
-    if smem > _MAX_SMEM:
-        return f"K1 needs {smem} bytes of shared memory, over {_MAX_SMEM}"
+    if not units:
+        return "takes at least one layer"
+    if any(u % 2 for u in units[:-1]) or not all(1 <= u <= 512 for u in units):
+        return f"takes 1 <= O_i <= 512, non-final O_i even; got {units}"
+    if max(c.hk for c in _layer_cfgs(h0, units)) > 128 or h0 < 1:
+        return "takes 1 <= H0 and every Hk_i <= 128 (a non-final O_i <= 256)"
+    if d < 1 or d > 1024 or d & (d - 1):
+        return f"needs D a power of two up to 1024, got D={d}"
+    if bd % max(_TILE_N, d):
+        return f"needs B*D a multiple of max({_TILE_N}, D), got B*D={bd}"
     return None
-
-
-def k2_unsupported_reason(h0: int, units, d: int, bd: int) -> str | None:
-    """Why K2 does not take this geometry by K1's range (it runs on K1's
-    saved fmaps), or None when it does. Its own shared memory is checked
-    at launch, by the plan of the kernel source (``k2_plan``)."""
-    reason = k1_unsupported_reason(h0, units, d, bd)
-    return None if reason is None else reason.replace("K1", "K2")
 
 
 def cin_chain_fm_reference(x0c, ws, bs, units, d, act="leaky_relu", save=False, feeds=None):
@@ -314,7 +272,7 @@ def cin_chain_bwd_recompute_reference(x0c, ws, bs, gs, units, d, act="leaky_relu
     return cin_chain_bwd_reference(x0c, ws, bs, gs, fmaps, units, d, act)
 
 
-def _check_chain_args(name, x0c, ws, units, d, act, reason):
+def _check_chain_args(name, x0c, ws, units, d, act):
     if act not in _SUPPORTED_ACTS:
         raise ValueError(f"{name} activation must be one of {_SUPPORTED_ACTS}, got {act!r}")
     if x0c.dtype != torch.float32 or x0c.dim() != 2 or not x0c.is_contiguous():
@@ -322,9 +280,9 @@ def _check_chain_args(name, x0c, ws, units, d, act, reason):
     if x0c.data_ptr() % 16:
         raise ValueError(f"{name} needs x0c 16-byte aligned")
     h0, bd = x0c.shape
-    why = reason(h0, units, d, bd)
+    why = chain_unsupported_reason(h0, units, d, bd)
     if why is not None:
-        raise ValueError(why)
+        raise ValueError(f"{name} {why}")
     if len(ws) != len(units):
         raise ValueError(f"{name} needs one W per layer")
     for cfg, w in zip(_layer_cfgs(h0, units), ws):
@@ -346,7 +304,7 @@ def _check_tensor(name, what, t, shape, dtype, device, align=16):
 
 
 def _check_cuda_args(x0c, ws, bs, units, d, act):
-    _check_chain_args("K1", x0c, ws, units, d, act, k1_unsupported_reason)
+    _check_chain_args("K1", x0c, ws, units, d, act)
     if len(bs) != len(units):
         raise ValueError("K1 needs one b per layer")
     h0 = x0c.shape[0]
@@ -375,9 +333,24 @@ def _k1():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _table_bytes(name: str):
+    """``<name>_table_bytes`` of a kernel's source: the bytes of the layers'
+    table that each launch writes (the same in every build)."""
+    fn = getattr(load(name), f"{name}_table_bytes")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return fn
+
+
+def _table(name: str, n_layers: int, device):
+    """The device memory a kernel's launch writes its layers' table into."""
+    return torch.empty((_table_bytes(name)(n_layers),), dtype=torch.uint8, device=device)
 
 
 def k1_weight_layouts(h0: int, units, ws):
@@ -408,12 +381,13 @@ def _cin_chain_fm_cuda(x0c, ws, bs, units, d, act, save=False):
     fmaps = [
         torch.empty((c.o, bd), dtype=torch.float32, device=x0c.device) for c in cfgs
     ] if save else []
+    table = _table("cin_chain_fwd", n, x0c.device)
     stream = torch.cuda.current_stream(x0c.device).cuda_stream
     err = fn(
         x0c.data_ptr(), h0, bd, d, n,
         (ctypes.c_int * n)(*units), _ptrs(w_bf), _ptrs(b_c), _ptrs(outs),
         _ptrs(fmaps) if save else None,
-        _ACT_CODES[act], stream,
+        _ACT_CODES[act], table.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"K1 (cin_chain_fwd) launch failed: CUDA error {err}")
@@ -431,9 +405,18 @@ def _k2():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), p, p, p, p, ctypes.c_void_p, p,
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, p, p, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     return fn
+
+
+def k1_smem(h0: int, units) -> int:
+    """K1's shared memory for a geometry in bytes, from the plan of the
+    kernel source (``cin_chain_fwd_smem_bytes``)."""
+    fn = load("cin_chain_fwd").cin_chain_fwd_smem_bytes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    return fn(h0, len(units), (ctypes.c_int * len(units))(*units))
 
 
 def k2_plan(h0: int, units, bd: int, device) -> tuple[int, list[int]]:
@@ -460,6 +443,7 @@ def _k2_recompute():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), p, p, p, p, p, p, p, ctypes.c_void_p, p,
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, p, p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p,
     ]
     return fn
 
@@ -478,8 +462,9 @@ def k2_scratch_shapes(h0: int, units, bd: int, splits) -> dict:
 
 
 def _k2_buffers(x0c, ws, units):
-    """K2's W in the layout it walks, its scratch and its outputs, for
-    either form: (splits, wps, gbs, pdb, pdws, dx0, dws, dbs)."""
+    """K2's W in the layout it walks, its scratch (its layers' tables
+    included) and its outputs, for either form: (splits, wps, gbs, pdb,
+    pdws, table, dx0, dws, dbs)."""
     h0, bd = x0c.shape
     dev = x0c.device
     smem, splits = k2_plan(h0, units, bd, dev)
@@ -492,11 +477,12 @@ def _k2_buffers(x0c, ws, units):
     dx0 = torch.empty_like(x0c)
     dws = [torch.empty(s[1:], dtype=torch.float32, device=dev) for s in shapes["pdw"]]
     dbs = [torch.empty((o,), dtype=torch.float32, device=dev) for o in units]
-    return (splits, k2_weight_layouts(h0, units, ws), gbs, pdb, pdws, dx0, dws, dbs)
+    table = _table("cin_chain_bwd", len(units), dev)
+    return (splits, k2_weight_layouts(h0, units, ws), gbs, pdb, pdws, table, dx0, dws, dbs)
 
 
 def _check_k2_args(x0c, ws, gs, units, d, act):
-    _check_chain_args("K2", x0c, ws, units, d, act, k2_unsupported_reason)
+    _check_chain_args("K2", x0c, ws, units, d, act)
     h0, bd = x0c.shape
     if len(gs) != len(units):
         raise ValueError("K2 needs one pooled cotangent per layer")
@@ -515,13 +501,13 @@ def _cin_chain_bwd_cuda(x0c, ws, gs, fmaps, units, d, act):
         raise ValueError("K2 needs one fmap per layer")
     for cfg, f in zip(_layer_cfgs(h0, units), fmaps):
         _check_tensor("K2", "fmap", f, (cfg.o, bd), torch.float32, x0c.device)
-    splits, wps, gbs, pdb, pdws, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
+    splits, wps, gbs, pdb, pdws, table, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
     stream = torch.cuda.current_stream(x0c.device).cuda_stream
     err = _k2()(
         x0c.data_ptr(), h0, bd, d, n, (ctypes.c_int * n)(*units),
         _ptrs(wps), _ptrs(list(fmaps)), _ptrs(list(gs)), _ptrs(gbs), pdb.data_ptr(),
         _ptrs(pdws), (ctypes.c_int * n)(*splits), dx0.data_ptr(), _ptrs(dws), _ptrs(dbs),
-        _ACT_CODES[act], stream,
+        _ACT_CODES[act], table.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"K2 (cin_chain_bwd) launch failed: CUDA error {err}")
@@ -537,7 +523,7 @@ def _cin_chain_bwd_recompute_cuda(x0c, ws, bs, gs, units, d, act):
     n = len(units)
     cfgs = _layer_cfgs(h0, units)
     dev = x0c.device
-    splits, wps, gbs, pdb, pdws, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
+    splits, wps, gbs, pdb, pdws, table, dx0, dws, dbs = _k2_buffers(x0c, ws, units)
     w_bf = k1_weight_layouts(h0, units, ws)
     b_c = [b.contiguous() for b in bs]
     # phase 0's scratch: each non-final layer's feed rows (f32) and one bit
@@ -550,7 +536,7 @@ def _cin_chain_bwd_recompute_cuda(x0c, ws, bs, gs, units, d, act):
         x0c.data_ptr(), h0, bd, d, n, (ctypes.c_int * n)(*units),
         _ptrs(w_bf), _ptrs(b_c), _ptrs(wps), _ptrs(feeds), _ptrs(signs), _ptrs(list(gs)),
         _ptrs(gbs), pdb.data_ptr(), _ptrs(pdws), (ctypes.c_int * n)(*splits),
-        dx0.data_ptr(), _ptrs(dws), _ptrs(dbs), _ACT_CODES[act], stream,
+        dx0.data_ptr(), _ptrs(dws), _ptrs(dbs), _ACT_CODES[act], table.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"K2 (cin_chain_bwd_recompute) launch failed: CUDA error {err}")

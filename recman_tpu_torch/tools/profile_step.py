@@ -34,10 +34,11 @@ import sys
 
 from . import bench
 
-# each kernel's __global__ functions in csrc/ (K3 and K7 share theirs)
+# each kernel's __global__ functions in csrc/ (K3 and K7 share theirs; K1 and K2
+# write their layer tables with write_table)
 KERNEL_SYMBOLS = {
-    "K1": ("cin_chain_fwd_kernel",),
-    "K2": ("cin_chain_bwd_cols", "cin_bwd_dw", "cin_chain_bwd_reduce"),
+    "K1": ("cin_chain_fwd_kernel", "write_table"),
+    "K2": ("cin_chain_bwd_cols", "cin_bwd_dw", "cin_chain_bwd_reduce", "write_table"),
     "K3": ("map_clear_kernel", "segment_sums_kernel", "segment_fixup_kernel",
            "segment_write_kernel"),
     "K4": ("cin_interact_fwd_kernel",),

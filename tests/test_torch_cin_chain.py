@@ -97,20 +97,37 @@ def test_chain_supported_matches_jax(h0, units, d, bd, act):
         jax_chain.chain_supported(h0, units, d, bd, act)
 
 
+@pytest.mark.parametrize("d", [1, 2, 8, 16, 128, 256, 1024, 2048, 10, 96])
+@pytest.mark.parametrize("units", [(6, 4), (256, 512), (258, 4), (513,), (100,) * 9, ()])
+def test_chain_range_is_the_reference_rule(units, d):
+    """``chain_unsupported_reason`` states the reference's ``chain_supported``
+    clause by clause: None exactly where the reference takes its chain."""
+    for h0 in (1, 26, 128, 129):
+        for bd in (64, 128, 1024, 2048, 3072, 4096):
+            ours = torch_chain.chain_unsupported_reason(h0, units, d, bd) is None
+            assert ours == jax_chain.chain_supported(h0, units, d, bd, "relu"), (h0, bd)
+
+
 def test_bench_geometry_is_in_k1_range():
-    assert torch_chain.k1_unsupported_reason(26, (100, 100), 16, 8192 * 16) is None
-    # x0 tile + feed rows + z chunk (26 + 50 + 50 rows of 128 f32) + W chunk (50 x 104 f32)
-    assert torch_chain.k1_smem_bytes(26, (100, 100)) == 126 * 128 * 4 + 50 * 104 * 4
+    """The bench chain, and the corners of the reference chain's range, are
+    in K1's: the widest maps and fields, the widest D, nine layers."""
+    for h0, units, d, bd in [(26, (100, 100), 16, 8192 * 16), (26, (256, 256, 256), 16, 1024),
+                             (128, (256, 512), 1024, 1024), (1, (2,), 1, 128),
+                             (5, (100,) * 9, 256, 512)]:
+        assert torch_chain.chain_unsupported_reason(h0, units, d, bd) is None
+        assert torch_chain.chain_supported(h0, units, d, bd, "relu")
 
 
+# the edges of the range: D 2048, B*D off the tiles, O 513, fan-in 129
+# (H0, and Hk through a non-final O of 258)
 @pytest.mark.parametrize(
     "h0,units,d,bd,match",
     [
-        (5, (6, 4), 256, 256, "D dividing"),
-        (5, (6, 4), 4, 64, "multiple of 128"),
-        (5, (300,), 4, 256, "O_i <= 256"),
-        (5, (6,) * 9, 4, 256, "layers"),
-        (128, (256, 256), 4, 256, "shared memory"),
+        (5, (6, 4), 2048, 2048, "power of two up to 1024"),
+        (5, (6, 4), 4, 64, r"multiple of max\(128, D\)"),
+        (5, (513,), 4, 256, "O_i <= 512"),
+        (129, (6,), 4, 256, "Hk_i <= 128"),
+        (5, (258, 4), 4, 256, "Hk_i <= 128"),
     ],
 )
 def test_k1_wrapper_rejects_geometry_outside_its_range(h0, units, d, bd, match):
@@ -243,9 +260,9 @@ def test_no_grad_forward_saves_nothing():
 @pytest.mark.parametrize(
     "h0,units,d,bd,match",
     [
-        (5, (6, 4), 256, 256, "D dividing"),
-        (5, (300,), 4, 256, "O_i <= 256"),
-        (128, (256, 256), 4, 256, "shared memory"),
+        (5, (6, 4), 12, 1536, "power of two"),
+        (5, (513,), 4, 256, "O_i <= 512"),
+        (129, (256,), 4, 256, "Hk_i <= 128"),
     ],
 )
 def test_k2_wrapper_rejects_geometry_outside_its_range(h0, units, d, bd, match):
@@ -265,11 +282,46 @@ def test_k2_wrapper_rejects_wrong_cotangent_shape():
 
 
 def test_bench_geometry_is_in_k2_range():
-    assert torch_chain.k2_unsupported_reason(26, (100, 100), 16, 8192 * 16) is None
+    assert torch_chain.chain_unsupported_reason(26, (100, 100), 16, 8192 * 16) is None
 
 
 def test_widest_k1_geometry_is_in_k2_range():
-    assert torch_chain.k2_unsupported_reason(39, (256, 128), 8, 1024) is None
+    assert torch_chain.chain_unsupported_reason(39, (256, 128), 8, 1024) is None
+    assert torch_chain.chain_unsupported_reason(128, (256, 256), 8, 1024) is None
+
+
+# (H0, units, B, D, act): the edges of the chain's range: a final layer of
+# 512 maps (two passes of 256 on the card), D 256 and 1024 (tiles of 128
+# columns a batch row), nine layers
+RANGE_CASES = [(3, (8, 512), 32, 4, "relu"), (5, (6, 4), 2, 256, "leaky_relu"),
+               (4, (8, 6), 1, 1024, "identity"), (4, (8,) * 8 + (6,), 32, 4, "leaky_relu")]
+
+
+@pytest.mark.parametrize("case", RANGE_CASES, ids=_case_id)
+def test_plain_chain_matches_jax_at_the_range_edges(case):
+    """K1's twin (pooled blocks and fmaps) against the interpreted
+    ``_chain_fwd_pallas`` to 1e-4, and K2's twins, both forms, against
+    ``jax.vjp`` of ``cin_chain_fm`` to 1e-3, at the edges of the range."""
+    h0, units, b, d, act = case
+    x0c, ws, bs = _inputs(h0, units, b, d, seed=len(units) + d)
+    gs = _cotangents(h0, units, b, seed=7)
+    jx, jw, jb = jnp.asarray(x0c), [jnp.asarray(w) for w in ws], [jnp.asarray(v) for v in bs]
+    ref_fwd = jax_chain._chain_fwd_pallas(jx, jw, jb, units, d, act, interpret=True, save=True)
+    _, vjp = jax.vjp(lambda x, w, v: jax_chain.cin_chain_fm(x, w, v, units, d, act), jx, jw, jb)
+    rdx0, rdws, rdbs = vjp(tuple(jnp.asarray(g) for g in gs))
+    T = torch.from_numpy
+    args = (T(x0c), [T(w) for w in ws], [T(v) for v in bs])
+    got = torch_chain.cin_chain_fm_reference(*args, units, d, act, save=True)
+    assert len(got) == 2 * len(units)
+    for ref, g in zip(ref_fwd, got):
+        assert g.shape == ref.shape and _rel_err(ref, g.numpy()) <= 1e-4
+    fmaps = got[len(units):]
+    for bwd in (torch_chain.cin_chain_bwd(*args, [T(g) for g in gs], fmaps, units, d, act),
+                torch_chain.cin_chain_bwd_recompute(*args, [T(g) for g in gs], units, d, act)):
+        dx0, dws, dbs = bwd
+        assert _rel_err(rdx0, dx0) <= 1e-3
+        for ref, g in zip(list(rdws) + list(rdbs), list(dws) + list(dbs)):
+            assert g.shape == ref.shape and _rel_err(ref, g) <= 1e-3
 
 
 # -- K2's recompute form (CHAIN_SAVE_FMAPS = False) -----------------------------

@@ -224,22 +224,78 @@ def test_per_layer_cin_matches_jax_per_layer_path(d, chain_mode):
     _assert_cin_match(ref, got)
 
 
-@pytest.mark.parametrize("units,path", [((100, 257), "per_layer"), ((100, 300), "batch_major")])
+@pytest.mark.parametrize("units,path", [((100, 257), "chain"), ((100, 300), "batch_major")])
 def test_wide_final_layer_routes_off_k1(units, path, monkeypatch):
     """A final layer of 257-512 maps passes the reference's chain rule,
-    which K1 (O <= 256) does not take. At 257 the fan-ins stay <= 128: the
-    reference runs its chain, the port its per-layer path, and forward and
-    gradients match. Past 257 the final layer's half-width (the
-    reference's ``max(field_nums)``) exceeds 128 and both run batch-major,
-    where forward and gradients match too."""
+    which K1 and K2 take whole. At 257 the fan-ins stay <= 128: both
+    packages run their chain, and forward and gradients match. Past 257
+    the final layer's half-width (the reference's ``max(field_nums)``)
+    exceeds 128 and both run batch-major, where forward and gradients
+    match too."""
     jc, tc, params, x, cot = _cin_pair(units, 8)
     assert cin_chain.chain_supported(5, units, 8, x.shape[0] * 8, "leaky_relu")
-    assert cin_chain.k1_unsupported_reason(5, units, 8, x.shape[0] * 8) is not None
+    assert cin_chain.chain_unsupported_reason(5, units, 8, x.shape[0] * 8) is None
     calls = _spy(monkeypatch)
     with _jax_kernels():
         ref = _jax_cin_grads(jc, params, x, cot)
     got = _port_cin_grads(tc, params, x, cot)
     assert _taken(calls) == path
+    _assert_cin_match(ref, got)
+
+
+# (H0, units, D, B, on the chain): the geometries of the reference chain's
+# range that a port whose K1 took O <= 256, 8 layers, D dividing 128 and
+# a shared-memory clause sent to the per-layer path, the bench's, and the
+# edges past the range
+CHAIN_ROUTING = [
+    (26, (256, 256), 16, 8192, True),
+    (26, (256, 256, 256), 16, 8192, True),
+    (26, (256, 200), 16, 8192, True),
+    (128, (256, 256), 8, 1024, True),
+    (26, (100, 257), 16, 8192, True),
+    (26, (100,) * 9, 16, 8192, True),
+    (26, (100, 100), 256, 64, True),
+    (26, (100, 100), 1024, 8, True),
+    (26, (100, 100), 16, 8192, True),     # the bench's
+    (26, (100, 100), 2048, 8, False),     # D past 1024
+    (26, (100, 100), 10, 8192, False),    # D not a power of two
+    (26, (100, 100), 16, 4, False),       # B*D off the tiles
+    (26, (258, 100), 16, 64, False),      # fan-in 129
+    (26, (100, 513), 16, 64, False),      # O 513
+]
+
+
+@pytest.mark.parametrize("h0,units,d,b,chain", CHAIN_ROUTING)
+@pytest.mark.parametrize("training", [False, True])
+def test_chain_routing_is_the_reference_rule(h0, units, d, b, chain, training):
+    """The port's ``CIN._chain_eligible`` is the reference's, in eval and
+    in training: the port takes its chain (K1, K2) exactly where the JAX
+    package takes its own."""
+    keep = (1,) * (len(units) + 1)
+    jc = JaxCIN(h0, units, "relu", keep)
+    tc = CIN(h0, units, "relu", keep)
+    assert jc._chain_eligible(training, b, d) == chain
+    assert tc._chain_eligible(training, b, d) == chain
+
+
+# (H0, units, D, B): the widest maps at every layer, a final layer of 257
+# maps, D 256 (two 128-column tiles a batch row on the card) and 9 layers
+CHAIN_EDGES = [(26, (256, 256, 256), 16, 8), (5, (100, 257), 8, 16), (5, (8, 6), 256, 2),
+               (6, (8,) * 8 + (6,), 4, 32)]
+
+
+@pytest.mark.parametrize("h0,units,d,b", CHAIN_EDGES)
+def test_chain_cin_matches_jax_chain_at_the_range_edges(h0, units, d, b, monkeypatch):
+    """Forward and every gradient (params and input) of the port's CIN on
+    its chain (K1's and K2's twins here) against the reference's chain,
+    its Pallas kernels interpreted, at the edges of the chain's range."""
+    jc, tc, params, x, cot = _cin_pair(units, d, b=b, h0=h0)
+    assert tc._chain_eligible(False, b, d) and jc._chain_eligible(False, b, d)
+    calls = _spy(monkeypatch)
+    with _jax_kernels():
+        ref = _jax_cin_grads(jc, params, x, cot)
+    got = _port_cin_grads(tc, params, x, cot)
+    assert _taken(calls) == "chain"
     _assert_cin_match(ref, got)
 
 

@@ -77,7 +77,9 @@ def _inputs(h0, units, b, d, seed, device):
         (5, (6, 4), 64, 2),
         (7, (10, 8, 6), 8, 128),   # D = 128: one warp pools one batch row
         (26, (100, 100), 512, 16),
-        (39, (256, 128), 128, 8),  # widest maps K1 takes
+        (39, (256, 128), 128, 8),
+        (128, (256, 512), 16, 8),  # the widest fields and maps: a final pass of 256 maps
+        (26, (100, 100), 4, 256),  # D 256: two tiles a batch row
     ],
 )
 @pytest.mark.parametrize("act", ACTS)
@@ -94,8 +96,8 @@ def test_k1_matches_plain_version(cuda, h0, units, b, d, act):
 
 
 def test_k1_raises_on_geometry_it_does_not_take(cuda):
-    x0c, ws, bs = _inputs(5, (6, 4), 10, 10, 0, cuda)  # D = 10 does not divide 128
-    with pytest.raises(ValueError, match="D dividing"):
+    x0c, ws, bs = _inputs(5, (6, 4), 10, 10, 0, cuda)  # D = 10 is not a power of two
+    with pytest.raises(ValueError, match="power of two"):
         cin_chain.cin_chain_fm(x0c, ws, bs, (6, 4), 10, "relu")
 
 
@@ -232,6 +234,14 @@ CHAIN_CASES = [
     (6, (100, 100, 100), 128, 8),  # the ML-100K anchor's chain: 8 blocks
     (26, (100, 100), 512, 16),
     (26, (100, 100), 8192, 16),  # the training geometry
+    # the edges of the reference chain's range
+    (26, (256, 256, 256), 64, 16),  # every fan-in 128 (xdeepfm_wide_cin_criteo)
+    (26, (100, 257), 64, 16),       # a final layer of 257 maps: two passes
+    (128, (256, 256), 16, 8),
+    (128, (256, 512), 16, 8),       # a final layer of 512 maps, the widest fields
+    (26, (100, 100), 4, 256),       # D 256: two 128-column tiles a batch row
+    (6, (8, 6), 2, 1024),           # D 1024
+    (6, (16,) * 8 + (10,), 32, 4),  # nine layers
 ]
 
 
@@ -259,10 +269,29 @@ def test_k1_save_and_k2_match_plain_versions(cuda, h0, units, b, d, act):
         _close(r, g, 1e-3)
 
 
+@pytest.mark.parametrize("h0,units,b,d", CHAIN_CASES)
+@pytest.mark.parametrize("act", ACTS)
+def test_k2_final_dw_stays_near_the_exact_sums(cuda, h0, units, b, d, act):
+    """K2's dW of the final layer, a sum over every column, in both forms,
+    against the exact sums of the same bf16 terms (f64) on the fmaps each
+    side reads, beside the plain twin's: within twice the twin's gap, or
+    under 1e-7 of max|exact| (``chain_readings.near_exact``). The lower
+    layers' gaps are led by bf16 roundings of gpre and of the feeds
+    (``chain_readings dw_accuracy`` reads them layer by layer)."""
+    from recman_tpu_torch.tools import chain_readings
+
+    row = chain_readings.K2Case(h0, units, b, d, act, cuda).row()
+    missed = {form: (row[f"{form}_kernel_exact"][-1], row[f"{form}_twin_exact"][-1])
+              for form in ("k2_dw", "k2_recompute_dw") if not row[f"{form}_final_near_exact"]}
+    assert not missed, missed
+
+
 # the small odd geometry (Hk 5 and 3 pad to 8), the ML-100K anchor's, the
 # widest maps and the widest fields K1 takes, the bench geometry
 BIT_EQUAL_CASES = [(5, (6, 4), 64, 4), (6, (100, 100, 100), 128, 8), (39, (256, 128), 128, 8),
-                   (128, (128, 64), 128, 8), (26, (100, 100), 8192, 16)]
+                   (128, (128, 64), 128, 8), (26, (100, 100), 8192, 16),
+                   (128, (256, 512), 16, 8), (26, (100, 100), 4, 256),
+                   (6, (16,) * 8 + (10,), 32, 4)]
 
 
 @pytest.mark.parametrize("h0,units,b,d", BIT_EQUAL_CASES)
@@ -302,6 +331,24 @@ def test_k2_plan_at_the_bench_geometry(cuda):
 def test_k2_plan_takes_the_widest_k1_geometry(cuda):
     assert cin_chain.k2_plan(39, (256, 128), 1024, cuda)[0] <= 232_448
     assert cin_chain.k2_plan(128, (128, 64), 1024, cuda)[0] <= 232_448
+
+
+def test_chain_plans_fit_anywhere_in_the_range(cuda):
+    """K1's and K2's plans (the kernel sources' own) stay within a block's
+    232,448 bytes of shared memory at the corners of the range: H0 1, 26
+    and 128, O 2, 256 and 512 (a non-final O at most 256), 1 to 3
+    layers."""
+    import itertools
+
+    worst = 0
+    for h0, depth in itertools.product((1, 26, 128), (1, 2, 3)):
+        for units in itertools.product((2, 256, 512), repeat=depth):
+            if cin_chain.chain_unsupported_reason(h0, units, 8, 1024) is not None:
+                continue
+            k1, k2 = cin_chain.k1_smem(h0, units), cin_chain.k2_plan(h0, units, 1024, cuda)[0]
+            assert k1 <= 232_448 and k2 <= 232_448, (h0, units, k1, k2)
+            worst = max(worst, k1, k2)
+    assert worst > 0
 
 
 def test_k2_is_deterministic(cuda):
@@ -813,6 +860,23 @@ def test_k4_and_k5_match_plain_versions(cuda, h0, hk, o, bd):
     for r, a, b in zip(cin_interact.cin_interact_fm_bwd_reference(x0c, xkc, w, g), grads, again):
         _close(r, a, 1e-3)
         assert torch.equal(a, b)
+
+
+_SUM_NAMES = ("k4_out", "k5_dx0", "k5_dxk", "k5_dw")
+
+
+@pytest.mark.parametrize("h0,hk,o,bd", INTERACT_CASES)
+def test_k4_and_k5_sums_stay_near_the_exact_sums(cuda, h0, hk, o, bd):
+    """The tensor cores' f32 sums of K4 (its output) and K5 (dx0, dxk, dW)
+    against the exact sums of the same bf16 terms (f64), beside the plain
+    twin's: within twice the twin's gap, or under 1e-7 of max|exact|
+    (``chain_readings.near_exact``)."""
+    from recman_tpu_torch.tools import chain_readings
+
+    row = chain_readings.InteractCase(h0, hk, o, bd, cuda).row()
+    missed = {name: (row[f"{name}_kernel_exact"], row[f"{name}_twin_exact"])
+              for name in _SUM_NAMES if not row[f"{name}_near_exact"]}
+    assert not missed, missed
 
 
 def test_cin_interact_fm_shared_input_on_card(cuda):

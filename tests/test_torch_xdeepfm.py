@@ -133,6 +133,39 @@ class TestModelParity:
         got = _torch_preds(tm, np_params, batch)
         assert np.abs(ref - got).max() <= PRED_TOL
 
+    def test_wide_cin_criteo_forward_and_loss(self):
+        """``xdeepfm_wide_cin_criteo``, the bench model with its CIN set to
+        (256, 256, 256) (every fan-in 128), cut to 1,000 buckets and 64
+        rows: predictions and the training loss against JAX's, both CINs
+        on their chains (the reference's Pallas kernels interpreted, the
+        port's K1 and K2 twins)."""
+        from recman_tpu.data import create_criteo_features as jax_criteo
+        from recman_tpu.ops import cin_interact as jax_ci
+        from recman_tpu.ops import embedding as jax_emb
+        from recman_tpu_torch.data import create_criteo_features, synthetic_criteo_arrays
+
+        hp = {"embedding_size": 16, "cin_cross_layer_units": (256, 256, 256),
+              "cin_dropout": (1, 1, 1, 1), "deep_hidden_units": (400, 400),
+              "deep_dropout": (1.0, 1.0, 1.0)}
+        jm = JaxXDeepFM(jax_criteo(num_buckets=1000), hp)
+        tm = XDeepFM(create_criteo_features(num_buckets=1000), hp)
+        assert jm.cin._chain_eligible(True, 64, 16) and tm.cin._chain_eligible(True, 64, 16)
+        np_params = _shared_params(jm, seed=4)
+        batch = synthetic_criteo_arrays(64, num_buckets=1000, seed=8)
+        params = params_from_jax(np_params, device="cpu")
+        jp = {k: jnp.asarray(v) for k, v in np_params.items()}
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+        with jax_emb.fused_grad(True), jax_ci.pallas_cin(True):
+            ref = np.asarray(jm.apply(jp, jb, training=False))
+            ref_loss = float(jm.loss(jp, jb, training=True, rng=jax.random.PRNGKey(1)))
+        with torch.no_grad():
+            got = tm.apply(params, tb).numpy()
+            loss = float(tm.loss(params, tb, training=True,
+                                 generator=torch.Generator().manual_seed(1)))
+        assert np.abs(ref - got).max() <= PRED_TOL
+        assert abs(loss - ref_loss) <= 1e-6 * abs(ref_loss)
+
     def test_linear_override_matches_jax(self, synthetic_df):
         jm, tm, np_params = _pair(synthetic_df)
         for model in (jm, tm):
