@@ -1690,7 +1690,7 @@ def phase_tools(device, steady=None):
     check(len(text) == 1, f"(a) the bench entry printed {len(text)} lines")
     line = json.loads(text[0])
     log(f"tools (a) bench line: {text[0]}")
-    numbers = ("value", "ms_per_step", "wall_ms_per_step", "busy_share", "mfu", "hbm_util",
+    numbers = ("value", "ms_per_step", "wall_ms_per_step", "mfu", "hbm_util",
                "model_gflops_per_step", "model_hbm_gb_per_step")
     check(line["metric"] == bench.METRIC and all(
         isinstance(line[k], (int, float)) and math.isfinite(line[k]) for k in numbers),
@@ -1698,7 +1698,7 @@ def phase_tools(device, steady=None):
     check(line["launches_per_step"] == once, f"(a) launches a step {line['launches_per_step']}")
     check(line["card"] == card, f"(a) the line's card {line['card']!r}, nvidia-smi {card!r}")
     log(f"tools (a) bench: {line['value']:.1f} examples/s over the window ({line['wall_ms_per_step']:.4f} "
-        f"ms/step wall, {line['ms_per_step']:.4f} device, busy {line['busy_share']}); train steady "
+        f"ms/step wall, {line['ms_per_step']:.4f} device); train steady "
         f"{steady.get('examples_per_s', float('nan')):.1f} examples/s device, "
         f"{steady.get('wall_examples_per_s', float('nan')):.1f} wall [{card}]; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1729,8 +1729,8 @@ def phase_tools(device, steady=None):
     check(prof["profiled_ms_per_step"] > 0
           and abs(cats - prof["profiled_ms_per_step"]) <= TOOLS_PROFILE_SUM * prof["profiled_ms_per_step"],
           f"(c) categories sum {cats} against the profiled {prof['profiled_ms_per_step']}")
-    log(f"tools (c) profile: {prof['profiled_ms_per_step']:.4f} ms/step of kernels, busy "
-        f"{prof['busy_share']}; by category {prof['ms_per_step_by_category']} [{card}]; "
+    log(f"tools (c) profile: {prof['profiled_ms_per_step']:.4f} ms/step of kernels; "
+        f"by category {prof['ms_per_step_by_category']} [{card}]; "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 

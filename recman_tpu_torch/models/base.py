@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..features import FeatureSet
+from ..obs.trace import span
 from ..utils import binary_cross_entropy, mean_squared_error
 from ..utils.numerics import bce_per_example, mse_per_example
 
@@ -76,7 +77,10 @@ class Model:
     def loss(self, params, batch, training=True, generator=None, weights=None):
         """Data loss + sum of the layer L2s (reference base.py:52-61)."""
         preds = self.apply(params, batch, training=training, generator=generator)
-        return self.data_loss(batch["y"], preds, weights) + self.l2(params)
+        data = self.data_loss(batch["y"], preds, weights)
+        with span("train.l2"):
+            l2 = self.l2(params)
+        return data + l2
 
     def rank_loss(self, params, batch, weights, split=ONE_RANK, training=True, generator=None):
         """This rank's share of ``loss`` when the batch's rows are split over
@@ -86,7 +90,10 @@ class Model:
         ``loss`` on the whole batch. A model whose ``loss`` adds another
         term overrides this with that term's share (``DIEN``)."""
         preds = self.apply(params, batch, training=training, generator=generator)
-        return self.data_share(batch["y"], preds, weights, split) + self.l2(params) / split.ranks
+        data = self.data_share(batch["y"], preds, weights, split)
+        with span("train.l2"):
+            l2 = self.l2(params) / split.ranks
+        return data + l2
 
     def data_share(self, y_true, y_pred, weights, split=ONE_RANK):
         """sum(w * per-example loss) of these rows over the global sum of the

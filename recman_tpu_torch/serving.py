@@ -41,6 +41,7 @@ import torch
 
 from .ckpt import load_feat_dict, load_hparams, restore_params
 from .device import resolve_device
+from .obs.trace import span
 from .ops.embedding import QuantTable, fused_grad, quantize_table_int8
 from .training import batch_indices, gather_batch
 
@@ -55,6 +56,15 @@ PLATFORMS = ("cpu", "cuda")
 TABLE_SUFFIXES = ("_feat_embed", "_feat_embed_q", "_feat_embed_r")
 
 __all__ = ["ExportedPredictor", "Predictor", "batch_indices", "op_nodes"]
+
+# Rows scored (ROWS), padding rows scored beside them (PADDED_ROWS: the
+# last batch's tail, ``n // batch_size + 1`` batches a request) and bytes
+# copied to the device (H2D_BYTES: the columns, the row indices and the
+# override vector), counted by ``Predictor.predict`` from sizes alone; no
+# counter reads a tensor's values.
+ROWS = 0
+PADDED_ROWS = 0
+H2D_BYTES = 0
 
 
 def program_file(platforms, platform) -> str:
@@ -107,28 +117,39 @@ class Predictor:
 
     def predict(self, X, apply_overrides=True) -> np.ndarray:
         """Batched scoring of a dataframe or an encoded-array dict."""
-        data = dict(X) if isinstance(X, dict) else self.model.feat_dict.transform(X)
-        data.pop("y", None)
-        n = len(next(iter(data.values())))
-        data = {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in data.items()}
-        override = self._override(apply_overrides)
-        idx = torch.as_tensor(batch_indices(n, self.batch_size)).to(self.device)
-        with torch.inference_mode():
-            outs = [
-                self.model.apply(
-                    self.params, gather_batch(data, idx[i])[0], training=False,
-                    linear_override=override,
-                )
-                for i in range(idx.shape[0])
-            ]
-            return torch.cat(outs).cpu().numpy()[:n]
+        global ROWS, PADDED_ROWS, H2D_BYTES
+        with span("predict"):
+            data = dict(X) if isinstance(X, dict) else self.model.feat_dict.transform(X)
+            data.pop("y", None)
+            n = len(next(iter(data.values())))
+            with span("predict.h2d"):
+                data = {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                        for k, v in data.items()}
+                override = self._override(apply_overrides)
+                rows = batch_indices(n, self.batch_size)
+                idx = torch.as_tensor(rows).to(self.device)
+            ROWS += n
+            PADDED_ROWS += rows.size - n
+            H2D_BYTES += sum(t.nbytes for t in data.values()) + idx.nbytes + (
+                0 if override is None else override.nbytes)
+            with torch.inference_mode():
+                outs = []
+                for i in range(idx.shape[0]):
+                    with span("predict.forward"):
+                        outs.append(self.model.apply(
+                            self.params, gather_batch(data, idx[i])[0], training=False,
+                            linear_override=override,
+                        ))
+                with span("predict.d2h"):
+                    return torch.cat(outs).cpu().numpy()[:n]
 
     def _override(self, apply_overrides):
         """The linear tower's override vector on the device, or None."""
         linear = getattr(self.model, "linear", None)
         if not apply_overrides or linear is None:
             return None
-        return torch.as_tensor(linear.override_vector()).to(self.device)
+        with span("predict.override"):
+            return torch.as_tensor(linear.override_vector()).to(self.device)
 
     def export(self, directory, sample_X, batch_size=None, platforms=None,
                apply_overrides=True, quantize_embeddings=False):

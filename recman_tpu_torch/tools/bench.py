@@ -13,8 +13,6 @@ steps and prints one JSON line:
 - ``ms_per_step``: the median device time of a step, CUDA events recorded
   between consecutive steps (the host runs ahead, so an interval is the
   step's time on the card and the card's wait for the host);
-- ``busy_share``: the kernels' time per step in a profile of 3 steps over
-  ``ms_per_step`` (as ``chip_smoke.py``'s ``profile_device`` reads it);
 - ``mfu`` and ``hbm_util``: ``step_cost_model``'s operations and bytes per
   step over the wall time, against the H100's 989 TFLOP/s dense bf16 and
   3.35 TB/s, with ``model_gflops_per_step`` and
@@ -69,7 +67,6 @@ NUM_BUCKETS = 100_000
 N_ROWS = 65_536
 WARMUP_STEPS = 5
 MEASURE_STEPS = 96
-PROFILE_STEPS = 3
 METRIC = "xdeepfm_criteo_train_examples_per_sec_per_chip"
 
 # H100 SXM peaks (NVIDIA data sheet, dense), the ones chip_smoke.py uses
@@ -324,12 +321,9 @@ def main(grad_kernel=None, device=None, per_table=False, num_buckets=NUM_BUCKETS
         elapsed = time.perf_counter() - t0
         after = launch_counts()
         ms = statistics.median(timer.step_ms())
-        kernels = kernel_times(lambda: one(0), PROFILE_STEPS, device) \
-            if device.type == "cuda" else {}
     losses = torch.stack(losses).cpu().numpy()
     if not np.isfinite(losses).all():
         raise FloatingPointError(f"non-finite loss in the timed steps: {losses.tolist()}")
-    kernel_ms = sum(kernels.values())
     hp = hparams or HPARAMS
     flops, hbm_bytes = step_cost_model(
         batch=batch_size, vocab=num_buckets, k=hp["embedding_size"],
@@ -341,7 +335,6 @@ def main(grad_kernel=None, device=None, per_table=False, num_buckets=NUM_BUCKETS
         "unit": "examples/sec",
         "ms_per_step": ms,
         "wall_ms_per_step": 1e3 * sec_per_step,
-        "busy_share": kernel_ms / ms if kernel_ms else None,
         "mfu": flops / sec_per_step / PEAK_BF16_FLOPS,
         "hbm_util": hbm_bytes / sec_per_step / PEAK_HBM_BYTES,
         "model_gflops_per_step": flops / 1e9,

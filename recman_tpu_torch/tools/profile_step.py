@@ -11,9 +11,8 @@ under conv/dot, the port's own kernels (the ``__global__`` functions of
 ``csrc/``: K1-K7) under hand-written where the reference had "pallas",
 NCCL and Gloo under allreduce. Memory copies and sets fall under
 copy/transpose. It prints the top ``--top`` names and one JSON line: ms
-per step by category, the profiled total, the busy share (the kernels'
-time per step over the step's device time, CUDA events between
-unprofiled steps) and the card's name and power limit.
+per step by category, the profiled total, the step's device time (CUDA
+events between unprofiled steps) and the card's name and power limit.
 
 On the CPU (``--device cpu``) it profiles the operators' self CPU time
 instead, under the same categories.
@@ -124,7 +123,6 @@ def run(steps=5, path="std", batch=None, top=40, device=None, num_buckets=bench.
         "ms_per_step_by_category": cats,
         "profiled_ms_per_step": total,
         "step_ms": step_ms,
-        "busy_share": total / step_ms if device.type == "cuda" and total else None,
         "hand_written": sorted(n for n in kernels if categorize(n) == "hand-written"),
         "device": device.type,
         "card": bench.card_of(device),

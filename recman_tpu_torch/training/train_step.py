@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.trace import span
 from ..ops.embedding import stacked_tables
 from ..utils import JaxKey
 from ..utils.sharded_run import current_run
@@ -431,8 +432,10 @@ def value_and_grads(objective, params: dict) -> tuple[torch.Tensor, dict]:
     objective does not use."""
     keys = list(params)
     leaves = [params[k].detach().requires_grad_(True) for k in keys]
-    value = objective(dict(zip(keys, leaves)))
-    grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    with span("train.loss"):
+        value = objective(dict(zip(keys, leaves)))
+    with span("train.backward"):
+        grads = torch.autograd.grad(value, leaves, allow_unused=True)
     return value.detach(), {
         k: torch.zeros_like(p) if g is None else g for k, p, g in zip(keys, leaves, grads)
     }
@@ -454,13 +457,14 @@ def loss_and_grads(model, params: dict, batch: dict, weights=None, generator=Non
 
 def _one_step(model, optimizer, state: TrainState, data: dict, idx, layout=(),
               names=None) -> tuple[TrainState, torch.Tensor]:
-    batch, weights = gather_batch(data, idx)
-    if layout:
-        batch = unpack_batch(batch, layout)
-    loss, grads = loss_and_grads(model, state.params, batch, weights, state.generator, names)
-    with torch.no_grad():
-        updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-        params = apply_updates(state.params, updates)
+    with span("train.step"):
+        batch, weights = gather_batch(data, idx)
+        if layout:
+            batch = unpack_batch(batch, layout)
+        loss, grads = loss_and_grads(model, state.params, batch, weights, state.generator, names)
+        with span("train.optimizer"), torch.no_grad():
+            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+            params = apply_updates(state.params, updates)
     return TrainState(params, opt_state, state.step + 1, state.generator), loss
 
 
